@@ -1,0 +1,158 @@
+// Hand-written Hopper (sm_90a) kernels of the MPC planner's substep.
+//
+// Each op is a __device__ per-element function plus a thin __global__
+// wrapper and an extern "C" launcher, so a later fused rollout kernel can
+// call the per-element functions from registers. Launchers take raw device
+// pointers and a cudaStream_t, launch on that stream, never synchronise and
+// never allocate; they return cudaGetLastError() for the Python wrapper to
+// check. Build (see quadruped_springs_tpu_torch/kernels.py):
+//   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
+//        -Xcompiler -fPIC -o libplanner_ops.so planner_ops.cu
+// No --use_fast_math: sqrtf and '/' stay IEEE so the kernels agree with
+// their PyTorch twins to rounding (FMA contraction is the only difference).
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kMotors = 12;   // 4 legs x (hip, thigh, calf)
+constexpr int kSites = 12;    // 4 feet, 4 knees, 4 trunk corners
+constexpr int kThreads = 256;
+
+// jnp.clip / torch.clamp semantics: max(x, lo) then min(., hi); a NaN x
+// stays NaN.
+__device__ __forceinline__ float clip(float x, float lo, float hi) {
+  x = x < lo ? lo : x;
+  return x > hi ? hi : x;
+}
+
+// ---------------------------------------------------------------------------
+// Kernel 1: PD motor torque + one-sided PEA spring torque.
+//
+// Replaces scripts/pallas_microbench.py:_actuation_kernel/fused_actuation
+// (the pl.pallas_call at :96) and, on the planner path,
+// quadruped_springs_tpu/ops/actuation.py pd_torque + spring_torque as
+// called per substep at quadruped_springs_tpu/solver/mpc.py:182-187.
+// Unlike the TPU kernel, spring stiffness and damping are per lane (the
+// bench randomizes them per scenario); no springs means k = b = 0.
+//
+// Bound on the H100: ~10 flops per element against ten 4-byte loads (40 B,
+// of which ~14 B come from device memory: q_des, q, qd and the lane's
+// spring k/b, shared by its four legs; the rest are cached per-motor
+// constants) and 8 B written, so it is memory- and, at 32,768 lanes x 12
+// motors, launch-bound. Design:
+// one thread per (lane, motor) over the row-major (N,12) arrays, so a warp
+// reads 128 contiguous bytes of each operand; the 12-entry constants are
+// read through the read-only cache. The real fix for launch-bound is the
+// fused rollout kernel that inlines actuation_elem.
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ void actuation_elem(
+    float q_des, float q, float qd, float kp, float kd, float limit,
+    float k, float b, float rest, float sign, float* tau, float* tau_motor) {
+  float t = -kp * (q - q_des) - kd * qd;
+  t = clip(t, -limit, limit);
+  float dq = q - rest;
+  float ts = (sign * dq >= 0.0f) ? (-k * dq - b * qd) : 0.0f;
+  *tau_motor = t;
+  *tau = t + ts;
+}
+
+__global__ void actuation_kernel(
+    const float* __restrict__ q_des, const float* __restrict__ q,
+    const float* __restrict__ qd, const float* __restrict__ kp,
+    const float* __restrict__ kd, const float* __restrict__ limits,
+    const float* __restrict__ spring_k, const float* __restrict__ spring_b,
+    const float* __restrict__ rest, const float* __restrict__ sign,
+    float* __restrict__ tau, float* __restrict__ tau_motor, int64_t n) {
+  int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  int motor = static_cast<int>(i % kMotors);
+  int64_t lane = i / kMotors;
+  int joint = motor % 3;
+  actuation_elem(q_des[i], q[i], qd[i], __ldg(kp + motor), __ldg(kd + motor),
+                 __ldg(limits + motor), spring_k[lane * 3 + joint],
+                 spring_b[lane * 3 + joint], __ldg(rest + joint),
+                 __ldg(sign + motor), tau + i, tau_motor + i);
+}
+
+// ---------------------------------------------------------------------------
+// Kernel 2: compliant normal force + regularized Coulomb friction (the
+// memoryless contact model of the planner).
+//
+// Replaces scripts/pallas_microbench.py:_contact_kernel/fused_contact (the
+// pl.pallas_call at :153) and the memoryless branch of
+// quadruped_springs_tpu/models/dynamics.py:contact_forces (:338-355,377).
+// Unlike the TPU kernel it covers all 12 collision sites, not the 4 feet,
+// and the impact-damping clamp is a flag, because the relaxed planner runs
+// without it.
+//
+// Bound on the H100: ~20 flops (one sqrt, one division) against 16 B read
+// (phi, v_w) plus 4 B of per-lane friction, and 17 B written per element:
+// memory- and launch-bound like kernel 1. Design: one thread per
+// (lane, site); v_w and f_world are (N,12,3) row-major, so a warp's 12-byte
+// records form one contiguous 384-byte span.
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ void contact_elem(
+    float phi, float vx, float vy, float vz, float mu, float kn, float dn,
+    float v_tol, bool clamp_damping, float* fx, float* fy, float* fz,
+    float* fn_out, bool* in_contact) {
+  bool inc = phi > 0.0f;
+  float elastic = kn * phi;
+  float damping = dn * (-vz);
+  if (clamp_damping) damping = clip(damping, -elastic, elastic);
+  float fn = elastic + damping;
+  fn = inc ? (fn < 0.0f ? 0.0f : fn) : 0.0f;
+  float vt2 = vx * vx + vy * vy;
+  float vt = sqrtf(vt2 < 1e-12f ? 1e-12f : vt2);
+  float scale = mu * fn / (vt < v_tol ? v_tol : vt);
+  *fx = -scale * vx;
+  *fy = -scale * vy;
+  *fz = fn;
+  *fn_out = fn;
+  *in_contact = inc;
+}
+
+__global__ void contact_kernel(
+    const float* __restrict__ phi, const float* __restrict__ v_w,
+    const float* __restrict__ mu, float kn, float dn, float v_tol,
+    int clamp_damping, float* __restrict__ f_world, float* __restrict__ fn,
+    bool* __restrict__ in_contact, int64_t n) {
+  int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  int64_t lane = i / kSites;
+  const float* v = v_w + 3 * i;
+  float* f = f_world + 3 * i;
+  contact_elem(phi[i], v[0], v[1], v[2], mu[lane], kn, dn, v_tol,
+               clamp_damping != 0, f, f + 1, f + 2, fn + i, in_contact + i);
+}
+
+inline unsigned int blocks_for(int64_t n) {
+  return static_cast<unsigned int>((n + kThreads - 1) / kThreads);
+}
+
+}  // namespace
+
+extern "C" int planner_actuation(
+    const float* q_des, const float* q, const float* qd, const float* kp,
+    const float* kd, const float* limits, const float* spring_k,
+    const float* spring_b, const float* rest, const float* sign, float* tau,
+    float* tau_motor, int64_t n_lanes, void* stream) {
+  int64_t n = n_lanes * kMotors;
+  actuation_kernel<<<blocks_for(n), kThreads, 0,
+                     static_cast<cudaStream_t>(stream)>>>(
+      q_des, q, qd, kp, kd, limits, spring_k, spring_b, rest, sign, tau,
+      tau_motor, n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int planner_contact(
+    const float* phi, const float* v_w, const float* mu, float kn, float dn,
+    float v_tol, int clamp_damping, float* f_world, float* fn,
+    bool* in_contact, int64_t n_lanes, void* stream) {
+  int64_t n = n_lanes * kSites;
+  contact_kernel<<<blocks_for(n), kThreads, 0,
+                   static_cast<cudaStream_t>(stream)>>>(
+      phi, v_w, mu, kn, dn, v_tol, clamp_damping, f_world, fn, in_contact, n);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -1,0 +1,483 @@
+"""Floating-base rigid-body dynamics for Go1, batched over a leading lane axis.
+
+Port of the structured ("ref") path of ``quadruped_springs_tpu.models.dynamics``:
+CRBA mass-matrix blocks and RNEA bias forces in base coordinates, the
+star-topology Schur solve (four 3x3 leg blocks + one 6x6 base block), 12-site
+compliant contact with regularized Coulomb friction, joint-limit penalty
+torques and the semi-implicit Euler step. Shapes keep the JAX layout with a
+lane axis N in front, e.g. body inertias are (N,4,3,6,6). Model fields in
+``go1_params.SCENARIO_FIELDS`` carry N lanes or 1 (broadcast).
+
+The memoryless contact law runs as the CUDA kernel ``contact`` of
+``csrc/planner_ops.cu`` on CUDA tensors and as ``contact_forces_plain`` on
+CPU tensors. The 3x3 and 6x6 solves are closed form (adjugate and unrolled
+Cholesky, as in ``dynamics_soa.py``), which keeps them free of library calls
+and host synchronisation. Foot-anchor stiction is not ported yet: it belongs
+to the closed-loop simulator slice (ROADMAP queue 1, item 10).
+
+Conventions: quaternions xyzw; spatial vectors [angular; linear]; the
+generalized velocity is u = [ω_b(3); v_b(3); qd(12)] in the base frame.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+
+import numpy as np
+import torch
+
+from quadruped_springs_tpu_torch import kernels
+from quadruped_springs_tpu_torch.models import spatial as sp
+from quadruped_springs_tpu_torch.models.go1_params import Go1Model
+
+# Real actuator joint limits used for the limit penalties.
+REAL_LOWER = np.array([-1.0471975512, -0.663225115758, -2.72271363311] * 4)
+REAL_UPPER = np.array([1.0471975512, 2.96705972839, -0.837758040957] * 4)
+
+KNEE_RADIUS = 0.008
+TRUNK_RADIUS = 0.055
+TRUNK_CORNERS = np.array([
+    [0.18, 0.065, 0.0], [0.18, -0.065, 0.0],
+    [-0.18, 0.065, 0.0], [-0.18, -0.065, 0.0],
+])
+N_SITES = 12  # 4 feet + 4 knees + 4 trunk corners
+
+_FOOT_ANCHOR_SLICE = ("foot-anchor stiction is not ported yet; it comes with the "
+                      "closed-loop simulator slice (ROADMAP queue 1, item 10)")
+
+
+@dataclasses.dataclass(frozen=True)
+class RobotState:
+    """Dynamic state of N robots (world-frame quantities)."""
+    pos: torch.Tensor        # (N,3) base origin
+    quat: torch.Tensor       # (N,4) xyzw, base->world
+    lin_vel: torch.Tensor    # (N,3) base origin velocity
+    ang_vel: torch.Tensor    # (N,3) angular velocity
+    q: torch.Tensor          # (N,12) joint angles
+    qd: torch.Tensor         # (N,12) joint velocities
+
+
+@dataclasses.dataclass(frozen=True)
+class SimParams:
+    """Contact / integration parameters. `friction` is a float or an (N,)
+    tensor of per-lane friction coefficients."""
+    dt: float = 0.001
+    contact_stiffness: float = 180000.0   # N/m
+    contact_damping: float = 100.0        # N s/m
+    friction: float | torch.Tensor = 1.0
+    slip_vel_tol: float = 0.02
+    joint_limit_stiffness: float = 300.0
+    joint_limit_damping: float = 3.0
+    on_rack: bool = False
+    # clamp |d·φ̇| <= k·φ in the normal force (stiff execution model only)
+    clamp_damping: bool = True
+
+
+def default_sim_params(dt: float = 0.001, on_rack: bool = False) -> SimParams:
+    """The 1 kHz simulator's contact constants (tuning notes in the JAX module)."""
+    return SimParams(dt=dt, on_rack=on_rack)
+
+
+@functools.lru_cache(maxsize=None)
+def _constants(device: torch.device, dtype: torch.dtype, foot_radius: float):
+    """Constant tensors on a device, made once: building them per call would
+    copy from the host, which synchronises a CUDA stream."""
+    t = lambda x: torch.as_tensor(np.asarray(x, np.float64), dtype=dtype, device=device)
+    return {
+        "real_lower": t(REAL_LOWER),
+        "real_upper": t(REAL_UPPER),
+        "trunk_corners": t(TRUNK_CORNERS),
+        "radii": t([foot_radius] * 4 + [KNEE_RADIUS] * 4 + [TRUNK_RADIUS] * 4),
+        "x_axis": t([1.0, 0.0, 0.0]),
+        "triu3": torch.ones(3, 3, dtype=torch.bool, device=device).triu(),
+    }
+
+
+def _consts(model: Go1Model, like: torch.Tensor):
+    return _constants(like.device, like.dtype, model.foot_radius)
+
+
+def _matvec(M, v):
+    return (M @ v[..., None])[..., 0]
+
+
+def _rmatvec(M, v):
+    """Mᵀ v."""
+    return (M.transpose(-1, -2) @ v[..., None])[..., 0]
+
+
+# ---------------------------------------------------------------------------
+# Forward kinematics of the dynamics tree (base frame)
+# ---------------------------------------------------------------------------
+
+def _rot_x(t):
+    c, s = torch.cos(t), torch.sin(t)
+    one, zero = torch.ones_like(t), torch.zeros_like(t)
+    return torch.stack([one, zero, zero, zero, c, -s, zero, s, c],
+                       dim=-1).reshape(t.shape + (3, 3))
+
+
+def _rot_y(t):
+    c, s = torch.cos(t), torch.sin(t)
+    one, zero = torch.ones_like(t), torch.zeros_like(t)
+    return torch.stack([c, zero, s, zero, one, zero, -s, zero, c],
+                       dim=-1).reshape(t.shape + (3, 3))
+
+
+def leg_fk_base(model: Go1Model, q: torch.Tensor):
+    """FK of all legs in the base frame for q (N,12).
+
+    Returns dict with R (N,4,3,3,3) body rotations (hip, thigh, calf),
+    o (N,4,3,3) body origins, axes (N,4,3,3) joint axes, foot (N,4,3).
+    """
+    ql = q.reshape(q.shape[0], 4, 3)
+    R1 = _rot_x(ql[..., 0])                    # (N,4,3,3)
+    R2 = R1 @ _rot_y(ql[..., 1])
+    R3 = R2 @ _rot_y(ql[..., 2])
+    o1 = model.hip_origins.expand(q.shape[0], 4, 3)
+    o2 = o1 + _matvec(R1, model.thigh_origins)
+    o3 = o2 + R2 @ model.calf_origin
+    foot = o3 + R3 @ model.foot_origin
+    a1 = _consts(model, q)["x_axis"].expand(q.shape[0], 4, 3)
+    a2 = R1[..., :, 1]                         # thigh axis: y of the hip frame
+    a3 = R2[..., :, 1]                         # calf axis: y of the thigh frame
+    return {"R": torch.stack([R1, R2, R3], dim=2),
+            "o": torch.stack([o1, o2, o3], dim=2),
+            "axes": torch.stack([a1, a2, a3], dim=2),
+            "foot": foot}
+
+
+def _motion_subspaces(fk):
+    """Plücker motion axes s = [a; o × a] per joint, base coords. (N,4,3,6)."""
+    a, o = fk["axes"], fk["o"]
+    return torch.cat([a, torch.linalg.cross(o, a)], dim=-1)
+
+
+def mass_matrix_blocks(model: Go1Model, q: torch.Tensor, fk=None):
+    """CRBA in base coordinates, in star-topology block form.
+
+    Returns A (N,6,6) base block, B (N,4,6,3) base-leg coupling, D (N,4,3,3)
+    leg blocks, and fk/s for reuse; fk gains "I", the body inertias about
+    the base origin (N,4,3,6,6), which bias_forces reads.
+    """
+    if fk is None:
+        fk = leg_fk_base(model, q)
+    s = _motion_subspaces(fk)
+    I_b = sp.transform_spatial_inertia(model.leg_inertias6, fk["R"], fk["o"])
+    fk = dict(fk, I=I_b)
+    Ic2 = I_b[:, :, 2]
+    Ic1 = I_b[:, :, 1] + Ic2
+    Ic0 = I_b[:, :, 0] + Ic1
+    Ic = torch.stack([Ic0, Ic1, Ic2], dim=2)
+    F = _matvec(Ic, s)                         # F[j] = Ic[j] s[j], (N,4,3,6)
+    B = F.transpose(-1, -2)                    # (N,4,6,3)
+    D = s @ F.transpose(-1, -2)                # D[i,j] = s_i . F_j, valid j >= i
+    D = torch.where(_consts(model, q)["triu3"], D, D.transpose(-1, -2))
+    A = model.trunk_inertia6 + Ic0.sum(dim=1)
+    return A, B, D, fk, s
+
+
+def bias_forces(model: Go1Model, state_rot, u, fk, s):
+    """RNEA with qdd=0 and the gravity trick (a_root = [0; -Rᵀg]).
+
+    state_rot: (N,3,3) base rotation. u: (N,18) generalized velocity.
+    fk and s come from mass_matrix_blocks (fk["I"]: body inertias in base
+    coordinates). Returns h: (N,18) bias force (Coriolis + centrifugal +
+    gravity).
+    """
+    n = u.shape[0]
+    v0 = u[:, :6]
+    qd = u[:, 6:].reshape(n, 4, 3)
+    I_legs = fk["I"]
+
+    v1 = v0[:, None] + s[:, :, 0] * qd[:, :, 0:1]
+    v2 = v1 + s[:, :, 1] * qd[:, :, 1:2]
+    v3 = v2 + s[:, :, 2] * qd[:, :, 2:3]
+    v = torch.stack([v1, v2, v3], dim=2)       # (N,4,3,6)
+
+    g_base = _rmatvec(state_rot, model.gravity)
+    a0 = torch.cat([torch.zeros_like(g_base), -g_base], dim=-1)
+    a1 = a0[:, None] + sp.spatial_cross_motion(v1, s[:, :, 0]) * qd[:, :, 0:1]
+    a2 = a1 + sp.spatial_cross_motion(v2, s[:, :, 1]) * qd[:, :, 1:2]
+    a3 = a2 + sp.spatial_cross_motion(v3, s[:, :, 2]) * qd[:, :, 2:3]
+    a = torch.stack([a1, a2, a3], dim=2)
+
+    Iv = _matvec(I_legs, v)
+    f = _matvec(I_legs, a) + sp.spatial_cross_force(v, Iv)
+    f2 = f[:, :, 2]
+    f1 = f[:, :, 1] + f2
+    f0 = f[:, :, 0] + f1
+    f_acc = torch.stack([f0, f1, f2], dim=2)
+    h_joints = (s * f_acc).sum(-1).reshape(n, 12)
+
+    Itv = _matvec(model.trunk_inertia6, v0)
+    f_trunk = _matvec(model.trunk_inertia6, a0) + sp.spatial_cross_force(v0, Itv)
+    h_base = f_trunk + f0.sum(dim=1)
+    return torch.cat([h_base, h_joints], dim=-1)
+
+
+def _inv3(M):
+    """Inverse of (...,3,3) M: the columns are cross products of its rows
+    over the determinant (the adjugate)."""
+    r0, r1, r2 = M[..., 0, :], M[..., 1, :], M[..., 2, :]
+    c0 = torch.linalg.cross(r1, r2)
+    det = (r0 * c0).sum(-1)
+    adj = torch.stack([c0, torch.linalg.cross(r2, r0), torch.linalg.cross(r0, r1)],
+                      dim=-1)
+    return adj / det[..., None, None]
+
+
+def _chol6_solve(S, b):
+    """Solve S x = b for symmetric (N,6,6) S by an unrolled Cholesky whose
+    pivots are floored at 1e-12, as dynamics_soa.chol6_solve does."""
+    n = S.shape[-1]
+    cols = []                                  # cols[j] = L[j:, j], (N, n-j)
+    M = S
+    for j in range(n):
+        d = torch.sqrt(torch.clamp_min(M[:, 0, 0], 1e-12))
+        col = torch.cat([d[:, None], M[:, 1:, 0] * (1.0 / d)[:, None]], dim=-1)
+        cols.append(col)
+        if j < n - 1:
+            M = M[:, 1:, 1:] - col[:, 1:, None] * col[:, None, 1:]
+    y = b
+    ys = []
+    for j in range(n):                         # forward: L y = b
+        yj = y[:, 0] / cols[j][:, 0]
+        ys.append(yj)
+        y = y[:, 1:] - cols[j][:, 1:] * yj[:, None]
+    xs = [None] * n
+    for i in reversed(range(n)):               # back: Lᵀ x = y
+        acc = ys[i]
+        for k in range(i + 1, n):
+            acc = acc - cols[i][:, k - i] * xs[k]
+        xs[i] = acc / cols[i][:, 0]
+    return torch.stack(xs, dim=-1)
+
+
+def solve_star(A, B, D, rhs_base, rhs_joints, eps: float = 1e-9):
+    """Solve [[A, B],[Bᵀ, D]] [a0; qdd] = [rhs_base; rhs_joints] with D
+    block-diagonal per leg. A (N,6,6), B (N,4,6,3), D (N,4,3,3)."""
+    n = A.shape[0]
+    eye3 = torch.eye(3, dtype=A.dtype, device=A.device)
+    eye6 = torch.eye(6, dtype=A.dtype, device=A.device)
+    Dinv = _inv3(D + eps * eye3)                         # (N,4,3,3)
+    rj = rhs_joints.reshape(n, 4, 3)
+    BDinv = B @ Dinv                                     # (N,4,6,3)
+    S = A - (BDinv @ B.transpose(-1, -2)).sum(dim=1)     # 6x6 Schur complement
+    t = rhs_base - _matvec(BDinv, rj).sum(dim=1)
+    a0 = _chol6_solve(S + eps * eye6, t)
+    qdd = _matvec(Dinv, rj - _rmatvec(B, a0[:, None]))
+    return a0, qdd.reshape(n, 12)
+
+
+# ---------------------------------------------------------------------------
+# Contact: 4 foot spheres, 4 knee spheres, 4 trunk corners
+# ---------------------------------------------------------------------------
+
+def contact_sites(model: Go1Model, fk):
+    """Base-frame positions (N,12,3) and radii (12,) of the collision sites."""
+    feet = fk["foot"]
+    c = _consts(model, feet)
+    trunk = c["trunk_corners"].expand(feet.shape[0], 4, 3)
+    return torch.cat([feet, fk["o"][:, :, 2], trunk], dim=1), c["radii"]
+
+
+def site_state_world(model: Go1Model, state: RobotState, fk=None, R=None):
+    """World positions and velocities (N,12,3) of the 12 collision sites."""
+    if fk is None:
+        fk = leg_fk_base(model, state.q)
+    if R is None:
+        R = sp.quat_to_mat(state.quat)
+    n = state.q.shape[0]
+    pts_b, radii = contact_sites(model, fk)
+    Rt = R.transpose(-1, -2)
+    p_w = state.pos[:, None] + pts_b @ Rt
+    w_b = _rmatvec(R, state.ang_vel)
+    v_b = _rmatvec(R, state.lin_vel)
+    qd = state.qd.reshape(n, 4, 3)
+    # joint contribution Σ_i a_i × (p - o_i) qd_i for the feet and knees of
+    # each leg; zero for the trunk corners
+    leg_pts = pts_b[:, :8].reshape(n, 2, 4, 3)
+    arm = leg_pts[:, :, :, None, :] - fk["o"][:, None]           # (N,2,4,3,3)
+    Jqd = (torch.linalg.cross(fk["axes"][:, None].expand_as(arm), arm)
+           * qd[:, None, :, :, None]).sum(dim=3).reshape(n, 8, 3)
+    Jqd = torch.cat([Jqd, torch.zeros_like(Jqd[:, :4])], dim=1)
+    v_pt_b = v_b[:, None] + torch.linalg.cross(w_b[:, None].expand_as(pts_b), pts_b) + Jqd
+    return p_w, v_pt_b @ Rt, radii, fk
+
+
+def contact_forces_plain(phi, v_w, mu, kn: float, dn: float, v_tol: float,
+                         clamp_damping: bool):
+    """Compliant normal force + viscous-regularized Coulomb friction.
+
+    phi: (N,12) penetration depth. v_w: (N,12,3) world site velocities.
+    mu: float or (N,) per lane. Returns f_world (N,12,3), fn (N,12),
+    in_contact (N,12). The plain twin of the `contact` CUDA kernel.
+    """
+    in_contact = phi > 0.0
+    elastic = kn * phi
+    damping = dn * (-v_w[..., 2])
+    if clamp_damping:
+        damping = torch.clamp(damping, -elastic, elastic)
+    fn = torch.where(in_contact, torch.clamp_min(elastic + damping, 0.0),
+                     torch.zeros_like(phi))
+    vt = v_w[..., :2]
+    n2 = (vt * vt).sum(-1)
+    vt_norm = torch.sqrt(torch.where(n2 < 1e-12, torch.full_like(n2, 1e-12), n2))
+    if torch.is_tensor(mu):
+        mu = mu[..., None]
+    scale = mu * fn / torch.clamp_min(vt_norm, v_tol)
+    f_world = torch.cat([-scale[..., None] * vt, fn[..., None]], dim=-1)
+    return f_world, fn, in_contact
+
+
+def contact_forces(model: Go1Model, params: SimParams, p_w, v_w, radii,
+                   foot_anchor=None):
+    """Memoryless compliant contact at the sites (the planner's model).
+
+    p_w, v_w: (N,12,3); radii: (12,). Returns (f_world (N,12,3), fn (N,12), in_contact
+    (N,12), None). CUDA tensors launch the `contact` kernel; CPU tensors take
+    contact_forces_plain.
+    """
+    if foot_anchor is not None:
+        raise NotImplementedError(_FOOT_ANCHOR_SLICE)
+    phi = radii - p_w[..., 2]
+    mu, kn, dn = params.friction, params.contact_stiffness, params.contact_damping
+    if phi.device.type == "cpu":
+        return (*contact_forces_plain(phi, v_w, mu, kn, dn, params.slip_vel_tol,
+                                      params.clamp_damping), None)
+    if phi.device.type != "cuda":
+        raise ValueError(f"contact_forces: no kernel for device {phi.device}")
+    n = phi.shape[0]
+    dev = phi.device
+    if not torch.is_tensor(mu):
+        mu = torch.full((n,), float(mu), dtype=torch.float32, device=dev)
+    for name, t, shape in (("phi", phi, (n, N_SITES)), ("v_w", v_w, (n, N_SITES, 3)),
+                           ("friction", mu, (n,))):
+        kernels.check_tensor(name, t, shape, dev)
+    f_world = torch.empty_like(v_w)
+    fn = torch.empty_like(phi)
+    in_contact = torch.empty(phi.shape, dtype=torch.bool, device=dev)
+    if n == 0:
+        return f_world, fn, in_contact, None
+    lib = kernels.library()
+    with torch.cuda.device(dev):
+        err = lib.planner_contact(
+            phi.data_ptr(), v_w.data_ptr(), mu.data_ptr(), float(kn), float(dn),
+            float(params.slip_vel_tol), int(params.clamp_damping),
+            f_world.data_ptr(), fn.data_ptr(), in_contact.data_ptr(), n,
+            kernels.stream_handle(dev))
+    kernels.check_launch("planner_contact", err)
+    contact_forces.launches += 1
+    return f_world, fn, in_contact, None
+
+
+contact_forces.launches = 0
+
+
+def _generalized_contact_force(model: Go1Model, fk, s, R, f_world):
+    """Map world site forces (N,12,3) to generalized forces in base coords.
+
+    Feet (0-3) and knees (4-7) ride on the calf bodies, so all three joints
+    of their leg receive s_iᵀ f; trunk corners (8-11) give a base wrench only.
+    """
+    f_b = f_world @ R                                    # world -> base
+    pts, _ = contact_sites(model, fk)
+    f_spatial = torch.cat([torch.linalg.cross(pts, f_b), f_b], dim=-1)  # (N,12,6)
+    f_legs = f_spatial[:, :4] + f_spatial[:, 4:8]
+    tau_joints = _matvec(s, f_legs).reshape(f_world.shape[0], 12)
+    return f_spatial.sum(dim=1), tau_joints
+
+
+# ---------------------------------------------------------------------------
+# Step
+# ---------------------------------------------------------------------------
+
+def _forward(model, params, state, tau, R, ext_force_world=None, foot_anchor=None):
+    """forward_dynamics with the base rotation given; also returns w_b, v_b."""
+    if foot_anchor is not None:
+        raise NotImplementedError(_FOOT_ANCHOR_SLICE)
+    w_b = _rmatvec(R, state.ang_vel)
+    v_b = _rmatvec(R, state.lin_vel)
+    u = torch.cat([w_b, v_b, state.qd], dim=-1)
+
+    A, B, D, fk, s = mass_matrix_blocks(model, state.q)
+    h = bias_forces(model, R, u, fk, s)
+
+    p_w, v_w, radii, _ = site_state_world(model, state, fk, R)
+    f_world, fn, in_contact, _ = contact_forces(model, params, p_w, v_w, radii)
+    f_base_c, tau_c = _generalized_contact_force(model, fk, s, R, f_world)
+
+    # joint-limit penalty torques
+    c = _consts(model, state.q)
+    over = torch.clamp_min(state.q - c["real_upper"], 0.0)
+    under = torch.clamp_min(c["real_lower"] - state.q, 0.0)
+    tau_lim = (-params.joint_limit_stiffness * over
+               + params.joint_limit_stiffness * under
+               - params.joint_limit_damping * state.qd * ((over > 0) | (under > 0)))
+
+    rhs_base = -h[:, :6] + f_base_c
+    if ext_force_world is not None:
+        f_ext_b = _rmatvec(R, ext_force_world)
+        rhs_base = rhs_base + torch.cat([torch.zeros_like(f_ext_b), f_ext_b], dim=-1)
+    rhs_joints = tau + tau_c + tau_lim - h[:, 6:]
+    n = state.q.shape[0]
+    if params.on_rack:
+        # base welded in the air: a0 ≡ 0 and the legs decouple
+        a0 = torch.zeros_like(rhs_base)
+        eye3 = torch.eye(3, dtype=D.dtype, device=D.device)
+        qdd = _matvec(_inv3(D + 1e-9 * eye3), rhs_joints.reshape(n, 4, 3))
+        qdd = qdd.reshape(n, 12)
+    else:
+        a0, qdd = solve_star(A, B, D, rhs_base, rhs_joints)
+    info = {
+        "foot_pos_world": p_w[:, :4],
+        "foot_vel_world": v_w[:, :4],
+        "foot_forces": fn[:, :4],
+        "feet_in_contact": in_contact[:, :4],
+        "contact_force_world": f_world[:, :4],
+        # non-foot ground contact = the invalid-contact termination surface
+        "invalid_contact": in_contact[:, 4:].any(dim=-1),
+    }
+    return a0, qdd, info, w_b, v_b
+
+
+def forward_dynamics(model: Go1Model, params: SimParams, state: RobotState,
+                     tau, ext_force_world=None, foot_anchor=None):
+    """One evaluation of the equations of motion for N lanes.
+
+    tau: (N,12) joint torques (motor + spring). ext_force_world: optional
+    (N,3) force at the trunk origin. Returns (a0 (N,6), qdd (N,12), info).
+    """
+    R = sp.quat_to_mat(state.quat)
+    a0, qdd, info, _, _ = _forward(model, params, state, tau, R,
+                                   ext_force_world, foot_anchor)
+    return a0, qdd, info
+
+
+def step(model: Go1Model, params: SimParams, state: RobotState, tau,
+         velocity_limits, ext_force_world=None, foot_anchor=None):
+    """Semi-implicit Euler step at params.dt, joint velocities clamped to
+    ±velocity_limits. Returns (new_state, info)."""
+    R = sp.quat_to_mat(state.quat)
+    a0, qdd, info, w_b, v_b = _forward(model, params, state, tau, R,
+                                       ext_force_world, foot_anchor)
+    dt = params.dt
+    w_b = w_b + dt * a0[:, :3]
+    v_b = v_b + dt * a0[:, 3:]
+    qd = torch.clamp(state.qd + dt * qdd, -velocity_limits, velocity_limits)
+    if params.on_rack:
+        w_b = torch.zeros_like(w_b)
+        v_b = torch.zeros_like(v_b)
+    quat = sp.quat_integrate(state.quat, w_b, dt)
+    lin_vel = _matvec(R, v_b)
+    new_state = RobotState(
+        pos=state.pos + dt * lin_vel,
+        quat=quat,
+        lin_vel=lin_vel,
+        ang_vel=_matvec(R, w_b),
+        q=state.q + dt * qd,
+        qd=qd,
+    )
+    return new_state, info

@@ -1,0 +1,192 @@
+"""MPC problem assembly: Go1 planner dynamics + task costs + the MPPI solver.
+
+Port of ``quadruped_springs_tpu.solver.mpc`` for the sampling planner. The
+iLQR methods of the JAX class (``solve``, ``solve_batch``, ``mpc_step``)
+come with the iLQR slice (ROADMAP queue 1, item 11), and so do the
+MPCConfig fields that only they read; ``cost_overrides`` and ``iface_task``
+come with the task costs that read them.
+
+State vector layout (n=37): [pos(3), quat(4), lin_vel(3), ang_vel(3),
+q(12), qd(12)].
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from quadruped_springs_tpu_torch.control import interfaces as ci
+from quadruped_springs_tpu_torch.env import randomizers as rnd
+from quadruped_springs_tpu_torch.models import dynamics as dyn
+from quadruped_springs_tpu_torch.models.go1_params import Go1Model, go1_config
+from quadruped_springs_tpu_torch.ops import actuation as act
+from quadruped_springs_tpu_torch.solver import mppi
+from quadruped_springs_tpu_torch.tasks import costs as task_costs
+
+N_STATE = 37
+
+
+def state_to_vec(s: dyn.RobotState) -> torch.Tensor:
+    return torch.cat([s.pos, s.quat, s.lin_vel, s.ang_vel, s.q, s.qd], dim=-1)
+
+
+def vec_to_state(x: torch.Tensor) -> dyn.RobotState:
+    return dyn.RobotState(pos=x[..., 0:3], quat=x[..., 3:7], lin_vel=x[..., 7:10],
+                          ang_vel=x[..., 10:13], q=x[..., 13:25], qd=x[..., 25:37])
+
+
+@dataclasses.dataclass(frozen=True)
+class MPCConfig:
+    task: str = "JUMPING_IN_PLACE"
+    enable_springs: bool = True
+    motor_control_mode: str = "PD"
+    action_space_mode: str = "SYMMETRIC"
+    horizon: int = 50
+    action_repeat: int = 10       # 1 kHz substeps per 100 Hz knot (execution)
+    time_step: float = 0.001
+    iterations: int = 10
+    # Planner integration: 2 substeps per 100 Hz knot (200 Hz) on a relaxed
+    # contact (4 kN/m, 40 N s/m) by default; MPCConfig.full_rate() plans on
+    # the 1 kHz execution model instead. The JAX module gives the reasons.
+    solver_substeps: int = 2
+    contact_stiffness: float = 4000.0
+    contact_damping: float = 40.0
+    clamp_damping: bool = False
+
+    @classmethod
+    def full_rate(cls, **kw) -> "MPCConfig":
+        """Execution-rate planner: 10x1 ms substeps, kn=180 kN/m, dn=100 N s/m,
+        damping clamp on (memoryless friction, no anchor stiction)."""
+        kw.setdefault("solver_substeps", 10)
+        kw.setdefault("contact_stiffness", 180000.0)
+        kw.setdefault("contact_damping", 100.0)
+        kw.setdefault("clamp_damping", True)
+        return cls(**kw)
+
+    @property
+    def planner_desc(self) -> str:
+        """One-token description of the planner model, e.g. 'planner@200Hz-4kN-relaxed'."""
+        hz = int(round(self.solver_substeps / (self.time_step * self.action_repeat)))
+        return (f"planner@{hz}Hz-{self.contact_stiffness / 1000:g}kN"
+                + ("" if self.clamp_damping else "-relaxed"))
+
+
+@dataclasses.dataclass(frozen=True)
+class LaneParams:
+    """Per-lane constants of the planner dynamics for N = B·R lanes
+    (scenario-major), built once per solve and reused by every knot."""
+    model: Go1Model          # scenario fields with N lanes
+    params: dyn.SimParams    # friction (N,)
+    spring_k: torch.Tensor   # (N,3); zeros without springs
+    spring_b: torch.Tensor   # (N,3)
+
+
+class MPCProblem:
+    """Static problem definition on one device; exposes dynamics/cost/solve."""
+
+    def __init__(self, config: MPCConfig = MPCConfig(), device=None):
+        self.config = config
+        self.device = torch.device(device if device is not None else "cpu")
+        self.cfg = go1_config(config.enable_springs, self.device)
+        self.iface = ci.make_interface(self.cfg, config.motor_control_mode,
+                                       config.action_space_mode, config.task)
+        self.action_dim = self.iface.action_dim
+        knot_dt = config.time_step * config.action_repeat
+        self.sim_params = dataclasses.replace(
+            dyn.default_sim_params(knot_dt / config.solver_substeps),
+            contact_stiffness=config.contact_stiffness,
+            contact_damping=config.contact_damping,
+            clamp_damping=config.clamp_damping)
+        self.stage_cost, self.terminal_cost = task_costs.make_cost(
+            config.task, self.cfg, self.action_dim, config.horizon)
+        self.engage_sign = torch.as_tensor(act.SPRING_ENGAGE_SIGN, dtype=torch.float32,
+                                           device=self.device)
+
+    def lane_params(self, scenario: rnd.ScenarioParams | None = None,
+                    repeats: int = 1) -> LaneParams:
+        """Expand B scenarios (nominal: one) to B·repeats lanes."""
+        if scenario is None:
+            scenario = rnd.nominal_params(self.cfg)
+        model = rnd.model_from_params(scenario).repeat_lanes(repeats)
+        per_lane = lambda t: t.repeat_interleave(repeats, dim=0).contiguous()
+        k, b = per_lane(scenario.spring_stiffness), per_lane(scenario.spring_damping)
+        if not self.cfg.enable_springs:
+            k, b = torch.zeros_like(k), torch.zeros_like(b)
+        params = dataclasses.replace(self.sim_params,
+                                     friction=per_lane(scenario.friction))
+        return LaneParams(model=model, params=params, spring_k=k, spring_b=b)
+
+    # -- dynamics: one 100 Hz control knot = solver_substeps planner substeps --
+    def dynamics(self, x: torch.Tensor, u: torch.Tensor,
+                 lanes: LaneParams) -> torch.Tensor:
+        """One planner knot for N lanes: x (N,37), u (N,m) -> (N,37), with
+        the lanes' constants from lane_params."""
+        cfg = self.cfg
+        q_des = ci.action_to_command(self.iface, u).contiguous()
+        s = vec_to_state(x)
+        for _ in range(self.config.solver_substeps):
+            tau, _ = act.actuation_torque(
+                q_des, s.q.contiguous(), s.qd.contiguous(), cfg.motor_kp, cfg.motor_kd,
+                cfg.torque_limits, lanes.spring_k, lanes.spring_b,
+                cfg.spring_rest_angles, self.engage_sign)
+            s, _ = dyn.step(lanes.model, lanes.params, s, tau, cfg.velocity_limits)
+        return state_to_vec(s)
+
+    # -- solve ------------------------------------------------------------
+    def solve_mppi(self, x0: torch.Tensor, u_init: torch.Tensor,
+                   generator: torch.Generator | None = None,
+                   config: mppi.MPPIConfig | None = None,
+                   scenario: rnd.ScenarioParams | None = None,
+                   noise: torch.Tensor | None = None) -> mppi.MPPISolution:
+        """Sampling-based solve of B problems: x0 (B,37), u_init (B,H,m), one
+        scenario per problem (nominal when None). See mppi.solve for `noise`.
+        """
+        if config is None:
+            config = mppi.MPPIConfig(horizon=self.config.horizon,
+                                     iterations=self.config.iterations)
+        if scenario is None:
+            scenario = rnd.nominal_params(self.cfg, x0.shape[0])
+        lanes = {}   # sequences per problem -> LaneParams, built once per solve
+
+        def dyn_fn(x, u):
+            B, R = x.shape[:2]
+            if R not in lanes:
+                lanes[R] = self.lane_params(scenario, R)
+            out = self.dynamics(x.reshape(B * R, -1), u.reshape(B * R, -1), lanes[R])
+            return out.reshape(B, R, -1)
+
+        return mppi.solve(dyn_fn, self.stage_cost, self.terminal_cost, x0, u_init,
+                          config, generator, noise)
+
+    # -- convenience -------------------------------------------------------
+    def default_x0(self) -> torch.Tensor:
+        z3 = torch.zeros(3, device=self.device)
+        return state_to_vec(dyn.RobotState(
+            pos=self.cfg.init_position,
+            quat=torch.tensor([0.0, 0.0, 0.0, 1.0], device=self.device),
+            lin_vel=z3, ang_vel=z3, q=self.cfg.init_joint_angles,
+            qd=torch.zeros(12, device=self.device)))
+
+    def default_warm_start(self) -> torch.Tensor:
+        a0 = ci.command_to_action(self.iface, self.iface.init_pose)
+        return a0.expand(self.config.horizon, self.action_dim)
+
+    def task_warm_start(self, crouch_knots: int | None = None) -> torch.Tensor:
+        """Crouch-then-extend warm start for the jumping tasks."""
+        H = self.config.horizon
+        task = self.config.task
+        if crouch_knots is None:
+            crouch_knots = max(H // 3, 4)
+        hold = self.default_warm_start()
+        if self.config.action_space_mode != "SYMMETRIC":
+            return hold
+        if "JUMPING" in task or "BACKFLIP" in task:
+            t = lambda v: torch.tensor(v, device=self.device)
+            crouch = t([0.0, 0.4, -0.8, 0.0, 0.4, -0.8])
+            extend = t([0.0, -0.4, 1.0, 0.0, -0.4, 1.0])
+            if task.startswith("BACKFLIP"):
+                extend = t([0.0, -0.2, 0.6, 0.0, -0.6, 1.0])
+            ramp = (torch.arange(H, device=self.device) < crouch_knots)[:, None]
+            return torch.where(ramp, crouch, extend)
+        return hold
