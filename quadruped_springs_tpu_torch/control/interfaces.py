@@ -2,19 +2,21 @@
 
 Port of ``quadruped_springs_tpu.control.interfaces``. Transforms broadcast
 over leading dimensions: an action is (..., action_dim), a command
-(..., 12). The CARTESIAN_PD command needs the analytic IK of
-``models/kinematics.py``, which comes with the slice that ports the
-closed-loop simulator (ROADMAP queue 1, slice 4); until then
-``action_to_command`` raises for it.
+(..., 12). For CARTESIAN_PD the interface-space command is foot positions
+in the leg frames, turned into joint angles by the analytic IK of
+``models/kinematics.py``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
+import numpy as np
 import torch
 
+from quadruped_springs_tpu_torch.models import kinematics as kin
 from quadruped_springs_tpu_torch.models.go1_params import NUM_MOTORS, Go1Config
 
 MOTOR_MODES = ("PD", "CARTESIAN_PD", "TORQUE")
@@ -91,10 +93,17 @@ def scale_command_to_action(iface: ControlInterface, cmd):
     return torch.clamp(a, -1.0, 1.0)
 
 
+@functools.lru_cache(maxsize=None)
+def _mirror_on(symm_idx: int, device: torch.device, dtype: torch.dtype):
+    # made once per device: writing the -1 into a device tensor at every call
+    # copies it from the host, which synchronises the stream
+    mirror = np.ones(3)
+    mirror[symm_idx] = -1.0
+    return torch.as_tensor(mirror, dtype=dtype, device=device)
+
+
 def _mirror(iface: ControlInterface, like):
-    mirror = torch.ones(3, dtype=like.dtype, device=like.device)
-    mirror[iface.symm_idx] = -1.0
-    return mirror
+    return _mirror_on(iface.symm_idx, like.device, like.dtype)
 
 
 def expand_action(iface: ControlInterface, action):
@@ -131,14 +140,38 @@ def contract_action(iface: ControlInterface, action12):
 
 def action_to_command(iface: ControlInterface, action):
     """Policy action (..., action_dim) -> motor command (..., 12): desired
-    joint angles for PD, raw torques for TORQUE."""
+    joint angles for PD and, through the IK, for CARTESIAN_PD; raw torques
+    for TORQUE."""
+    cmd = scale_action_to_command(iface, expand_action(iface, action))
     if iface.motor_control_mode == "CARTESIAN_PD":
-        raise NotImplementedError(
-            "CARTESIAN_PD needs the analytic IK of models/kinematics.py, which "
-            "the port brings with slice 4 (ROADMAP queue 1, item 12)")
-    return scale_action_to_command(iface, expand_action(iface, action))
+        cmd = kin.inverse_kinematics_flat(cmd)
+    return cmd
+
+
+# the robot-level command (joint angles, or torques for TORQUE) is what
+# action_to_command returns
+action_to_robot_command = action_to_command
 
 
 def command_to_action(iface: ControlInterface, command):
-    """Motor command (..., 12) in interface space -> policy action."""
+    """Motor command (..., 12) in interface space -> policy action (for
+    CARTESIAN_PD the command is foot positions)."""
     return contract_action(iface, scale_command_to_action(iface, command))
+
+
+def reference_to_command(iface: ControlInterface, reference):
+    """Project a reference pose onto the achievable command set."""
+    return action_to_command(iface, command_to_action(iface, reference))
+
+
+def init_action(iface: ControlInterface):
+    """Action that drives the robot toward the init pose."""
+    return command_to_action(iface, iface.init_pose)
+
+
+def landing_action(iface: ControlInterface):
+    return command_to_action(iface, iface.landing_pose)
+
+
+def settling_action(iface: ControlInterface):
+    return command_to_action(iface, iface.settling_pose)

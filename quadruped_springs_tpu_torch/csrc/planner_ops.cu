@@ -1,4 +1,5 @@
-// Hand-written Hopper (sm_90a) kernels of the MPC planner's substep.
+// Hand-written Hopper (sm_90a) kernels of the MPC planner's and the
+// environment's 1 kHz substep.
 //
 // Each op is a __device__ per-element function plus a thin __global__
 // wrapper and an extern "C" launcher, so a later fused rollout kernel can
@@ -127,6 +128,101 @@ __global__ void contact_kernel(
                clamp_damping != 0, f, f + 1, f + 2, fn + i, in_contact + i);
 }
 
+// ---------------------------------------------------------------------------
+// Kernel 3: the environment's contact law -- kernel 2 at the knees and trunk
+// corners, anchor-spring stiction (Cundall / bristle model) at the feet.
+//
+// Replaces, on the env path, the anchored branch of
+// quadruped_springs_tpu/models/dynamics.py:contact_forces (:357-376) and
+// dynamics_soa.py:426-444, which XLA fused into the TPU's dynamics graph;
+// it extends scripts/pallas_microbench.py:fused_contact (the pl.pallas_call
+// at :153), whose feet had no memory.
+//
+// The two JAX paths differ in the floor of |f_trial|^2: the structured
+// path ("ref", dynamics.py:362, through spatial.safe_norm) floors it at
+// 1e-12, the scalarized one ("soa", dynamics_soa.py:433-434) at 1e-18.
+// This kernel and its twin follow ref (1e-12). They differ from soa only
+// where |f_trial| <= mu*fn < 1e-6 N: ref then slides the anchor (its
+// floored norm puts the force outside the tiny cone) and soa keeps it,
+// with the tangential force below 1e-6 N either way. The ref path's slid anchor
+// is computed from the unmasked clipped force and soa's from the masked
+// one; both keep it only in contact, so they agree.
+//
+// Bound on the H100: a foot reads 36 B (phi, v, p_xy, anchor, mu) and
+// writes 25 B for ~30 flops (one sqrt, three divisions); like kernel 2 it
+// is memory- and launch-bound. Design: one thread per (lane, site) over
+// the same row-major layout as kernel 2; threads of sites 4-11 run
+// contact_elem, threads of sites 0-3 anchored_foot_elem. The branch splits
+// a warp (12 sites per lane), which costs nothing measurable at this
+// arithmetic intensity; the fused env-step kernel inlines the per-element
+// functions instead.
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ void anchored_foot_elem(
+    float phi, float vx, float vy, float vz, float px, float py, float ax,
+    float ay, float mu, float kn, float dn, float kt, float ct,
+    bool clamp_damping, float* fx, float* fy, float* fz, float* fn_out,
+    bool* in_contact, float* ax_out, float* ay_out) {
+  bool inc = phi > 0.0f;
+  float elastic = kn * phi;
+  float damping = dn * (-vz);
+  if (clamp_damping) damping = clip(damping, -elastic, elastic);
+  float fn = elastic + damping;
+  fn = inc ? (fn < 0.0f ? 0.0f : fn) : 0.0f;
+  float tx = -kt * (px - ax) - ct * vx;
+  float ty = -kt * (py - ay) - ct * vy;
+  float t2 = tx * tx + ty * ty;
+  float tnorm = sqrtf(t2 < 1e-12f ? 1e-12f : t2);
+  float fmax = mu * fn;
+  float s = fmax / tnorm;           // the floor on t2 keeps tnorm >= 1e-6
+  s = s > 1.0f ? 1.0f : s;
+  float ffx = tx * s;
+  float ffy = ty * s;
+  float nax = ax, nay = ay;
+  if (s < 1.0f) {                   // on the cone: the anchor slides
+    nax = px + ffx / kt;
+    nay = py + ffy / kt;
+  }
+  if (!inc) {                       // out of contact: re-anchor in place
+    nax = px;
+    nay = py;
+    ffx = 0.0f;
+    ffy = 0.0f;
+  }
+  *fx = ffx;
+  *fy = ffy;
+  *fz = fn;
+  *fn_out = fn;
+  *in_contact = inc;
+  *ax_out = nax;
+  *ay_out = nay;
+}
+
+__global__ void contact_anchored_kernel(
+    const float* __restrict__ phi, const float* __restrict__ v_w,
+    const float* __restrict__ p_w, const float* __restrict__ anchor,
+    const float* __restrict__ mu, float kn, float dn, float kt, float ct,
+    float v_tol, int clamp_damping, float* __restrict__ f_world,
+    float* __restrict__ fn, bool* __restrict__ in_contact,
+    float* __restrict__ new_anchor, int64_t n) {
+  int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  int64_t lane = i / kSites;
+  int site = static_cast<int>(i % kSites);
+  const float* v = v_w + 3 * i;
+  float* f = f_world + 3 * i;
+  if (site < 4) {
+    const float* p = p_w + 3 * i;
+    int64_t a = 2 * (lane * 4 + site);
+    anchored_foot_elem(phi[i], v[0], v[1], v[2], p[0], p[1], anchor[a],
+                       anchor[a + 1], mu[lane], kn, dn, kt, ct,
+                       clamp_damping != 0, f, f + 1, f + 2, fn + i,
+                       in_contact + i, new_anchor + a, new_anchor + a + 1);
+  } else {
+    contact_elem(phi[i], v[0], v[1], v[2], mu[lane], kn, dn, v_tol,
+                 clamp_damping != 0, f, f + 1, f + 2, fn + i, in_contact + i);
+  }
+}
+
 inline unsigned int blocks_for(int64_t n) {
   return static_cast<unsigned int>((n + kThreads - 1) / kThreads);
 }
@@ -154,5 +250,18 @@ extern "C" int planner_contact(
   contact_kernel<<<blocks_for(n), kThreads, 0,
                    static_cast<cudaStream_t>(stream)>>>(
       phi, v_w, mu, kn, dn, v_tol, clamp_damping, f_world, fn, in_contact, n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int planner_contact_anchored(
+    const float* phi, const float* v_w, const float* p_w, const float* anchor,
+    const float* mu, float kn, float dn, float kt, float ct, float v_tol,
+    int clamp_damping, float* f_world, float* fn, bool* in_contact,
+    float* new_anchor, int64_t n_lanes, void* stream) {
+  int64_t n = n_lanes * kSites;
+  contact_anchored_kernel<<<blocks_for(n), kThreads, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
+      phi, v_w, p_w, anchor, mu, kn, dn, kt, ct, v_tol, clamp_damping,
+      f_world, fn, in_contact, new_anchor, n);
   return static_cast<int>(cudaGetLastError());
 }

@@ -10,6 +10,7 @@ jax.random's; parity tests feed JAX-sampled scenarios through convert.py.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -45,12 +46,21 @@ class ScenarioParams:
     friction: torch.Tensor          # (B,)
 
 
+@functools.lru_cache(maxsize=None)
+def _constants(device: torch.device) -> dict:
+    """Range constants on a device, made once (a host copy per reset would
+    synchronise the stream)."""
+    t = lambda x: torch.as_tensor(np.asarray(x, np.float64), dtype=torch.float32,
+                                  device=device)
+    return {"leg_masses": t(LEG_MASSES), "max_pos_offset": t(MAX_POS_MASS_OFFSET),
+            "spring_err": t(SPRING_ERR)}
+
+
 def nominal_params(cfg: Go1Config, n: int = 1) -> ScenarioParams:
     dev = cfg.spring_stiffness.device
     full = lambda shape, v: torch.full(shape, v, dtype=torch.float32, device=dev)
     return ScenarioParams(
-        leg_masses=torch.as_tensor(LEG_MASSES, dtype=torch.float32,
-                                   device=dev).expand(n, 3).clone(),
+        leg_masses=_constants(dev)["leg_masses"].expand(n, 3).clone(),
         foot_masses=full((n, NUM_LEGS), FOOT_MASS),
         base_mass=full((n,), TRUNK_MASS),
         offset_mass=full((n,), 0.0),
@@ -68,12 +78,11 @@ def _uniform(gen: torch.Generator, shape, lo, hi):
 
 
 def _sample_masses(gen, n, level):
-    dev = gen.device
-    leg = torch.as_tensor(LEG_MASSES, dtype=torch.float32, device=dev) * _uniform(
-        gen, (n, 3), 1.0 - LEG_MASS_ERR, 1.0 + LEG_MASS_ERR)
+    c = _constants(gen.device)
+    leg = c["leg_masses"] * _uniform(gen, (n, 3), 1.0 - LEG_MASS_ERR, 1.0 + LEG_MASS_ERR)
     max_offset = MAX_MASS_OFFSET + level * (CURRICULUM_MAX_MASS_OFFSET - MAX_MASS_OFFSET)
     offset_mass = _uniform(gen, (n,), 0.0, max_offset)
-    hi = torch.as_tensor(MAX_POS_MASS_OFFSET, dtype=torch.float32, device=dev)
+    hi = c["max_pos_offset"]
     offset_pos = _uniform(gen, (n, 3), -hi, hi)
     # keep the total mass constant
     total = TRUNK_MASS + 4 * (float(np.sum(LEG_MASSES)) + FOOT_MASS)
@@ -82,8 +91,8 @@ def _sample_masses(gen, n, level):
 
 
 def _sample_springs(cfg: Go1Config, gen, n, level):
-    err = tuple(e + level * (CURRICULUM_SPRING_ERR - e) for e in SPRING_ERR)
-    err = torch.as_tensor(err, dtype=torch.float32, device=gen.device)
+    e = _constants(gen.device)["spring_err"]
+    err = e + level * (CURRICULUM_SPRING_ERR - e)
     k = cfg.spring_stiffness * _uniform(gen, (n, 3), 1 - err, 1 + err)
     d = cfg.spring_damping * _uniform(gen, (n, 3), 1 - err, 1 + err)
     return k, d
@@ -98,6 +107,10 @@ RANDOMIZER_MODES = {
     "TEST_RANDOMIZER_CURRICULUM": ("mass_curriculum", "spring_curriculum", "ground"),
     "NONE": (),
 }
+
+
+def is_curriculum(mode: str) -> bool:
+    return any("curriculum" in ax for ax in RANDOMIZER_MODES[mode])
 
 
 def sample_scenario(cfg: Go1Config, mode: str, generator: torch.Generator,

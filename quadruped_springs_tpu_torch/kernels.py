@@ -40,6 +40,10 @@ _SIGNATURES = {
     "planner_contact": [_P, _P, _P, ctypes.c_float, ctypes.c_float,
                         ctypes.c_float, ctypes.c_int, _P, _P, _P,
                         ctypes.c_int64, _P],
+    # phi, v_w, p_w, anchor, mu, kn, dn, kt, ct, v_tol, clamp_damping,
+    # f_world, fn, in_contact, new_anchor, n_lanes, stream
+    "planner_contact_anchored": [_P] * 5 + [ctypes.c_float] * 5 + [ctypes.c_int]
+                                + [_P] * 4 + [ctypes.c_int64, _P],
 }
 
 

@@ -3,17 +3,19 @@
 Port of the structured ("ref") path of ``quadruped_springs_tpu.models.dynamics``:
 CRBA mass-matrix blocks and RNEA bias forces in base coordinates, the
 star-topology Schur solve (four 3x3 leg blocks + one 6x6 base block), 12-site
-compliant contact with regularized Coulomb friction, joint-limit penalty
-torques and the semi-implicit Euler step. Shapes keep the JAX layout with a
+compliant contact with regularized Coulomb friction and, for the feet,
+anchor-spring stiction, joint-limit penalty torques and the semi-implicit
+Euler step. Shapes keep the JAX layout with a
 lane axis N in front, e.g. body inertias are (N,4,3,6,6). Model fields in
 ``go1_params.SCENARIO_FIELDS`` carry N lanes or 1 (broadcast).
 
-The memoryless contact law runs as the CUDA kernel ``contact`` of
-``csrc/planner_ops.cu`` on CUDA tensors and as ``contact_forces_plain`` on
-CPU tensors. The 3x3 and 6x6 solves are closed form (adjugate and unrolled
-Cholesky, as in ``dynamics_soa.py``), which keeps them free of library calls
-and host synchronisation. Foot-anchor stiction is not ported yet: it belongs
-to the closed-loop simulator slice (ROADMAP queue 1, item 10).
+The memoryless contact law (the planner's) runs as the CUDA kernel
+``contact`` of ``csrc/planner_ops.cu`` on CUDA tensors and as
+``contact_forces_plain`` on CPU tensors; the environment's law with
+foot-anchor stiction runs as the kernel ``contact_anchored`` and as
+``contact_forces_anchored_plain``. The 3x3 and 6x6 solves are closed form
+(adjugate and unrolled Cholesky, as in ``dynamics_soa.py``), which keeps them
+free of library calls and host synchronisation.
 
 Conventions: quaternions xyzw; spatial vectors [angular; linear]; the
 generalized velocity is u = [ω_b(3); v_b(3); qd(12)] in the base frame.
@@ -43,9 +45,6 @@ TRUNK_CORNERS = np.array([
 ])
 N_SITES = 12  # 4 feet + 4 knees + 4 trunk corners
 
-_FOOT_ANCHOR_SLICE = ("foot-anchor stiction is not ported yet; it comes with the "
-                      "closed-loop simulator slice (ROADMAP queue 1, item 10)")
-
 
 @dataclasses.dataclass(frozen=True)
 class RobotState:
@@ -72,6 +71,10 @@ class SimParams:
     on_rack: bool = False
     # clamp |d·φ̇| <= k·φ in the normal force (stiff execution model only)
     clamp_damping: bool = True
+    # tangential anchor springs of the feet (stiction); read only when a
+    # foot_anchor state is passed to step()
+    tangential_stiffness: float = 120000.0  # N/m
+    tangential_damping: float = 60.0        # N s/m
 
 
 def default_sim_params(dt: float = 0.001, on_rack: bool = False) -> SimParams:
@@ -307,6 +310,12 @@ def site_state_world(model: Go1Model, state: RobotState, fk=None, R=None):
     return p_w, v_pt_b @ Rt, radii, fk
 
 
+def foot_state_world(model: Go1Model, state: RobotState, fk=None):
+    """World positions and velocities (N,4,3) of the 4 foot centres."""
+    p_w, v_w, _, fk = site_state_world(model, state, fk)
+    return p_w[:, :4], v_w[:, :4], fk
+
+
 def contact_forces_plain(phi, v_w, mu, kn: float, dn: float, v_tol: float,
                          clamp_damping: bool):
     """Compliant normal force + viscous-regularized Coulomb friction.
@@ -332,21 +341,59 @@ def contact_forces_plain(phi, v_w, mu, kn: float, dn: float, v_tol: float,
     return f_world, fn, in_contact
 
 
+def contact_forces_anchored_plain(phi, v_w, foot_xy, foot_anchor, mu, kn: float,
+                                  dn: float, kt: float, ct: float, v_tol: float,
+                                  clamp_damping: bool):
+    """The environment's contact law: contact_forces_plain at every site,
+    then anchor-spring stiction (Cundall / bristle) at the feet 0-3.
+
+    foot_xy, foot_anchor: (N,4,2) world xy of the feet and their anchors.
+    A foot's trial force -kt (p - a) - ct v is clipped to the cone μ·fn;
+    inside the cone the anchor stays, on its boundary the anchor slides so
+    that the spring term alone gives the clipped force, and out of contact
+    the foot re-anchors where it is. Returns (f_world (N,12,3), fn (N,12),
+    in_contact (N,12), new_anchor (N,4,2)). |f_trial|² is floored at 1e-12
+    as in the JAX structured ("ref") path. The plain twin of the
+    `contact_anchored` CUDA kernel.
+    """
+    f_world, fn, in_contact = contact_forces_plain(phi, v_w, mu, kn, dn, v_tol,
+                                                   clamp_damping)
+    f_trial = -kt * (foot_xy - foot_anchor) - ct * v_w[:, :4, :2]
+    f_norm = sp.safe_norm(f_trial)        # >= 1e-6 through the floor
+    fmax = (mu[..., None] if torch.is_tensor(mu) else mu) * fn[:, :4]
+    clip_scale = torch.clamp_max(fmax / f_norm, 1.0)
+    f_foot = f_trial * clip_scale[..., None]
+    a_slid = foot_xy + f_foot / kt
+    new_anchor = torch.where((clip_scale < 1.0)[..., None], a_slid, foot_anchor)
+    inc = in_contact[:, :4, None]
+    new_anchor = torch.where(inc, new_anchor, foot_xy)
+    f_foot = torch.where(inc, f_foot, torch.zeros_like(f_foot))
+    f_world = torch.cat([torch.cat([f_foot, f_world[:, :4, 2:]], dim=-1),
+                         f_world[:, 4:]], dim=1)
+    return f_world, fn, in_contact, new_anchor
+
+
 def contact_forces(model: Go1Model, params: SimParams, p_w, v_w, radii,
                    foot_anchor=None):
-    """Memoryless compliant contact at the sites (the planner's model).
+    """Compliant contact at the 12 sites.
 
-    p_w, v_w: (N,12,3); radii: (12,). Returns (f_world (N,12,3), fn (N,12), in_contact
-    (N,12), None). CUDA tensors launch the `contact` kernel; CPU tensors take
-    contact_forces_plain.
+    p_w, v_w: (N,12,3); radii: (12,). Without foot_anchor: the memoryless
+    law of the planner, returning (f_world (N,12,3), fn (N,12), in_contact
+    (N,12), None). With foot_anchor (N,4,2) world-xy anchors: the feet get
+    anchor stiction and the fourth result is the new anchors (N,4,2). CUDA
+    tensors launch the `contact` or `contact_anchored` kernel; CPU tensors
+    take the plain twins.
     """
-    if foot_anchor is not None:
-        raise NotImplementedError(_FOOT_ANCHOR_SLICE)
     phi = radii - p_w[..., 2]
     mu, kn, dn = params.friction, params.contact_stiffness, params.contact_damping
     if phi.device.type == "cpu":
-        return (*contact_forces_plain(phi, v_w, mu, kn, dn, params.slip_vel_tol,
-                                      params.clamp_damping), None)
+        if foot_anchor is None:
+            return (*contact_forces_plain(phi, v_w, mu, kn, dn, params.slip_vel_tol,
+                                          params.clamp_damping), None)
+        return contact_forces_anchored_plain(
+            phi, v_w, p_w[:, :4, :2], foot_anchor, mu, kn, dn,
+            params.tangential_stiffness, params.tangential_damping,
+            params.slip_vel_tol, params.clamp_damping)
     if phi.device.type != "cuda":
         raise ValueError(f"contact_forces: no kernel for device {phi.device}")
     n = phi.shape[0]
@@ -359,21 +406,37 @@ def contact_forces(model: Go1Model, params: SimParams, p_w, v_w, radii,
     f_world = torch.empty_like(v_w)
     fn = torch.empty_like(phi)
     in_contact = torch.empty(phi.shape, dtype=torch.bool, device=dev)
-    if n == 0:
+    if foot_anchor is None:
+        if n == 0:
+            return f_world, fn, in_contact, None
+        with torch.cuda.device(dev):
+            err = kernels.library().planner_contact(
+                phi.data_ptr(), v_w.data_ptr(), mu.data_ptr(), float(kn), float(dn),
+                float(params.slip_vel_tol), int(params.clamp_damping),
+                f_world.data_ptr(), fn.data_ptr(), in_contact.data_ptr(), n,
+                kernels.stream_handle(dev))
+        kernels.check_launch("planner_contact", err)
+        contact_forces.launches += 1
         return f_world, fn, in_contact, None
-    lib = kernels.library()
+    kernels.check_tensor("p_w", p_w, (n, N_SITES, 3), dev)
+    kernels.check_tensor("foot_anchor", foot_anchor, (n, 4, 2), dev)
+    new_anchor = torch.empty_like(foot_anchor)
+    if n == 0:
+        return f_world, fn, in_contact, new_anchor
     with torch.cuda.device(dev):
-        err = lib.planner_contact(
-            phi.data_ptr(), v_w.data_ptr(), mu.data_ptr(), float(kn), float(dn),
-            float(params.slip_vel_tol), int(params.clamp_damping),
-            f_world.data_ptr(), fn.data_ptr(), in_contact.data_ptr(), n,
-            kernels.stream_handle(dev))
-    kernels.check_launch("planner_contact", err)
-    contact_forces.launches += 1
-    return f_world, fn, in_contact, None
+        err = kernels.library().planner_contact_anchored(
+            phi.data_ptr(), v_w.data_ptr(), p_w.data_ptr(), foot_anchor.data_ptr(),
+            mu.data_ptr(), float(kn), float(dn), float(params.tangential_stiffness),
+            float(params.tangential_damping), float(params.slip_vel_tol),
+            int(params.clamp_damping), f_world.data_ptr(), fn.data_ptr(),
+            in_contact.data_ptr(), new_anchor.data_ptr(), n, kernels.stream_handle(dev))
+    kernels.check_launch("planner_contact_anchored", err)
+    contact_forces.anchored_launches += 1
+    return f_world, fn, in_contact, new_anchor
 
 
-contact_forces.launches = 0
+contact_forces.launches = 0            # `contact` kernel
+contact_forces.anchored_launches = 0   # `contact_anchored` kernel
 
 
 def _generalized_contact_force(model: Go1Model, fk, s, R, f_world):
@@ -396,8 +459,6 @@ def _generalized_contact_force(model: Go1Model, fk, s, R, f_world):
 
 def _forward(model, params, state, tau, R, ext_force_world=None, foot_anchor=None):
     """forward_dynamics with the base rotation given; also returns w_b, v_b."""
-    if foot_anchor is not None:
-        raise NotImplementedError(_FOOT_ANCHOR_SLICE)
     w_b = _rmatvec(R, state.ang_vel)
     v_b = _rmatvec(R, state.lin_vel)
     u = torch.cat([w_b, v_b, state.qd], dim=-1)
@@ -406,7 +467,8 @@ def _forward(model, params, state, tau, R, ext_force_world=None, foot_anchor=Non
     h = bias_forces(model, R, u, fk, s)
 
     p_w, v_w, radii, _ = site_state_world(model, state, fk, R)
-    f_world, fn, in_contact, _ = contact_forces(model, params, p_w, v_w, radii)
+    f_world, fn, in_contact, new_anchor = contact_forces(model, params, p_w, v_w, radii,
+                                                        foot_anchor)
     f_base_c, tau_c = _generalized_contact_force(model, fk, s, R, f_world)
 
     # joint-limit penalty torques
@@ -440,6 +502,8 @@ def _forward(model, params, state, tau, R, ext_force_world=None, foot_anchor=Non
         # non-foot ground contact = the invalid-contact termination surface
         "invalid_contact": in_contact[:, 4:].any(dim=-1),
     }
+    if new_anchor is not None:
+        info["new_anchor"] = new_anchor
     return a0, qdd, info, w_b, v_b
 
 
@@ -448,7 +512,9 @@ def forward_dynamics(model: Go1Model, params: SimParams, state: RobotState,
     """One evaluation of the equations of motion for N lanes.
 
     tau: (N,12) joint torques (motor + spring). ext_force_world: optional
-    (N,3) force at the trunk origin. Returns (a0 (N,6), qdd (N,12), info).
+    (N,3) force at the trunk origin. foot_anchor: optional (N,4,2) world-xy
+    stiction anchors of the feet (see contact_forces); with it, info carries
+    "new_anchor". Returns (a0 (N,6), qdd (N,12), info).
     """
     R = sp.quat_to_mat(state.quat)
     a0, qdd, info, _, _ = _forward(model, params, state, tau, R,
@@ -459,7 +525,9 @@ def forward_dynamics(model: Go1Model, params: SimParams, state: RobotState,
 def step(model: Go1Model, params: SimParams, state: RobotState, tau,
          velocity_limits, ext_force_world=None, foot_anchor=None):
     """Semi-implicit Euler step at params.dt, joint velocities clamped to
-    ±velocity_limits. Returns (new_state, info)."""
+    ±velocity_limits. With foot_anchor (N,4,2) the feet use anchor stiction
+    and info["new_anchor"] carries the updated anchors. Returns
+    (new_state, info)."""
     R = sp.quat_to_mat(state.quat)
     a0, qdd, info, w_b, v_b = _forward(model, params, state, tau, R,
                                        ext_force_world, foot_anchor)

@@ -12,6 +12,7 @@ calf(y).
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -31,6 +32,7 @@ GRAVITY = 9.8
 # Kinematic constants
 HIP_LINK_LENGTH = 0.0847
 THIGH_LINK_LENGTH = 0.213
+CALF_LINK_LENGTH = 0.213
 X_OFFSET = 0.1881
 Y_OFFSET = 0.04675
 THIGH_Y_OFFSET = 0.08
@@ -260,6 +262,26 @@ class Go1Model:
             for f in SCENARIO_FIELDS})
 
 
+@functools.lru_cache(maxsize=None)
+def _model_constants(device: torch.device, dtype: torch.dtype) -> dict:
+    """The URDF constants of build_model as tensors on a device, made once:
+    copying them from the host at every call would synchronise a CUDA
+    stream, and the environment builds its model every control step."""
+    t = lambda x: torch.as_tensor(np.asarray(x, np.float64), dtype=dtype, device=device)
+    return {
+        "leg_masses": t(LEG_MASSES), "trunk_mass": t(TRUNK_MASS),
+        "trunk_com": t(TRUNK_COM), "trunk_inertia": t(_inertia_mat(*TRUNK_INERTIA)),
+        "base_mass": t(BASE_MASS), "imu_mass": t(IMU_MASS), "imu_offset": t(IMU_OFFSET),
+        "leg_coms": t(LEG_COMS), "leg_inertias": t(LEG_INERTIAS),
+        "foot_origin": t(FOOT_ORIGIN), "hip_origins": t(HIP_ORIGINS),
+        "thigh_origins": t(THIGH_ORIGINS), "calf_origin": t(CALF_ORIGIN),
+        "joint_axes": t(JOINT_AXES), "gravity": t([0.0, 0.0, -GRAVITY]),
+        "eye3": torch.eye(3, dtype=dtype, device=device),
+        "zero3": torch.zeros(3, dtype=dtype, device=device),
+        "zero33": torch.zeros(3, 3, dtype=dtype, device=device),
+    }
+
+
 def build_model(leg_masses=None, foot_masses=None, base_mass=None,
                 offset_mass=None, offset_pos=None, dtype=torch.float32,
                 device=None) -> Go1Model:
@@ -274,11 +296,12 @@ def build_model(leg_masses=None, foot_masses=None, base_mass=None,
                          offset_pos) if a is not None]
     if device is None and given:
         device = given[0].device
+    device = torch.device(device if device is not None else "cpu")
+    c = _model_constants(device, dtype)
     B = max([a.shape[0] for a in given], default=1)
-    f = lambda x: torch.as_tensor(np.asarray(x, np.float64) if not torch.is_tensor(x)
-                                  else x, dtype=dtype, device=device)
+    f = lambda x: torch.as_tensor(x, dtype=dtype, device=device)
     if leg_masses is None:
-        leg_masses = f(LEG_MASSES).expand(B, NUM_LEGS, 3)
+        leg_masses = c["leg_masses"].expand(B, NUM_LEGS, 3)
     else:
         leg_masses = f(leg_masses)
         if leg_masses.dim() == 2:
@@ -286,29 +309,28 @@ def build_model(leg_masses=None, foot_masses=None, base_mass=None,
         leg_masses = leg_masses.expand(B, NUM_LEGS, 3)
     foot_masses = (torch.full((B, NUM_LEGS), FOOT_MASS, dtype=dtype, device=device)
                    if foot_masses is None else f(foot_masses).expand(B, NUM_LEGS))
-    base_mass = f(TRUNK_MASS).expand(B) if base_mass is None else f(base_mass).expand(B)
+    base_mass = (c["trunk_mass"].expand(B) if base_mass is None
+                 else f(base_mass).expand(B))
     offset_mass = (torch.zeros(B, dtype=dtype, device=device) if offset_mass is None
                    else f(offset_mass).expand(B))
     offset_pos = (torch.zeros(B, 3, dtype=dtype, device=device) if offset_pos is None
                   else f(offset_pos).expand(B, 3))
-    eye3 = torch.eye(3, dtype=dtype, device=device)
-    zero3 = torch.zeros(3, dtype=dtype, device=device)
+    eye3 = c["eye3"]
 
     # trunk = base + trunk + imu (+ offset mass), about the base origin
-    trunk_I = spatial.spatial_inertia(base_mass, f(TRUNK_COM).expand(B, 3),
-                                      f(_inertia_mat(*TRUNK_INERTIA)))
-    base_I = spatial.spatial_inertia(f(BASE_MASS), zero3, BASE_INERTIA_DIAG * eye3)
-    imu_I = spatial.spatial_inertia(f(IMU_MASS), f(IMU_OFFSET), IMU_INERTIA_DIAG * eye3)
-    off_I = spatial.spatial_inertia(offset_mass, offset_pos,
-                                    torch.zeros(3, 3, dtype=dtype, device=device))
+    trunk_I = spatial.spatial_inertia(base_mass, c["trunk_com"].expand(B, 3),
+                                      c["trunk_inertia"])
+    base_I = spatial.spatial_inertia(c["base_mass"], c["zero3"], BASE_INERTIA_DIAG * eye3)
+    imu_I = spatial.spatial_inertia(c["imu_mass"], c["imu_offset"], IMU_INERTIA_DIAG * eye3)
+    off_I = spatial.spatial_inertia(offset_mass, offset_pos, c["zero33"])
     trunk_inertia6 = trunk_I + base_I + imu_I + off_I
     trunk_mass = base_mass + BASE_MASS + IMU_MASS + offset_mass
 
     # legs: merge the foot (point mass + tiny sphere inertia) into the calf
-    leg_coms = f(LEG_COMS).expand(B, NUM_LEGS, 3, 3)
-    leg_I6 = spatial.spatial_inertia(leg_masses, leg_coms, f(LEG_INERTIAS))
+    leg_coms = c["leg_coms"].expand(B, NUM_LEGS, 3, 3)
+    leg_I6 = spatial.spatial_inertia(leg_masses, leg_coms, c["leg_inertias"])
     foot_I6 = spatial.spatial_inertia(
-        foot_masses, f(FOOT_ORIGIN).expand(B, NUM_LEGS, 3),
+        foot_masses, c["foot_origin"].expand(B, NUM_LEGS, 3),
         FOOT_INERTIA_DIAG * eye3.expand(B, NUM_LEGS, 3, 3))
     calf_mass = leg_masses[:, :, 2] + foot_masses
     leg_inertias6 = torch.stack(
@@ -316,7 +338,7 @@ def build_model(leg_masses=None, foot_masses=None, base_mass=None,
     leg_masses_merged = torch.stack(
         [leg_masses[:, :, 0], leg_masses[:, :, 1], calf_mass], dim=2)
     calf_com = ((leg_masses[:, :, 2:3] * leg_coms[:, :, 2]
-                 + foot_masses[..., None] * f(FOOT_ORIGIN))
+                 + foot_masses[..., None] * c["foot_origin"])
                 / leg_masses_merged[:, :, 2:3])
     leg_coms = torch.stack([leg_coms[:, :, 0], leg_coms[:, :, 1], calf_com], dim=2)
 
@@ -326,11 +348,11 @@ def build_model(leg_masses=None, foot_masses=None, base_mass=None,
         leg_masses=leg_masses_merged,
         leg_coms=leg_coms,
         leg_inertias6=leg_inertias6,
-        hip_origins=f(HIP_ORIGINS),
-        thigh_origins=f(THIGH_ORIGINS),
-        calf_origin=f(CALF_ORIGIN),
-        foot_origin=f(FOOT_ORIGIN),
-        joint_axes=f(JOINT_AXES),
-        gravity=f([0.0, 0.0, -GRAVITY]),
+        hip_origins=c["hip_origins"],
+        thigh_origins=c["thigh_origins"],
+        calf_origin=c["calf_origin"],
+        foot_origin=c["foot_origin"],
+        joint_axes=c["joint_axes"],
+        gravity=c["gravity"],
         foot_radius=FOOT_RADIUS,
     )

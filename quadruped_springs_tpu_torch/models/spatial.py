@@ -1,7 +1,7 @@
 """Quaternion / SO(3) / spatial (6D) algebra on batch-first tensors.
 
-Port of ``quadruped_springs_tpu.models.spatial`` (only what the planner path
-uses). Same conventions: quaternions xyzw, spatial vectors [angular; linear],
+Port of ``quadruped_springs_tpu.models.spatial`` (what the planner and the
+environment use). Same conventions: quaternions xyzw, spatial vectors [angular; linear],
 rotation matrices map body to world coordinates. Every function broadcasts
 over leading dimensions and keeps the JAX version's operation order, so f32
 results agree to rounding.
@@ -9,11 +9,18 @@ results agree to rounding.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 
 def quat_normalize(q):
     return q / torch.linalg.vector_norm(q, dim=-1, keepdim=True)
+
+
+def quat_conj(q):
+    """Conjugate (= inverse for unit quaternions)."""
+    return torch.cat([-q[..., :3], q[..., 3:]], dim=-1)
 
 
 def quat_mul(q1, q2):
@@ -26,6 +33,17 @@ def quat_mul(q1, q2):
         w1 * z2 + x1 * y2 - y1 * x2 + z1 * w2,
         w1 * w2 - x1 * x2 - y1 * y2 - z1 * z2,
     ], dim=-1)
+
+
+def quat_rotate(q, v):
+    """Rotate v (..., 3) by the unit quaternion q (body -> world for the base)."""
+    qv, qw = q[..., :3], q[..., 3:4]
+    t = 2.0 * torch.linalg.cross(qv, v)
+    return v + qw * t + torch.linalg.cross(qv, t)
+
+
+def quat_rotate_inv(q, v):
+    return quat_rotate(quat_conj(q), v)
 
 
 def quat_to_mat(q):
@@ -63,6 +81,34 @@ def quat_to_rpy(q):
     pitch = torch.asin(torch.clamp(2 * (w * y - z * x), -1.0, 1.0))
     yaw = torch.atan2(2 * (w * z + x * y), 1 - 2 * (y * y + z * z))
     return torch.stack([roll, pitch, yaw], dim=-1)
+
+
+def rpy_to_quat(rpy):
+    """Inverse of quat_to_rpy."""
+    half = 0.5 * rpy
+    cr, cp, cy = torch.cos(half).unbind(-1)
+    sr, sp, sy = torch.sin(half).unbind(-1)
+    return torch.stack([
+        sr * cp * cy - cr * sp * sy,
+        cr * sp * cy + sr * cp * sy,
+        cr * cp * sy - sr * sp * cy,
+        cr * cp * cy + sr * sp * sy,
+    ], dim=-1)
+
+
+def pitch_unwrapped_yxz(q, switched):
+    """Backflip pitch: minus the innermost angle a of R = Rz(c) Rx(b) Ry(a),
+    read from the matrix's last row; once the landing controller has
+    switched, a negative pitch is unwrapped by +2π."""
+    m = quat_to_mat(q)
+    pitch = -torch.atan2(-m[..., 2, 0], m[..., 2, 2])
+    return torch.where(switched & (pitch < 0), 2 * math.pi + pitch, pitch)
+
+
+def safe_norm(v, dim: int = -1, eps: float = 1e-12):
+    """Euclidean norm with |v|² floored at eps (sqrt(eps) at v = 0)."""
+    n2 = torch.sum(v * v, dim=dim)
+    return torch.sqrt(torch.where(n2 < eps, torch.full_like(n2, eps), n2))
 
 
 def skew(v):

@@ -29,6 +29,11 @@ def pd_torque(q_des, q, qd, kp, kd, torque_limits, qd_des=None):
     return torch.clamp(tau, -torque_limits, torque_limits)
 
 
+def torque_command(tau_cmd, torque_limits):
+    """TORQUE mode: the commanded torque clipped to ±torque_limits."""
+    return torch.clamp(tau_cmd, -torque_limits, torque_limits)
+
+
 def spring_torque(q, qd, stiffness3, damping3, rest_angles3, engage_sign):
     """One-sided PEA spring torque for all 12 joints.
 

@@ -242,8 +242,19 @@ def test_contact_forces_match_jax(clamp):
 
 
 def test_foot_anchor_is_not_ported_yet():
+    """Foot-anchor stiction is ported now (tests/test_torch_stiction.py holds
+    it to JAX): contact_forces takes foot_anchor and returns the new
+    anchors, here of a foot pressed 1 cm into the ground 1 mm from its
+    anchor, which stays (the spring force is inside the friction cone)."""
     model = convert.go1_model(build_model())
-    z = torch.zeros(1, 12, 3)
-    with pytest.raises(NotImplementedError, match="closed-loop"):
-        tdyn.contact_forces(model, tdyn.default_sim_params(), z, z, torch.zeros(12),
-                            foot_anchor=torch.zeros(1, 4, 2))
+    p_w = torch.zeros(1, 12, 3)
+    p_w[0, :, 2] = 1.0
+    p_w[0, 0, 2] = 0.01
+    anchor = torch.zeros(1, 4, 2)
+    anchor[0, 0, 0] = 1e-3
+    f, fn, inc, new = tdyn.contact_forces(model, tdyn.default_sim_params(), p_w,
+                                          torch.zeros(1, 12, 3), torch.full((12,), 0.02),
+                                          foot_anchor=anchor)
+    assert bool(inc[0, 0]) and not bool(inc[0, 1:].any())
+    assert torch.equal(new[0, 0], anchor[0, 0])
+    np.testing.assert_allclose(f[0, 0].numpy(), [120.0, 0.0, 1800.0], rtol=1e-5)

@@ -82,21 +82,21 @@ def test_interface_transforms_match_jax(motor, action, task):
     a = rng.uniform(-1.2, 1.2, (8, tif.action_dim)).astype(np.float32)
     cmd = rng.uniform(-3, 3, (8, 12)).astype(np.float32)
     t = torch.from_numpy
+    # CARTESIAN_PD's action_to_command goes through the analytic IK (atan2,
+    # sqrt): a few ulp; the affine transforms hold to 1e-6 in every mode
+    ik_tol = 1e-5 if motor == "CARTESIAN_PD" else 1e-6
     pairs = [
-        (tci.expand_action(tif, t(a)), jax.vmap(lambda x: jci.expand_action(jif, x))(a)),
+        (tci.expand_action(tif, t(a)), jax.vmap(lambda x: jci.expand_action(jif, x))(a),
+         1e-6),
         (tci.contract_action(tif, t(cmd)),
-         jax.vmap(lambda x: jci.contract_action(jif, x))(cmd)),
+         jax.vmap(lambda x: jci.contract_action(jif, x))(cmd), 1e-6),
         (tci.command_to_action(tif, t(cmd)),
-         jax.vmap(lambda x: jci.command_to_action(jif, x))(cmd)),
+         jax.vmap(lambda x: jci.command_to_action(jif, x))(cmd), 1e-6),
+        (tci.action_to_command(tif, t(a)),
+         jax.vmap(lambda x: jci.action_to_command(jif, x))(a), ik_tol),
     ]
-    if motor == "CARTESIAN_PD":
-        with pytest.raises(NotImplementedError, match="slice 4"):
-            tci.action_to_command(tif, t(a))
-    else:
-        pairs.append((tci.action_to_command(tif, t(a)),
-                      jax.vmap(lambda x: jci.action_to_command(jif, x))(a)))
-    for got, want in pairs:
-        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6, atol=1e-6)
+    for got, want, tol in pairs:
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=tol, atol=tol)
     if task == "BACKFLIP":
         np.testing.assert_allclose(tif.upper_lim[[7, 10]].numpy(), np.pi / 2, rtol=1e-6)
 
