@@ -33,12 +33,38 @@ Phases (any failure raises, so the script exits non-zero):
      four feet in contact, no other site) and stays upright and finite,
      no foot drifts more than CREEP_BOUND in world xy over a timed segment,
      `actuation` and `contact_anchored` launch once per substep, and
-     env.step makes no host sync; then a torch.profiler breakdown of one
-     substep (launches, device busy share, kernel classes);
+     env.step makes no host sync;
   7. the examples/run_episode.py flow through LandingWrapper on 64
      GROUND_RANDOMIZER environments (default 2500-substep settle, crouch
      30 steps, then extend for up to 120): every environment jumps higher
-     than 0.2 m and switches to its landing controller.
+     than 0.2 m and switches to its landing controller;
+  8. hold the two tangent kernels (`actuation_jvp`, `contact_jvp`) against
+     torch.func.jvp of the plain versions at the shape of one block of the
+     iLQR linearization (5,120 lanes, T = 43 tangent directions), on seeded
+     inputs plus hand-placed lanes on both sides of every branch, to the
+     bound of phase 3 widened by CANCEL_TOL x the magnitude of the terms a
+     tangent sums (they cancel), `contact_jvp` with the damping clamp off
+     and on, and time both; time an empty kernel (the card's launch floor);
+  9. the 37x43 Jacobians of one planner knot at 64 states of a rollout
+     (stance, push-off, flight), through the kernels on the card and through
+     the plain versions on the CPU, to JAC_TOL of each knot's max |J|;
+ 10. drive the full-width iLQR solve (quadruped_springs_tpu_torch.bench
+     --ilqr: 1024 scenarios, H=50, 10 iterations, 8 line-search candidates):
+     every final cost finite, every problem's cost trace non-increasing, the
+     mean final cost at least ILQR_MARGIN below the warm start's mean cost,
+     each of the four kernels launched exactly as often as the solve's
+     substeps say, no host sync in a full-width rollout plus iteration;
+     print solves/s and the seconds per stage;
+ 11. closed-loop MPC (quadruped_springs_tpu_torch.closed_loop): iLQR plans
+     on the relaxed model executed on the 1 kHz environment for
+     LOOP_KNOTS knots: finite, the robot leaves the ground, launches exact;
+ 12. after every timed path (the profiler stays attached to the process once
+     it has run): torch.profiler's time of each kernel on the card alone
+     (`device_ms`, beside the CUDA-event time of a call through its Python
+     wrapper) at every shape of phases 3, 5 and 8, and the breakdown of one
+     environment substep (launches, device busy share, kernel classes).
+Against the earlier form of this script, phase 4 times 2 solves (was 3) and
+phase 6 runs 2 segments (was 3), to make room for phases 8-11.
 The line before the last is a JSON object of per-kernel results; the last
 line is {"ok": true, "device": {...}}.
 """
@@ -53,21 +79,39 @@ import warnings
 REFERENCE_COST = -70.98          # JAX MPPI headline mean final cost (BENCH_r05.json)
 COST_BAND = 0.03                 # ±3%: the bf16-sample path's -66.7 falls outside
 BATCH, SAMPLES, HORIZON, ITERATIONS = 1024, 32, 50, 10
-TIMED_RUNS = 3
+TIMED_RUNS = 2
 LANES = BATCH * SAMPLES
 REL_TOL = 1e-5
+CANCEL_TOL = 1e-6                # ~8 ulp of f32, relative to cancelling terms
 SOURCE = "quadruped_springs_tpu_torch/csrc/planner_ops.cu"
-ENVS, ENV_STEPS, ENV_SEGMENTS, ENV_SETTLE = 1024, 100, 3, 600
+ENVS, ENV_STEPS, ENV_SEGMENTS, ENV_SETTLE = 1024, 100, 2, 600
 # The anchor springs hold a static stance with ~1 mm of spring travel
 # (quadruped_springs_tpu/models/dynamics.py:71-78); a stance held by them
 # moves far less than that in a second, while the memoryless friction it
 # replaced crept ~4 cm/s. 1 mm per 1 s segment separates the two 40-fold.
 CREEP_BOUND = 1e-3
 EPISODE_ENVS, EPISODE_LEN = 64, 3.0   # episode cut to 3 s (the jump ends by ~1 s)
+N_TANGENTS = 43                  # n + m basis tangents of the linearization
+ILQR_ALPHAS, ILQR_TIMED_RUNS = 8, 1
+JAC_STATES = 64
+# card against CPU, relative to each knot's max |J|: FMA contraction and
+# cuBLAS's summation order in f32, through two substeps of stiff contact
+JAC_TOL = 3e-5
+# least drop of the mean cost below the warm start's: the first run on an
+# NVIDIA H100 80GB HBM3 (700 W) dropped it by ILQR_FIRST_DROP
+ILQR_FIRST_DROP = 46.1808        # -17.7552 -> -63.9360
+ILQR_MARGIN = 40.0
+LOOP_KNOTS, LOOP_REPLAN, LOOP_HORIZON, LOOP_ITERATIONS, LOOP_ALPHAS = 30, 5, 20, 4, 4
+HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA's data sheet
+F32_FLOPS_PER_S = 67e12          # float32 outside the tensor cores
+# float32 operations per (lane, motor or site[, tangent]), from the kernels' source
+FLOPS_PER_ELEM = {"actuation": 10, "contact": 20, "contact_anchored": 30,
+                  "actuation_jvp": 6, "contact_jvp": 25}
 
 
-def cuda_time_ms(torch, fn, reps=30):
-    """Median CUDA-event time of one call of fn, over reps calls."""
+def cuda_time_ms(torch, fn, reps=30, inner=1):
+    """Median CUDA-event time of one call of fn, over reps timings of
+    `inner` back-to-back calls each."""
     fn()
     torch.cuda.synchronize()
     times = []
@@ -75,21 +119,60 @@ def cuda_time_ms(torch, fn, reps=30):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(inner):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / inner)
     return statistics.median(times)
 
 
-def max_err(torch, got, want, name):
-    """Max |got - want|; raises unless within REL_TOL·(1 + |want|) everywhere."""
+def device_time_ms(torch, fn, kernel, reps=20):
+    """Mean time on the card of the CUDA kernel whose name contains `kernel`
+    over reps calls of fn, from torch.profiler (no enqueue, no wrapper);
+    None if the profiler recorded no such kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us, count = 0.0, 0
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.key:
+            t = getattr(e, "self_device_time_total", None)
+            us += e.self_cuda_time_total if t is None else t
+            count += e.count
+    return us / count / 1e3 if count else None
+
+
+def roofline(name, elems, inputs, outputs):
+    """The least time the card could take for one call on `elems` (lane,
+    motor or site[, tangent]) elements: each input read once and each
+    output written once at the HBM rate, or the kernel's float32 operations
+    at the card's peak, whichever is larger."""
+    nbytes = sum(t.numel() * t.element_size() for t in (*inputs, *outputs))
+    flops = FLOPS_PER_ELEM[name] * elems
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS_PER_S * 1e3
+    return {"bytes": nbytes, "bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+
+
+def max_err(torch, got, want, name, term_scale=None):
+    """Max |got - want|; raises unless within REL_TOL·(1 + |want|) everywhere.
+    `term_scale`, the summed magnitudes of the terms an output adds up, widens
+    the bound by CANCEL_TOL·term_scale: where the terms cancel, kernel and
+    plain version each carry the rounding of the terms, not of their sum."""
     if got.dtype == torch.bool:
         if not torch.equal(got, want):
             raise AssertionError(f"{name}: boolean outputs differ")
         return 0.0
     err = (got - want).abs()
     bound = REL_TOL * (1.0 + want.abs())
+    if term_scale is not None:
+        bound = bound + CANCEL_TOL * term_scale
     if not bool(torch.all(err <= bound)):
         raise AssertionError(f"{name}: max |kernel - twin| {float(err.max())} exceeds "
                              f"{REL_TOL}·(1+|twin|)")
@@ -131,7 +214,8 @@ def check_actuation(torch, act, owner, n, kp=None, kd=None):
               for g, w, k in zip(got, want, ("tau", "tau_motor")))
     return {"max_abs_err": err,
             "ms": cuda_time_ms(torch, lambda: act.actuation_torque(*args)),
-            "plain_ms": cuda_time_ms(torch, twin)}
+            "profile": (lambda: act.actuation_torque(*args), "actuation_kernel"),
+            "plain_ms": cuda_time_ms(torch, twin), **roofline("actuation", q.numel(), args, got)}
 
 
 def check_contact(torch, dyn, model, n, kn, dn):
@@ -156,7 +240,8 @@ def check_contact(torch, dyn, model, n, kn, dn):
     for clamp in (False, True):
         params = dyn.SimParams(contact_stiffness=kn, contact_damping=dn, friction=mu,
                                clamp_damping=clamp)
-        kernel = lambda: dyn.contact_forces(model, params, p_w, v_w, radii)[:3]
+        # (bound now: phase 12 calls it after the loop has moved on)
+        kernel = lambda params=params: dyn.contact_forces(model, params, p_w, v_w, radii)[:3]
         twin = lambda: dyn.contact_forces_plain(phi, v_w, mu, kn, dn,
                                                 params.slip_vel_tol, clamp)
         got, want = kernel(), twin()
@@ -166,7 +251,9 @@ def check_contact(torch, dyn, model, n, kn, dn):
         err = max(max_err(torch, g, w, f"contact clamp={clamp} {k}")
                   for g, w, k in zip(got, want, ("f_world", "fn", "in_contact")))
         results[clamp] = {"max_abs_err": err, "ms": cuda_time_ms(torch, kernel),
-                          "plain_ms": cuda_time_ms(torch, twin)}
+                          "profile": (kernel, "contact_kernel"),
+                          "plain_ms": cuda_time_ms(torch, twin),
+                          **roofline("contact", phi.numel(), (phi, v_w, mu), got)}
     return results
 
 
@@ -174,8 +261,23 @@ def report_checks(phase, checks, n, unit):
     for name, by_setting in checks.items():
         for setting, r in by_setting.items():
             print(f"phase {phase}: {name} ({setting}) at {n} {unit}: max_abs_err "
-                  f"{r['max_abs_err']:.3e}, kernel {r['ms']:.4f} ms, plain twin "
-                  f"{r['plain_ms']:.4f} ms (CUDA events, median of 30)", flush=True)
+                  f"{r['max_abs_err']:.3e}, kernel {r['ms']:.4f} ms through its wrapper, "
+                  f"plain twin {r['plain_ms']:.4f} ms (CUDA events, median of 30); bound "
+                  f"{r['bound_ms'] * 1e3:.2f} µs ({r['bytes']} bytes)", flush=True)
+
+
+def profile_kernels(torch, checks):
+    """Phase 12: fill each check's `device_ms`, its kernel's time on the card
+    alone. After every timed path: the profiler stays attached to the
+    process once it has run and must not weigh on their launches."""
+    for name, by_setting in checks.items():
+        for setting, r in by_setting.items():
+            r["device_ms"] = device_time_ms(torch, *r.pop("profile"))
+            device = ("not recorded" if r["device_ms"] is None
+                      else f"{r['device_ms'] * 1e3:.2f} µs")
+            print(f"phase 12: {name} ({setting}): {device} on the card alone "
+                  f"(torch.profiler, mean of 20 launches); bound "
+                  f"{r['bound_ms'] * 1e3:.2f} µs", flush=True)
 
 
 def check_anchored_contact(torch, dyn, model):
@@ -201,7 +303,8 @@ def check_anchored_contact(torch, dyn, model):
     results = {}
     for clamp in (False, True):
         params = dyn.SimParams(friction=mu, clamp_damping=clamp)
-        kernel = lambda: dyn.contact_forces(model, params, p_w, v_w, radii, anchor)
+        kernel = lambda params=params: dyn.contact_forces(model, params, p_w, v_w, radii,
+                                                          anchor)
         twin = lambda: dyn.contact_forces_anchored_plain(
             radii - p_w[..., 2], v_w, p_w[:, :4, :2], anchor, mu,
             params.contact_stiffness, params.contact_damping, params.tangential_stiffness,
@@ -218,20 +321,255 @@ def check_anchored_contact(torch, dyn, model):
                   for g, w, k in zip(got, want, ("f_world", "fn", "in_contact",
                                                   "new_anchor")))
         results[clamp] = {"max_abs_err": err, "ms": cuda_time_ms(torch, kernel),
-                          "plain_ms": cuda_time_ms(torch, twin)}
+                          "profile": (kernel, "contact_anchored_kernel"),
+                          "plain_ms": cuda_time_ms(torch, twin),
+                          **roofline("contact_anchored", n * 12,
+                                     (p_w[..., 2], v_w, p_w, anchor, mu), got)}
     return results
+
+
+def check_actuation_jvp(torch, act, prob, n):
+    """Phase 8: the `actuation_jvp` kernel (the total torque's tangent)
+    against torch.func.jvp of pd_torque + spring_torque at n lanes x
+    N_TANGENTS directions."""
+    cfg = prob.cfg
+    gen = torch.Generator("cuda").manual_seed(21)
+    randn = lambda *s: torch.randn(s, generator=gen, device="cuda")
+    rand = lambda *s: torch.rand(s, generator=gen, device="cuda")
+    lo, hi = prob.iface.lower_lim, prob.iface.upper_lim
+    q_des = lo + rand(n, 12) * (hi - lo)
+    q = cfg.init_joint_angles + 0.5 * randn(n, 12)
+    qd = 3.0 * randn(n, 12)
+    rest12 = torch.tile(cfg.spring_rest_angles, (4,))
+    q[0], q[1] = rest12 + 0.05, rest12 - 0.05      # either side of the engagement
+    q_des[2], q_des[3] = q[2] + 10.0, q[3] - 10.0  # clipped at either limit
+    q_des[4], qd[4] = q[4] + 0.01, 0.0             # well inside the clip
+    spring_k = cfg.spring_stiffness * (0.9 + 0.2 * rand(n, 3))
+    spring_b = cfg.spring_damping * (0.9 + 0.2 * rand(n, 3))
+    constants = (cfg.motor_kp, cfg.motor_kd, cfg.torque_limits, spring_k, spring_b,
+                 cfg.spring_rest_angles, prob.engage_sign)
+    primals = (q_des, q, qd)
+    tangents = tuple(randn(N_TANGENTS, n, 12) for _ in range(3))
+
+    def plain_fn(a, b, c):
+        tau_m = act.pd_torque(a, b, c, *constants[:3])
+        return tau_m + act.spring_torque(b, c, *constants[3:]), tau_m
+
+    kernel = lambda: act._launch_actuation_jvp(*primals, *constants, *tangents)
+    plain_both = lambda: torch.func.vmap(
+        lambda a, b, c: torch.func.jvp(plain_fn, primals, (a, b, c))[1])(*tangents)
+    plain = lambda: torch.func.vmap(       # what the kernel computes: dtau alone
+        lambda a, b, c: torch.func.jvp(lambda *p: plain_fn(*p)[0], primals,
+                                       (a, b, c))[1])(*tangents)
+    got, want = kernel(), plain_both()
+    torch.cuda.synchronize()
+    if not (bool((want[1][:, 2:4] == 0).all()) and bool((want[1][:, 4] != 0).all())
+            and bool(((want[0] - want[1])[:, :2] != 0).any())
+            and bool(((want[0] - want[1])[:, :2] == 0).any())):
+        raise AssertionError("actuation_jvp edge lanes not in the intended regimes")
+    k12, b12 = (torch.tile(t, (1, 4)) for t in (spring_k, spring_b))
+    d_des, d_q, d_qd = (t.abs() for t in tangents)
+    terms = (cfg.motor_kp * (d_q + d_des) + cfg.motor_kd * d_qd + k12 * d_q + b12 * d_qd)
+    return {"max_abs_err": max_err(torch, got, want[0], "actuation_jvp dtau", terms),
+            "ms": cuda_time_ms(torch, kernel),
+            "profile": (kernel, "actuation_jvp_kernel"),
+            "plain_ms": cuda_time_ms(torch, plain, reps=5),
+            **roofline("actuation_jvp", tangents[0].numel(),
+                       (*primals, *constants, *tangents), (got,))}
+
+
+def check_contact_jvp(torch, dyn, n):
+    """Phase 8: the `contact_jvp` kernel against torch.func.jvp of
+    contact_forces_plain at n lanes x 12 sites x N_TANGENTS directions, at
+    the planner's constants, with the damping clamp off and on."""
+    gen = torch.Generator("cuda").manual_seed(22)
+    kn, dn, v_tol = 4000.0, 40.0, 0.02
+    phi = 0.02 * torch.rand((n, 12), generator=gen, device="cuda") - 0.01
+    v_w = torch.randn((n, 12, 3), generator=gen, device="cuda")
+    mu = 0.5 + 0.5 * torch.rand((n,), generator=gen, device="cuda")
+    phi[0] = -1e-3                         # out of contact
+    phi[1:7] = 5e-3                        # elastic = 20 N
+    v_w[1:7, :, 2] = 0.0
+    v_w[1, :, 2] = 2.0                     # damping -80 N: clipped at -elastic
+    v_w[2, :, 2] = -2.0                    # damping +80 N: clipped at +elastic
+    v_w[3, :, 2] = 1.0                     # unclamped force -20 N: floored at 0
+    v_w[4, :, :2] = 3e-7                   # |v_t|² under the 1e-12 floor
+    v_w[5, :, 0], v_w[5, :, 1] = 0.012, 0.005    # |v_t| under v_tol
+    v_w[6, :, 0], v_w[6, :, 1] = 0.03, -0.04     # above it
+    phi[7:9] = 5e-3
+    v_w[7:9, :, 0], v_w[7:9, :, 1], v_w[7:9, :, 2] = 3.0, -4.0, 0.0   # sliding fast
+    dphi = torch.randn((N_TANGENTS, n, 12), generator=gen, device="cuda")
+    dv = torch.randn((N_TANGENTS, n, 12, 3), generator=gen, device="cuda")
+    # lane 7: dv_t tiny, so the friction tangent is the dscale·v_t term, driven
+    # by dfn; lane 8: dfn = 0, so dscale is its -scale·dden/den part alone and
+    # the tangent is -scale x (dv_t less its component along v_t)
+    dv[:, 7, :, :2] *= 1e-4
+    dphi[:, 8], dv[:, 8, :, 2] = 0.0, 0.0
+    # the friction tangent is -(dscale·v_t + scale·dv_t) with scale = μ·fn/den
+    # and dscale = (μ·dfn - scale·dden)/den: magnitudes of those terms
+    vt = v_w[..., :2].norm(dim=-1)
+    den = torch.clamp_min(vt, v_tol)
+    dv_t = dv[..., :2].abs().amax(dim=-1)
+
+    def friction_terms(f_world, df):
+        scale = mu[:, None] * f_world[..., 2] / den
+        dscale = (mu[:, None] * df[..., 2].abs() + scale * dv_t) / den
+        return (dscale * vt + scale * dv_t)[..., None]
+
+    results = {}
+    for clamp in (False, True):
+        consts = (kn, dn, v_tol, clamp)
+        plain_fn = lambda p, v: dyn.contact_forces_plain(p, v, mu, *consts)[0]
+        kernel = lambda consts=consts: dyn._launch_contact_jvp(phi, v_w, mu, dphi, dv,
+                                                               *consts)
+        plain = lambda: torch.func.vmap(
+            lambda a, b: torch.func.jvp(plain_fn, (phi, v_w), (a, b))[1])(dphi, dv)
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        dead = 1 if clamp else 3           # the lane whose force stays 0
+        scale_dv = (mu[:, None] * 5e-3 * kn / 5.0 * dv[..., :2].norm(dim=-1))[:, 7]
+        along = (want[:, 8, :, :2] * v_w[8, :, :2]).sum(-1).abs() / 5.0
+        if not (bool((want[:, 0] == 0).all()) and bool((want[:, dead] == 0).all())
+                and bool((want[:, 4:7, :, :2] != 0).any())
+                and (not clamp or bool((want[:, 2, :, 2] == 2 * kn * dphi[:, 2]).all()))
+                and bool((want[:, 7, :, :2].norm(dim=-1) > 1e3 * scale_dv).float().mean()
+                         > 0.9)
+                and bool((along <= 1e-4 * (1.0 + want[:, 8, :, :2].norm(dim=-1))).all())
+                and bool((want[:, 8, :, :2] != 0).any())):
+            raise AssertionError("contact_jvp edge lanes not in the intended regimes")
+        results[clamp] = {
+            "max_abs_err": max_err(torch, got, want, f"contact_jvp clamp={clamp}",
+                                   friction_terms(plain_fn(phi, v_w), want)),
+            "ms": cuda_time_ms(torch, kernel),
+            "profile": (kernel, "contact_jvp_kernel"),
+            "plain_ms": cuda_time_ms(torch, plain, reps=5),
+            **roofline("contact_jvp", dphi.numel(), (phi, v_w, mu, dphi, dv), (got,))}
+    return results
+
+
+def check_linearization(torch, ilqr, MPCConfig, MPCProblem):
+    """Phase 9: Jacobians of one planner knot at JAC_STATES rollout states,
+    card (kernels) against CPU (plain versions)."""
+    jac = {}
+    for dev in ("cpu", "cuda"):
+        prob = MPCProblem(MPCConfig(horizon=JAC_STATES), dev)
+        if dev == "cpu":       # one rollout, so both linearize at the same states
+            lanes = prob.lane_params()
+            us = prob.task_warm_start(crouch_knots=6)   # its extend phase sits at u = ±1
+            x, xs = prob.default_x0()[None], []
+            for t in range(JAC_STATES):
+                xs.append(x)
+                x = prob.dynamics(x, us[t:t + 1], lanes)
+            z_cpu = torch.cat([torch.cat(xs), us], dim=-1)
+        z = z_cpu.to(dev)
+        lanes = prob.lane_params(repeats=JAC_STATES)
+        _, cols = ilqr._basis_jvp(lambda z: prob.dynamics(z[:, :37], z[:, 37:], lanes), z)
+        jac[dev] = cols.permute(1, 2, 0).cpu()
+    heights = z_cpu[:, 2]
+    scale = jac["cpu"].abs().amax(dim=(1, 2))
+    rel = (jac["cuda"] - jac["cpu"]).abs().amax(dim=(1, 2)) / scale
+    if not bool(torch.isfinite(jac["cuda"]).all()) or float(rel.max()) > JAC_TOL:
+        raise AssertionError(f"phase 9: card and CPU Jacobians differ by {float(rel.max())} "
+                             f"of max |J| (bound {JAC_TOL})")
+    print(f"phase 9: {JAC_STATES} Jacobians (37x{N_TANGENTS}) of a planner knot along a "
+          f"rollout (base height {float(heights.min()):.3f}-{float(heights.max()):.3f} m), "
+          f"card against CPU: max |dJ| / max |J| = {float(rel.max()):.3e} (bound {JAC_TOL}); "
+          f"max |J| {float(scale.min()):.1f}-{float(scale.max()):.1f}", flush=True)
+
+
+def run_ilqr_solve(torch, bench, ilqr, act, dyn, kind):
+    """Phase 10: the full-width iLQR solve."""
+    import dataclasses
+
+    reset_counts(act, dyn)
+    rec = bench.run(batch=BATCH, horizon=HORIZON, iterations=ITERATIONS,
+                    runs=ILQR_TIMED_RUNS, device="cuda", ilqr=True)
+    torch.cuda.synchronize()
+    counts = read_counts(act, dyn)
+    sol = rec["solution"]
+    if not bool(torch.isfinite(sol.cost).all()):
+        raise AssertionError("phase 10: non-finite final costs")
+    if sol.cost_trace.shape != (BATCH, ITERATIONS) or bool(
+            (sol.cost_trace[:, 1:] > sol.cost_trace[:, :-1]).any()):
+        raise AssertionError("phase 10: a cost trace increases")
+    warm = rec["warm_start_mean_cost"]
+    drop = warm - rec["mean_final_cost"]
+    if not drop > ILQR_MARGIN:
+        raise AssertionError(f"phase 10: mean final cost {rec['mean_final_cost']} is not "
+                             f"{ILQR_MARGIN} below the warm start's {warm}")
+    prob, x0, u0, scenarios = rec["problem"]
+    S = prob.config.solver_substeps
+    blocks = -(-HORIZON // ilqr.linearization_blocks(BATCH, HORIZON, N_TANGENTS))
+    # the warm start's rollout, then per solve the initial rollout and, per
+    # iteration, the linearization's blocks and the line search's knots
+    primal = S * (HORIZON + rec["solves"] * (HORIZON + ITERATIONS * (blocks + HORIZON)))
+    tangent = rec["solves"] * S * ITERATIONS * blocks
+    check_counts(counts, {"actuation": primal, "contact": primal, "actuation_jvp": tangent,
+                          "contact_jvp": tangent, "contact_anchored": 0}, 10)
+    # the same full-width problem, its rollout and one whole iteration, under
+    # the sync debug mode (no stage clock: reading its events is the one sync
+    # a timed solve makes, after the last iteration)
+    one = dataclasses.replace(prob.ilqr_config, iterations=1)
+    syncs, where = count_syncs(torch, lambda: ilqr.solve_batched(
+        prob.lane_dynamics(scenarios), prob.stage_cost, prob.terminal_cost, x0, u0, one))
+    stages = rec["stage_times"]
+    print(f"phase 10: {rec['solves']} full-width iLQR solves ({BATCH} scenarios, H={HORIZON}, "
+          f"{ITERATIONS} iterations, {ILQR_ALPHAS} alphas, {blocks} linearization blocks per "
+          f"iteration): {rec['value']:.3f} solves/s on {kind}; mean cost "
+          f"{warm:.4f} -> {rec['mean_final_cost']:.4f} (drop {drop:.4f}, "
+          f"margin {ILQR_MARGIN}, first run {ILQR_FIRST_DROP}); launches {counts}; host "
+          f"syncs in a full-width rollout plus iteration: {syncs}; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    print(json.dumps({"ilqr_bench": {**{k: rec[k] for k in
+                                        ("metric", "value", "unit", "mean_final_cost",
+                                         "warm_start_mean_cost")},
+                                     "stage_seconds_last_solve": stages}}))
+    if syncs:
+        raise AssertionError(f"phase 10: an iteration synchronised the host {syncs} "
+                             f"times: {where}")
+    return counts
+
+
+def run_closed_loop(torch, closed_loop, act, dyn, kind):
+    """Phase 11: receding-horizon iLQR on the 1 kHz environment."""
+    reset_counts(act, dyn)
+    t0 = time.perf_counter()
+    out = closed_loop.run(LOOP_KNOTS, LOOP_REPLAN, LOOP_HORIZON, LOOP_ITERATIONS,
+                          LOOP_ALPHAS, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts(act, dyn)
+    if not (out["finite"] and out["upright"] and out["airborne_knots"] > 0
+            and out["executed_apex_m"] > 0.45):
+        raise AssertionError(f"phase 11: the closed loop did not jump: {out}")
+    S = 2                                    # substeps of the relaxed planner knot
+    per_solve = S * (LOOP_HORIZON + LOOP_ITERATIONS * (1 + LOOP_HORIZON))
+    planner, env = out["solves"] * per_solve, 10 * LOOP_KNOTS
+    check_counts(counts, {"actuation": planner + env, "contact": planner + 1,
+                          "actuation_jvp": out["solves"] * S * LOOP_ITERATIONS,
+                          "contact_jvp": out["solves"] * S * LOOP_ITERATIONS,
+                          "contact_anchored": env}, 11)
+    print(f"phase 11: closed loop of {LOOP_KNOTS} knots, {out['solves']} solves (H="
+          f"{LOOP_HORIZON}, {LOOP_ITERATIONS} iterations) in {wall:.2f} s on {kind}: planned "
+          f"apex {out['planned_apex_max_m']:.3f} m, executed {out['executed_apex_m']:.3f} m, "
+          f"airborne for {out['airborne_knots']} knots; launches {counts}", flush=True)
+    return counts
 
 
 def reset_counts(act, dyn):
     act.actuation_torque.launches = 0
+    act.actuation_torque.jvp_launches = 0
     dyn.contact_forces.launches = 0
+    dyn.contact_forces.jvp_launches = 0
     dyn.contact_forces.anchored_launches = 0
 
 
 def read_counts(act, dyn):
     return {"actuation": act.actuation_torque.launches,
             "contact": dyn.contact_forces.launches,
-            "contact_anchored": dyn.contact_forces.anchored_launches}
+            "contact_anchored": dyn.contact_forces.anchored_launches,
+            "actuation_jvp": act.actuation_torque.jvp_launches,
+            "contact_jvp": dyn.contact_forces.jvp_launches}
 
 
 def check_counts(counts, want, phase):
@@ -299,7 +637,7 @@ def run_env_bench(torch, env_bench, act, dyn, rnd, spatial, kind):
     step_syncs, step_where = count_syncs(torch, lambda: env.step(s, actions, gen))
     small = env_bench.QuadrupedEnv(env_bench.bench_config(10), device="cuda")
     reset_syncs, reset_where = count_syncs(torch, lambda: small.reset(gen, 8))
-    breakdown = env_bench.profile_steps(env, s, actions, gen, steps=3)
+    breakdown = lambda: env_bench.profile_steps(env, s, actions, gen, steps=3)
     print(f"phase 6: {ENVS} environments settled in {rec['reset_s']:.2f} s (height "
           f"{float(r.robot.pos[:, 2].min()):.4f}-{float(r.robot.pos[:, 2].max()):.4f} m, all "
           f"feet in contact); {ENV_SEGMENTS} segments of {ENV_STEPS} steps: "
@@ -310,8 +648,7 @@ def run_env_bench(torch, env_bench, act, dyn, rnd, spatial, kind):
           f"{reset_where}", flush=True)
     print(json.dumps({"env_bench": {k: rec[k] for k in
                                     ("metric", "sim_steps_per_s", "realtime_factor")}}))
-    print(json.dumps({"env_substep_breakdown": breakdown}))
-    return counts, step_syncs
+    return counts, step_syncs, breakdown
 
 
 def run_landing_episode(torch, act, dyn, kind):
@@ -375,12 +712,13 @@ def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
                          "this script needs a CUDA card and has no CPU fallback")
-    from quadruped_springs_tpu_torch import bench, env_bench, kernels
+    from quadruped_springs_tpu_torch import bench, closed_loop, env_bench, kernels
     from quadruped_springs_tpu_torch.env import randomizers as rnd
     from quadruped_springs_tpu_torch.env.wrappers import LANDING_KD, LANDING_KP
     from quadruped_springs_tpu_torch.models import dynamics as dyn
     from quadruped_springs_tpu_torch.models import spatial
     from quadruped_springs_tpu_torch.ops import actuation as act
+    from quadruped_springs_tpu_torch.solver import ilqr
     from quadruped_springs_tpu_torch.solver.mpc import MPCConfig, MPCProblem
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -427,7 +765,8 @@ def main():
         if count != substeps:
             raise AssertionError(f"{name} kernel launched {count} times, expected "
                                  f"{substeps} (one per planner substep)")
-    check_counts(by_path["mppi_solve"], {"contact_anchored": 0}, 4)
+    check_counts(by_path["mppi_solve"], {"contact_anchored": 0, "actuation_jvp": 0,
+                                         "contact_jvp": 0}, 4)
     print(f"phase 4: {rec['solves']} full-width solves ran {substeps} planner substeps; "
           f"launches {launches}; mean final cost {mean_cost:.4f} "
           f"(band [{lo:.2f}, {hi:.2f}]); {rec['value']:.2f} solves/s on {kind}",
@@ -453,25 +792,50 @@ def main():
     for name, by_setting in env_checks.items():
         checks.setdefault(name, {}).update(by_setting)
 
-    by_path["env_rollout"], step_syncs = run_env_bench(torch, env_bench, act, dyn, rnd,
-                                                       spatial, kind)
+    by_path["env_rollout"], step_syncs, env_breakdown = run_env_bench(
+        torch, env_bench, act, dyn, rnd, spatial, kind)
     by_path["landing_episode"] = run_landing_episode(torch, act, dyn, kind)
     if step_syncs:
         raise AssertionError(f"env.step synchronised the host {step_syncs} times")
 
+    # one block of the full-width linearization: knots x problems lanes
+    block_lanes = BATCH * ilqr.linearization_blocks(BATCH, HORIZON, N_TANGENTS)
+    contact_jvp = check_contact_jvp(torch, dyn, block_lanes)
+    jvp_checks = {"actuation_jvp": {"ilqr_block": check_actuation_jvp(torch, act, prob,
+                                                                    block_lanes)},
+                  "contact_jvp": {"ilqr_block": contact_jvp[False],
+                                  "ilqr_block_clamp": contact_jvp[True]}}
+    report_checks(8, jvp_checks, f"{block_lanes} x {N_TANGENTS}", "lanes x tangents")
+    checks.update(jvp_checks)
+    noop = kernels.library().planner_noop
+    stream = kernels.stream_handle(torch.device("cuda"))
+    floor_ms = cuda_time_ms(torch, lambda: noop(stream), reps=5, inner=200)
+    print(f"phase 8: an empty kernel takes {floor_ms * 1e3:.2f} µs per launch (200 "
+          f"back-to-back ctypes launches between two CUDA events) on {kind}", flush=True)
+
+    check_linearization(torch, ilqr, MPCConfig, MPCProblem)
+    by_path["ilqr_solve"] = run_ilqr_solve(torch, bench, ilqr, act, dyn, kind)
+    by_path["closed_loop"] = run_closed_loop(torch, closed_loop, act, dyn, kind)
+    profile_kernels(torch, checks)
+    print(json.dumps({"env_substep_breakdown": env_breakdown()}))
+
     # the contact_anchored kernel extends the memoryless contact kernel
     # (the TPU kernel fused_contact) with the feet's anchor stiction
+    # and the tangent kernels are the forward-mode derivatives of the two
     replaces = {"actuation": "scripts/pallas_microbench.py:96",
                 "contact": "scripts/pallas_microbench.py:153",
-                "contact_anchored": "scripts/pallas_microbench.py:153"}
+                "contact_anchored": "scripts/pallas_microbench.py:153",
+                "actuation_jvp": "scripts/pallas_microbench.py:96",
+                "contact_jvp": "scripts/pallas_microbench.py:153"}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCE, "replaces": replaces[name],
          "launches": sum(c[name] for c in by_path.values()),
          "launches_by_path": {p: c[name] for p, c in by_path.items()},
          "max_abs_err": max(r["max_abs_err"] for r in by_setting.values()),
-         "ms": next(iter(by_setting.values()))["ms"],
-         "plain_ms": next(iter(by_setting.values()))["plain_ms"],
-         "checks": by_setting}
+         **{k: next(iter(by_setting.values()))[k]
+            for k in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by")},
+         # no single PyTorch call computes any of these functions
+         "library_ms": None, "launch_floor_ms": floor_ms, "checks": by_setting}
         for name, by_setting in checks.items()]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -1,13 +1,16 @@
-"""Headline benchmark of the port: batched MPPI solves/s on one device.
+"""Headline benchmark of the port: batched MPC solves/s on one device.
 
-Runs the problem of the root ``bench.py`` on its MPPI path: JUMPING_IN_PLACE
-with springs on the relaxed 200 Hz planner model, 1024 TEST_RANDOMIZER
-scenarios, K=32 samples, H=50 knots, 10 iterations, fused accept. One
-untimed warm-up solve, then ``--runs`` timed solves bracketed by
+Runs the problem of the root ``bench.py``: JUMPING_IN_PLACE with springs on
+the relaxed 200 Hz planner model, 1024 TEST_RANDOMIZER scenarios, H=50
+knots, 10 iterations; on its MPPI path (K=32 samples, fused accept) or,
+with ``--ilqr``, on its exact float32 iLQR path (8 line-search candidates,
+``--relin-every k`` for the lagged linearization). One untimed warm-up
+solve, then ``--runs`` timed solves bracketed by
 ``torch.cuda.synchronize()``. Prints one JSON line: metric (naming the
 device), value (solves/s), unit, mean_final_cost.
 
     python -m quadruped_springs_tpu_torch.bench                 # on the GPU
+    python -m quadruped_springs_tpu_torch.bench --ilqr
     python -m quadruped_springs_tpu_torch.bench --device cpu --batch 2 \\
         --samples 4 --horizon 4 --iterations 1 --runs 1         # tiny CPU check
 
@@ -17,12 +20,14 @@ A CUDA device that is not available is an error, not a fallback.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import time
 
 import torch
 
 from quadruped_springs_tpu_torch.env import randomizers as rnd
+from quadruped_springs_tpu_torch.solver import ilqr as ilqr_solver
 from quadruped_springs_tpu_torch.solver.mpc import MPCConfig, MPCProblem
 from quadruped_springs_tpu_torch.solver.mppi import MPPIConfig
 
@@ -33,9 +38,14 @@ def device_name(device: torch.device) -> str:
 
 def run(batch: int = 1024, horizon: int = 50, iterations: int = 10,
         samples: int = 32, runs: int = 3, device="cuda", seed: int = 0,
-        full_rate: bool = False, springs: bool = True) -> dict:
+        full_rate: bool = False, springs: bool = True, ilqr: bool = False,
+        relin_every: int = 1) -> dict:
     """Time the batched solve; returns the JSON record plus the final costs
-    (`costs`, (batch,)) and the number of solve calls made (`solves`)."""
+    (`costs`, (batch,)) and the number of solve calls made (`solves`). With
+    `ilqr`, also the last solve's ILQRSolution (`solution`), its seconds
+    per stage (`stage_times`), the mean cost of the warm start's rollout
+    (`warm_start_mean_cost`, one more rollout of H knots before the solves)
+    and the solved problem (`problem`: the MPCProblem, x0, u0, scenarios)."""
     device = torch.device(device)
     if device.type == "cuda":
         if not torch.cuda.is_available():
@@ -44,7 +54,7 @@ def run(batch: int = 1024, horizon: int = 50, iterations: int = 10,
         torch.backends.cudnn.allow_tf32 = False
     mk = MPCConfig.full_rate if full_rate else MPCConfig
     cfg = mk(task="JUMPING_IN_PLACE", enable_springs=springs, horizon=horizon,
-             iterations=iterations)
+             iterations=iterations, n_alphas=8, relin_every=relin_every)
     prob = MPCProblem(cfg, device)
     gen = torch.Generator(device).manual_seed(seed)
     scenarios = rnd.sample_scenario(prob.cfg, "TEST_RANDOMIZER", gen, n=batch)
@@ -54,7 +64,19 @@ def run(batch: int = 1024, horizon: int = 50, iterations: int = 10,
                       fused_accept=True)
     noise_gen = torch.Generator(device)
 
+    extra = {}
+    if ilqr:
+        warm = dataclasses.replace(prob.ilqr_config, iterations=0)
+        extra["warm_start_mean_cost"] = float(ilqr_solver.solve_batched(
+            prob.lane_dynamics(scenarios), prob.stage_cost, prob.terminal_cost, x0, u0,
+            warm).cost.mean())
+        extra["problem"] = (prob, x0, u0, scenarios)
+
     def solve():
+        if ilqr:
+            extra["stage_times"] = {}
+            extra["solution"] = prob.solve_batch(x0, u0, scenarios, extra["stage_times"])
+            return extra["solution"].cost
         noise_gen.manual_seed(seed + 1)      # every run solves the same problem
         return prob.solve_mppi(x0, u0, noise_gen, mcfg, scenarios).cost
 
@@ -66,8 +88,13 @@ def run(batch: int = 1024, horizon: int = 50, iterations: int = 10,
         costs = solve()
     sync()
     dt = (time.perf_counter() - t0) / runs
-    desc = f"MPPI H={horizon}, {iterations} iters, K={samples}, fused"
+    if ilqr:
+        desc = (f"iLQR H={horizon}, {iterations} iters, exact-f32"
+                + (f", relin/{relin_every}" if relin_every > 1 else ""))
+    else:
+        desc = f"MPPI H={horizon}, {iterations} iters, K={samples}, fused"
     return {
+        **extra,
         "metric": (f"MPC solves/s ({desc}, {cfg.planner_desc}, batch {batch}, "
                    "domain-randomized" + ("" if springs else ", no-springs")
                    + f", torch port on {device_name(device)})"),
@@ -90,9 +117,11 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--full-rate", action="store_true")
     ap.add_argument("--no-springs", action="store_true")
+    ap.add_argument("--ilqr", action="store_true")
+    ap.add_argument("--relin-every", type=int, default=1)
     a = ap.parse_args(argv)
     rec = run(a.batch, a.horizon, a.iterations, a.samples, a.runs, a.device, a.seed,
-              a.full_rate, not a.no_springs)
+              a.full_rate, not a.no_springs, a.ilqr, a.relin_every)
     print(json.dumps({k: rec[k] for k in ("metric", "value", "unit", "mean_final_cost")}))
     return rec
 

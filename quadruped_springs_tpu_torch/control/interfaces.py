@@ -81,16 +81,30 @@ def make_interface(cfg: Go1Config, motor_control_mode: str = "PD",
     )
 
 
+def _clip(x, lo, hi):
+    """x clipped to [lo, hi] (tensors). Written as min(max(x, lo), hi)
+    because its derivative at a tie is then one half, as jax.numpy.clip's
+    is, where torch.clamp's is one: the jumping tasks' warm starts sit at
+    actions of exactly ±1, and the iLQR linearization there must agree with
+    the JAX package's."""
+    return torch.minimum(torch.maximum(x, lo), hi)
+
+
+def _clip_unit(a):
+    one = torch.ones_like(a)
+    return _clip(a, -one, one)
+
+
 def scale_action_to_command(iface: ControlInterface, a12):
-    a = torch.clamp(a12, -1.0, 1.0)
+    a = _clip_unit(a12)
     cmd = iface.lower_lim + 0.5 * (a + 1.0) * (iface.upper_lim - iface.lower_lim)
-    return torch.clamp(cmd, iface.lower_lim, iface.upper_lim)
+    return _clip(cmd, iface.lower_lim, iface.upper_lim)
 
 
 def scale_command_to_action(iface: ControlInterface, cmd):
-    c = torch.clamp(cmd, iface.lower_lim, iface.upper_lim)
+    c = _clip(cmd, iface.lower_lim, iface.upper_lim)
     a = -1.0 + 2.0 * (c - iface.lower_lim) / (iface.upper_lim - iface.lower_lim)
-    return torch.clamp(a, -1.0, 1.0)
+    return _clip_unit(a)
 
 
 @functools.lru_cache(maxsize=None)

@@ -22,6 +22,8 @@ from quadruped_springs_tpu_torch.models.go1_params import (
     Go1Config,
     Go1Model,
 )
+from quadruped_springs_tpu_torch.solver.ilqr import ILQRConfig, ILQRSolution
+from quadruped_springs_tpu_torch.solver.mpc import MPCConfig
 
 
 def _tensor(obj, name, device):
@@ -80,3 +82,31 @@ def sim_params(params, device=None) -> SimParams:
 def control_interface(iface, device=None) -> ControlInterface:
     return _convert(iface, ControlInterface, device, python_fields=(
         "motor_control_mode", "action_space_mode", "action_dim", "symm_idx"))
+
+
+def _shared_fields(obj, cls):
+    """The fields of the port's config dataclass `cls`, read from the JAX
+    package's config of the same name (which may hold more)."""
+    return cls(**{f.name: getattr(obj, f.name) for f in dataclasses.fields(cls)})
+
+
+def ilqr_config(config) -> ILQRConfig:
+    """A JAX ILQRConfig; its scan `unroll` has no counterpart."""
+    return _shared_fields(config, ILQRConfig)
+
+
+def mpc_config(config) -> MPCConfig:
+    """A JAX MPCConfig. The bfloat16 linearization is not ported, and the
+    scan unroll factors have no counterpart."""
+    if config.lin_dtype != "f32":
+        raise ValueError(f"lin_dtype {config.lin_dtype!r}: the port linearizes in f32")
+    return _shared_fields(config, MPCConfig)
+
+
+def ilqr_solution(sol, device=None) -> ILQRSolution:
+    """A JAX ILQRSolution, single or batched, with a leading batch axis."""
+    out = _convert(sol, ILQRSolution, device)
+    if out.cost.dim() == 0:
+        out = ILQRSolution(**{f.name: getattr(out, f.name)[None]
+                              for f in dataclasses.fields(ILQRSolution)})
+    return out

@@ -107,7 +107,7 @@ class QuadrupedEnv:
             raise ValueError("TORQUE motor control mode is not supported for the RL "
                              "gym interface")
         self.config = config
-        self.device = torch.device(device if device is not None else "cpu")
+        self.device = torch.device(device if device is not None else "cuda")
         dev = self.device
         self.cfg = go1_config(config.enable_springs, dev)
         self.iface = ci.make_interface(self.cfg, config.motor_control_mode,

@@ -3,9 +3,10 @@
 The library is compiled by ``nvcc`` for Hopper (``sm_90a``) at first use
 into ``_build/`` beside this file, named by a hash of the source so an
 edited source is never served by a stale build, and bound through a plain
-C interface with ctypes. Nothing here runs at import time: a machine
-without nvcc or a card imports the package and uses the kernels' plain
-PyTorch twins on CPU tensors.
+C interface with ctypes. The last section holds what the
+``torch.autograd.Function``s around a kernel and its tangent kernel share.
+Nothing here runs at import time: a machine without nvcc or a card imports
+the package and uses the kernels' plain PyTorch twins on CPU tensors.
 
 No ``--use_fast_math``: the twins' ``sqrtf`` and divisions are IEEE, and
 the kernels must agree with them to rounding.
@@ -44,6 +45,16 @@ _SIGNATURES = {
     # f_world, fn, in_contact, new_anchor, n_lanes, stream
     "planner_contact_anchored": [_P] * 5 + [ctypes.c_float] * 5 + [ctypes.c_int]
                                 + [_P] * 4 + [ctypes.c_int64, _P],
+    # the ten primal arguments of planner_actuation, dq_des, dq, dqd, dtau,
+    # n_lanes, n_tangents, stream
+    "planner_actuation_jvp": [_P] * 14 + [ctypes.c_int64, ctypes.c_int, _P],
+    # phi, v_w, mu, kn, dn, v_tol, clamp_damping, dphi, dv_w, df_world,
+    # n_lanes, n_tangents, stream
+    "planner_contact_jvp": [_P, _P, _P, ctypes.c_float, ctypes.c_float,
+                            ctypes.c_float, ctypes.c_int, _P, _P, _P,
+                            ctypes.c_int64, ctypes.c_int, _P],
+    # stream; launches an empty kernel (the launch floor of the card)
+    "planner_noop": [_P],
 }
 
 
@@ -117,3 +128,39 @@ def check_tensor(name: str, t: torch.Tensor, shape: tuple, device: torch.device,
 def stream_handle(device: torch.device) -> int:
     """The raw cudaStream_t of PyTorch's current stream on `device`."""
     return torch.cuda.current_stream(device).cuda_stream
+
+
+# -- shared by the autograd Functions that bind a kernel and its tangent kernel --
+
+def stack_tangents(info, in_dims, tangents, n_primals: int):
+    """The vmap rule shared by the tangent kernels' Functions: the mapped
+    axis of every tangent (T0,N,...) joins its direction axis, giving
+    (B·T0,N,...) contiguous slabs for one launch. The primals must not be
+    mapped: many tangents of ONE primal is what the kernels compute."""
+    if any(d is not None for d in in_dims[:n_primals]):
+        raise NotImplementedError(
+            "vmap over the primal arguments of a tangent kernel is not supported; "
+            "fold that batch into the lane axis")
+    out = []
+    for t, d in zip(tangents, in_dims[n_primals:n_primals + len(tangents)]):
+        t = (t[None].expand(info.batch_size, *t.shape) if d is None
+             else t.movedim(d, 0))
+        out.append(t.reshape(-1, *t.shape[2:]).contiguous())
+    return out
+
+
+def no_backward(name: str):
+    raise NotImplementedError(
+        f"{name}: reverse-mode differentiation through the CUDA kernel is not "
+        "implemented (only forward mode, for the iLQR linearization)")
+
+
+def no_primal_vmap(name: str):
+    raise NotImplementedError(
+        f"{name}: vmap over the kernel's arguments is not supported; fold the batch "
+        "into the lane axis (vmap over tangents of torch.func.jvp is supported)")
+
+
+def tangent_or_zeros(tangent, primal):
+    """A missing forward-mode tangent is a zero tangent."""
+    return torch.zeros_like(primal) if tangent is None else tangent

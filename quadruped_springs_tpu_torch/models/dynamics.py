@@ -10,8 +10,9 @@ lane axis N in front, e.g. body inertias are (N,4,3,6,6). Model fields in
 ``go1_params.SCENARIO_FIELDS`` carry N lanes or 1 (broadcast).
 
 The memoryless contact law (the planner's) runs as the CUDA kernel
-``contact`` of ``csrc/planner_ops.cu`` on CUDA tensors and as
-``contact_forces_plain`` on CPU tensors; the environment's law with
+``contact`` of ``csrc/planner_ops.cu`` on CUDA tensors (with the kernel
+``contact_jvp`` as its forward-mode tangent) and as ``contact_forces_plain``
+on CPU tensors; the environment's law with
 foot-anchor stiction runs as the kernel ``contact_anchored`` and as
 ``contact_forces_anchored_plain``. The 3x3 and 6x6 solves are closed form
 (adjugate and unrolled Cholesky, as in ``dynamics_soa.py``), which keeps them
@@ -373,6 +374,112 @@ def contact_forces_anchored_plain(phi, v_w, foot_xy, foot_anchor, mu, kn: float,
     return f_world, fn, in_contact, new_anchor
 
 
+def _check_contact_primals(phi, v_w, mu):
+    n, dev = phi.shape[0], phi.device
+    for name, t, shape in (("phi", phi, (n, N_SITES)), ("v_w", v_w, (n, N_SITES, 3)),
+                           ("friction", mu, (n,))):
+        kernels.check_tensor(name, t, shape, dev)
+    return n, dev
+
+
+def _launch_contact(phi, v_w, mu, kn: float, dn: float, v_tol: float,
+                    clamp_damping: bool):
+    """Launch the `contact` kernel: (f_world (N,12,3), fn (N,12),
+    in_contact (N,12))."""
+    n, dev = _check_contact_primals(phi, v_w, mu)
+    f_world = torch.empty_like(v_w)
+    fn = torch.empty_like(phi)
+    in_contact = torch.empty(phi.shape, dtype=torch.bool, device=dev)
+    if n == 0:
+        return f_world, fn, in_contact
+    with torch.cuda.device(dev):
+        err = kernels.library().planner_contact(
+            phi.data_ptr(), v_w.data_ptr(), mu.data_ptr(), float(kn), float(dn),
+            float(v_tol), int(clamp_damping), f_world.data_ptr(), fn.data_ptr(),
+            in_contact.data_ptr(), n, kernels.stream_handle(dev))
+    kernels.check_launch("planner_contact", err)
+    contact_forces.launches += 1
+    return f_world, fn, in_contact
+
+
+def _launch_contact_jvp(phi, v_w, mu, dphi, dv_w, kn: float, dn: float, v_tol: float,
+                        clamp_damping: bool):
+    """Launch the `contact_jvp` kernel on the primals of `contact` and the
+    tangents dphi (T,N,12), dv_w (T,N,12,3): df_world (T,N,12,3)."""
+    n, dev = _check_contact_primals(phi, v_w, mu)
+    n_tangents = dphi.shape[0]
+    kernels.check_tensor("dphi", dphi, (n_tangents, n, N_SITES), dev)
+    kernels.check_tensor("dv_w", dv_w, (n_tangents, n, N_SITES, 3), dev)
+    df_world = torch.empty_like(dv_w)
+    if n == 0 or n_tangents == 0:
+        return df_world
+    with torch.cuda.device(dev):
+        err = kernels.library().planner_contact_jvp(
+            phi.data_ptr(), v_w.data_ptr(), mu.data_ptr(), float(kn), float(dn),
+            float(v_tol), int(clamp_damping), dphi.data_ptr(), dv_w.data_ptr(),
+            df_world.data_ptr(), n, n_tangents, kernels.stream_handle(dev))
+    kernels.check_launch("planner_contact_jvp", err)
+    contact_forces.jvp_launches += 1
+    return df_world
+
+
+class _ContactJvp(torch.autograd.Function):
+    """The `contact_jvp` kernel: phi, v_w, mu, then dphi, dv_w with the
+    tangent directions leading, then the contact constants."""
+
+    @staticmethod
+    def forward(phi, v_w, mu, dphi, dv_w, kn, dn, v_tol, clamp_damping):
+        return _launch_contact_jvp(phi, v_w, mu, dphi, dv_w, kn, dn, v_tol, clamp_damping)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def vmap(info, in_dims, phi, v_w, mu, dphi, dv_w, *constants):
+        tangents = kernels.stack_tangents(info, in_dims, (dphi, dv_w), 3)
+        df = _ContactJvp.apply(phi, v_w, mu, *tangents, *constants)
+        return df.reshape(info.batch_size, -1, *df.shape[1:]), 0
+
+    @staticmethod
+    def backward(ctx, *grads):
+        kernels.no_backward("contact_jvp")
+
+
+class _Contact(torch.autograd.Function):
+    """The `contact` kernel with its forward-mode rule."""
+
+    @staticmethod
+    def forward(phi, v_w, mu, kn, dn, v_tol, clamp_damping):
+        return _launch_contact(phi, v_w, mu, kn, dn, v_tol, clamp_damping)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_forward(*inputs[:3])
+        ctx.set_materialize_grads(False)   # a missing tangent stays None
+        ctx.constants = inputs[3:]
+        ctx.mark_non_differentiable(output[2])
+
+    @staticmethod
+    def jvp(ctx, dphi, dv_w, dmu, *constants):
+        if dmu is not None:
+            raise NotImplementedError("contact_forces: the tangent of the friction "
+                                      "coefficient is not implemented")
+        phi, v_w, mu = ctx.saved_tensors
+        df = _ContactJvp.apply(
+            phi, v_w, mu, kernels.tangent_or_zeros(dphi, phi)[None].contiguous(),
+            kernels.tangent_or_zeros(dv_w, v_w)[None].contiguous(), *ctx.constants)[0]
+        return df, df[..., 2], None
+
+    @staticmethod
+    def vmap(info, in_dims, *args):
+        kernels.no_primal_vmap("contact_forces")
+
+    @staticmethod
+    def backward(ctx, *grads):
+        kernels.no_backward("contact_forces")
+
+
 def contact_forces(model: Go1Model, params: SimParams, p_w, v_w, radii,
                    foot_anchor=None):
     """Compliant contact at the 12 sites.
@@ -382,7 +489,9 @@ def contact_forces(model: Go1Model, params: SimParams, p_w, v_w, radii,
     (N,12), None). With foot_anchor (N,4,2) world-xy anchors: the feet get
     anchor stiction and the fourth result is the new anchors (N,4,2). CUDA
     tensors launch the `contact` or `contact_anchored` kernel; CPU tensors
-    take the plain twins.
+    take the plain twins. The memoryless law is differentiable in forward
+    mode (on the card through the `contact_jvp` kernel); reverse mode
+    through the kernel raises.
     """
     phi = radii - p_w[..., 2]
     mu, kn, dn = params.friction, params.contact_stiffness, params.contact_damping
@@ -400,24 +509,14 @@ def contact_forces(model: Go1Model, params: SimParams, p_w, v_w, radii,
     dev = phi.device
     if not torch.is_tensor(mu):
         mu = torch.full((n,), float(mu), dtype=torch.float32, device=dev)
-    for name, t, shape in (("phi", phi, (n, N_SITES)), ("v_w", v_w, (n, N_SITES, 3)),
-                           ("friction", mu, (n,))):
-        kernels.check_tensor(name, t, shape, dev)
+    if foot_anchor is None:
+        return (*_Contact.apply(phi, v_w, mu, float(kn), float(dn),
+                                float(params.slip_vel_tol), bool(params.clamp_damping)),
+                None)
+    _check_contact_primals(phi, v_w, mu)
     f_world = torch.empty_like(v_w)
     fn = torch.empty_like(phi)
     in_contact = torch.empty(phi.shape, dtype=torch.bool, device=dev)
-    if foot_anchor is None:
-        if n == 0:
-            return f_world, fn, in_contact, None
-        with torch.cuda.device(dev):
-            err = kernels.library().planner_contact(
-                phi.data_ptr(), v_w.data_ptr(), mu.data_ptr(), float(kn), float(dn),
-                float(params.slip_vel_tol), int(params.clamp_damping),
-                f_world.data_ptr(), fn.data_ptr(), in_contact.data_ptr(), n,
-                kernels.stream_handle(dev))
-        kernels.check_launch("planner_contact", err)
-        contact_forces.launches += 1
-        return f_world, fn, in_contact, None
     kernels.check_tensor("p_w", p_w, (n, N_SITES, 3), dev)
     kernels.check_tensor("foot_anchor", foot_anchor, (n, 4, 2), dev)
     new_anchor = torch.empty_like(foot_anchor)
@@ -436,6 +535,7 @@ def contact_forces(model: Go1Model, params: SimParams, p_w, v_w, radii,
 
 
 contact_forces.launches = 0            # `contact` kernel
+contact_forces.jvp_launches = 0        # `contact_jvp` kernel
 contact_forces.anchored_launches = 0   # `contact_anchored` kernel
 
 

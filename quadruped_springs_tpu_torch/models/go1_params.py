@@ -162,7 +162,10 @@ _CART_SETTLING = np.array([[-0.02, s * _DEFAULT_Y, -0.15] for s in SIDE_SIGN]).f
 
 
 def go1_config(enable_springs: bool = True, device=None) -> Go1Config:
-    """Build the robot config (with or without the parallel springs)."""
+    """Build the robot config (with or without the parallel springs) on
+    `device`: the CUDA card unless the caller names another (without a card
+    the default raises; there is no fallback to the CPU)."""
+    device = torch.device(device if device is not None else "cuda")
     f32 = lambda x: torch.as_tensor(np.asarray(x, np.float64), dtype=torch.float32,
                                     device=device)
     if enable_springs:

@@ -4,7 +4,13 @@ Port of ``quadruped_springs_tpu.ops.actuation``. ``pd_torque`` and
 ``spring_torque`` are the plain PyTorch versions; ``actuation_torque``
 computes their sum in one pass, through the CUDA kernel ``actuation`` of
 ``csrc/planner_ops.cu`` for CUDA tensors and through the plain versions for
-CPU tensors.
+CPU tensors. On CUDA tensors it is a ``torch.autograd.Function`` whose
+forward-mode tangent is the CUDA kernel ``actuation_jvp`` (the iLQR
+linearization pushes 43 tangents through every substep); on CPU tensors
+PyTorch differentiates the plain versions. Reverse mode raises. On the card
+only the total torque carries a tangent: the motor's share (read by sensors
+and rewards, differentiated by nothing) is marked non-differentiable, so the
+memory-bound tangent kernel does not write it.
 """
 
 from __future__ import annotations
@@ -49,23 +55,9 @@ def spring_torque(q, qd, stiffness3, damping3, rest_angles3, engage_sign):
     return torch.where(engaged, tau, torch.zeros_like(tau))
 
 
-def actuation_torque(q_des, q, qd, kp, kd, torque_limits, spring_k, spring_b,
-                     rest_angles3, engage_sign):
-    """Motor torque plus spring torque for N lanes: (tau_total, tau_motor).
-
-    q_des, q, qd: (N,12). kp, kd, torque_limits, engage_sign: (12,).
-    spring_k, spring_b: (N,3) per lane (zeros without springs). rest_angles3:
-    (3,). CUDA tensors launch the `actuation` kernel; CPU tensors take
-    pd_torque + spring_torque.
-    """
-    if q.device.type == "cpu":
-        tau_m = pd_torque(q_des, q, qd, kp, kd, torque_limits)
-        return tau_m + spring_torque(q, qd, spring_k, spring_b, rest_angles3,
-                                     engage_sign), tau_m
-    if q.device.type != "cuda":
-        raise ValueError(f"actuation_torque: no kernel for device {q.device}")
-    n = q.shape[0]
-    dev = q.device
+def _check_actuation_primals(q_des, q, qd, kp, kd, torque_limits, spring_k, spring_b,
+                             rest_angles3, engage_sign):
+    n, dev = q.shape[0], q.device
     for name, t, shape in (
             ("q_des", q_des, (n, 12)), ("q", q, (n, 12)), ("qd", qd, (n, 12)),
             ("kp", kp, (12,)), ("kd", kd, (12,)),
@@ -74,20 +66,122 @@ def actuation_torque(q_des, q, qd, kp, kd, torque_limits, spring_k, spring_b,
             ("rest_angles3", rest_angles3, (3,)),
             ("engage_sign", engage_sign, (12,))):
         kernels.check_tensor(name, t, shape, dev)
+    return n, dev
+
+
+def _launch_actuation(*primals):
+    """Launch the `actuation` kernel on the ten arguments of
+    actuation_torque: (tau, tau_motor)."""
+    n, dev = _check_actuation_primals(*primals)
+    q = primals[1]
     tau = torch.empty_like(q)
     tau_m = torch.empty_like(q)
     if n == 0:
         return tau, tau_m
-    lib = kernels.library()
     with torch.cuda.device(dev):
-        err = lib.planner_actuation(
-            q_des.data_ptr(), q.data_ptr(), qd.data_ptr(), kp.data_ptr(),
-            kd.data_ptr(), torque_limits.data_ptr(), spring_k.data_ptr(),
-            spring_b.data_ptr(), rest_angles3.data_ptr(), engage_sign.data_ptr(),
-            tau.data_ptr(), tau_m.data_ptr(), n, kernels.stream_handle(dev))
+        err = kernels.library().planner_actuation(
+            *(t.data_ptr() for t in primals), tau.data_ptr(), tau_m.data_ptr(), n,
+            kernels.stream_handle(dev))
     kernels.check_launch("planner_actuation", err)
     actuation_torque.launches += 1
     return tau, tau_m
 
 
-actuation_torque.launches = 0
+def _launch_actuation_jvp(*args):
+    """Launch the `actuation_jvp` kernel on the ten primal arguments and
+    the tangents dq_des, dq, dqd (T,N,12): dtau (T,N,12), the tangent of
+    the total torque."""
+    primals, tangents = args[:10], args[10:]
+    n, dev = _check_actuation_primals(*primals)
+    n_tangents = tangents[1].shape[0]
+    for name, t in zip(("dq_des", "dq", "dqd"), tangents):
+        kernels.check_tensor(name, t, (n_tangents, n, 12), dev)
+    dtau = torch.empty_like(tangents[1])
+    if n == 0 or n_tangents == 0:
+        return dtau
+    with torch.cuda.device(dev):
+        err = kernels.library().planner_actuation_jvp(
+            *(t.data_ptr() for t in args), dtau.data_ptr(), n, n_tangents,
+            kernels.stream_handle(dev))
+    kernels.check_launch("planner_actuation_jvp", err)
+    actuation_torque.jvp_launches += 1
+    return dtau
+
+
+class _ActuationJvp(torch.autograd.Function):
+    """The `actuation_jvp` kernel: ten primals, then dq_des, dq, dqd with
+    the tangent directions leading, (T,N,12)."""
+
+    @staticmethod
+    def forward(*args):
+        return _launch_actuation_jvp(*args)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def vmap(info, in_dims, *args):
+        tangents = kernels.stack_tangents(info, in_dims, args[10:], 10)
+        dtau = _ActuationJvp.apply(*args[:10], *tangents)
+        return dtau.reshape(info.batch_size, -1, *dtau.shape[1:]), 0
+
+    @staticmethod
+    def backward(ctx, *grads):
+        kernels.no_backward("actuation_jvp")
+
+
+class _Actuation(torch.autograd.Function):
+    """The `actuation` kernel with its forward-mode rule."""
+
+    @staticmethod
+    def forward(*primals):
+        return _launch_actuation(*primals)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_forward(*inputs)
+        ctx.set_materialize_grads(False)   # a missing tangent stays None
+        ctx.mark_non_differentiable(output[1])   # tau_motor: see the module docstring
+
+    @staticmethod
+    def jvp(ctx, dq_des, dq, dqd, *constants):
+        if any(t is not None for t in constants):
+            raise NotImplementedError("actuation_torque: tangents of the gains, limits "
+                                      "and spring constants are not implemented")
+        primals = ctx.saved_tensors
+        tangents = [kernels.tangent_or_zeros(t, p)[None].contiguous()
+                    for t, p in zip((dq_des, dq, dqd), primals)]
+        return _ActuationJvp.apply(*primals, *tangents)[0], None
+
+    @staticmethod
+    def vmap(info, in_dims, *primals):
+        kernels.no_primal_vmap("actuation_torque")
+
+    @staticmethod
+    def backward(ctx, *grads):
+        kernels.no_backward("actuation_torque")
+
+
+def actuation_torque(q_des, q, qd, kp, kd, torque_limits, spring_k, spring_b,
+                     rest_angles3, engage_sign):
+    """Motor torque plus spring torque for N lanes: (tau_total, tau_motor).
+
+    q_des, q, qd: (N,12). kp, kd, torque_limits, engage_sign: (12,).
+    spring_k, spring_b: (N,3) per lane (zeros without springs). rest_angles3:
+    (3,). CUDA tensors launch the `actuation` kernel (and, under forward-mode
+    differentiation, `actuation_jvp` for tau_total's tangent; tau_motor then
+    carries none); CPU tensors take pd_torque + spring_torque.
+    """
+    if q.device.type == "cpu":
+        tau_m = pd_torque(q_des, q, qd, kp, kd, torque_limits)
+        return tau_m + spring_torque(q, qd, spring_k, spring_b, rest_angles3,
+                                     engage_sign), tau_m
+    if q.device.type != "cuda":
+        raise ValueError(f"actuation_torque: no kernel for device {q.device}")
+    return _Actuation.apply(q_des, q, qd, kp, kd, torque_limits, spring_k, spring_b,
+                            rest_angles3, engage_sign)
+
+
+actuation_torque.launches = 0       # `actuation` kernel
+actuation_torque.jvp_launches = 0   # `actuation_jvp` kernel

@@ -1,10 +1,10 @@
-"""MPC problem assembly: Go1 planner dynamics + task costs + the MPPI solver.
+"""MPC problem assembly: Go1 planner dynamics + task costs + the iLQR and
+MPPI solvers.
 
-Port of ``quadruped_springs_tpu.solver.mpc`` for the sampling planner. The
-iLQR methods of the JAX class (``solve``, ``solve_batch``, ``mpc_step``)
-come with the iLQR slice (ROADMAP queue 1, item 11), and so do the
-MPCConfig fields that only they read; ``cost_overrides`` and ``iface_task``
-come with the task costs that read them.
+Port of ``quadruped_springs_tpu.solver.mpc``. Of the JAX MPCConfig, the
+bfloat16 linearization (``lin_dtype``) is not ported yet and the scan
+unroll factors (``ilqr_unroll``, ``substep_unroll``) have no counterpart in
+eager PyTorch.
 
 State vector layout (n=37): [pos(3), quat(4), lin_vel(3), ang_vel(3),
 q(12), qd(12)].
@@ -21,7 +21,7 @@ from quadruped_springs_tpu_torch.env import randomizers as rnd
 from quadruped_springs_tpu_torch.models import dynamics as dyn
 from quadruped_springs_tpu_torch.models.go1_params import Go1Model, go1_config
 from quadruped_springs_tpu_torch.ops import actuation as act
-from quadruped_springs_tpu_torch.solver import mppi
+from quadruped_springs_tpu_torch.solver import ilqr, mppi
 from quadruped_springs_tpu_torch.tasks import costs as task_costs
 
 N_STATE = 37
@@ -46,6 +46,12 @@ class MPCConfig:
     action_repeat: int = 10       # 1 kHz substeps per 100 Hz knot (execution)
     time_step: float = 0.001
     iterations: int = 10
+    n_alphas: int = 8
+    # Riccati sweep of the iLQR solver: "sequential" or "parallel"
+    # (ILQRConfig.backward), and its relinearization period
+    # (ILQRConfig.relin_every).
+    backward: str = "sequential"
+    relin_every: int = 1
     # Planner integration: 2 substeps per 100 Hz knot (200 Hz) on a relaxed
     # contact (4 kN/m, 40 N s/m) by default; MPCConfig.full_rate() plans on
     # the 1 kHz execution model instead. The JAX module gives the reasons.
@@ -53,6 +59,13 @@ class MPCConfig:
     contact_stiffness: float = 4000.0
     contact_damping: float = 40.0
     clamp_damping: bool = False
+    # Task-cost parameter overrides as a hashable (key, value) tuple, e.g.
+    # (("v_ref", 1.8),); tasks/costs.make_cost documents the keys per task.
+    cost_overrides: tuple = ()
+    # Task whose action scaling the control interface takes (BACKFLIP raises
+    # the rear-thigh upper limits), for a solver that plans another cost
+    # inside that task's episode. None = same as `task`.
+    iface_task: str | None = None
 
     @classmethod
     def full_rate(cls, **kw) -> "MPCConfig":
@@ -86,11 +99,13 @@ class MPCProblem:
     """Static problem definition on one device; exposes dynamics/cost/solve."""
 
     def __init__(self, config: MPCConfig = MPCConfig(), device=None):
+        """On `device`: the CUDA card unless the caller names another."""
         self.config = config
-        self.device = torch.device(device if device is not None else "cpu")
+        self.device = torch.device(device if device is not None else "cuda")
         self.cfg = go1_config(config.enable_springs, self.device)
         self.iface = ci.make_interface(self.cfg, config.motor_control_mode,
-                                       config.action_space_mode, config.task)
+                                       config.action_space_mode,
+                                       config.iface_task or config.task)
         self.action_dim = self.iface.action_dim
         knot_dt = config.time_step * config.action_repeat
         self.sim_params = dataclasses.replace(
@@ -99,7 +114,12 @@ class MPCProblem:
             contact_damping=config.contact_damping,
             clamp_damping=config.clamp_damping)
         self.stage_cost, self.terminal_cost = task_costs.make_cost(
-            config.task, self.cfg, self.action_dim, config.horizon)
+            config.task, self.cfg, self.action_dim, config.horizon,
+            overrides=dict(config.cost_overrides))
+        self.ilqr_config = ilqr.ILQRConfig(
+            horizon=config.horizon, iterations=config.iterations,
+            n_alphas=config.n_alphas, backward=config.backward,
+            relin_every=config.relin_every)
         self.engage_sign = torch.as_tensor(act.SPRING_ENGAGE_SIGN, dtype=torch.float32,
                                            device=self.device)
 
@@ -133,7 +153,48 @@ class MPCProblem:
             s, _ = dyn.step(lanes.model, lanes.params, s, tau, cfg.velocity_limits)
         return state_to_vec(s)
 
+    def lane_dynamics(self, scenario: rnd.ScenarioParams):
+        """The solvers' dynamics for B problems, one scenario each:
+        f(x (B,R,n), u (B,R,m)) -> (B,R,n) for R lanes per problem. The
+        lanes' constants are built once per R and reused by every knot."""
+        lanes = {}
+
+        def dyn_fn(x, u):
+            B, R = x.shape[:2]
+            if R not in lanes:
+                lanes[R] = self.lane_params(scenario, R)
+            out = self.dynamics(x.reshape(B * R, -1), u.reshape(B * R, -1), lanes[R])
+            return out.reshape(B, R, -1)
+
+        return dyn_fn
+
     # -- solve ------------------------------------------------------------
+    def solve_batch(self, x0s: torch.Tensor, u_inits: torch.Tensor,
+                    scenarios: rnd.ScenarioParams | None = None,
+                    stage_times: dict | None = None) -> ilqr.ILQRSolution:
+        """iLQR solve of B problems: x0s (B,37), u_inits (B,H,m), one
+        scenario per problem (nominal when None). See ilqr.solve_batched."""
+        if scenarios is None:
+            scenarios = rnd.nominal_params(self.cfg, x0s.shape[0])
+        return ilqr.solve_batched(self.lane_dynamics(scenarios), self.stage_cost,
+                                  self.terminal_cost, x0s, u_inits, self.ilqr_config,
+                                  stage_times)
+
+    def solve(self, x0: torch.Tensor, u_init: torch.Tensor,
+              scenario: rnd.ScenarioParams | None = None) -> ilqr.ILQRSolution:
+        """iLQR solve of one problem: x0 (37,), u_init (H,m); `scenario`
+        holds one scenario. The solution has no batch axis."""
+        return ilqr.first_problem(self.solve_batch(x0[None], u_init[None], scenario))
+
+    def mpc_step(self, x0: torch.Tensor, u_warm: torch.Tensor,
+                 scenario: rnd.ScenarioParams | None = None):
+        """Receding-horizon step: solve, apply the first control on the
+        planner model, shift the plan. Returns (x1, u0, u_next, cost)."""
+        sol = self.solve(x0, u_warm, scenario)
+        x1 = self.dynamics(x0[None], sol.us[:1], self.lane_params(scenario))[0]
+        u_next = torch.cat([sol.us[1:], sol.us[-1:]], dim=0)
+        return x1, sol.us[0], u_next, sol.cost
+
     def solve_mppi(self, x0: torch.Tensor, u_init: torch.Tensor,
                    generator: torch.Generator | None = None,
                    config: mppi.MPPIConfig | None = None,
@@ -147,17 +208,8 @@ class MPCProblem:
                                      iterations=self.config.iterations)
         if scenario is None:
             scenario = rnd.nominal_params(self.cfg, x0.shape[0])
-        lanes = {}   # sequences per problem -> LaneParams, built once per solve
-
-        def dyn_fn(x, u):
-            B, R = x.shape[:2]
-            if R not in lanes:
-                lanes[R] = self.lane_params(scenario, R)
-            out = self.dynamics(x.reshape(B * R, -1), u.reshape(B * R, -1), lanes[R])
-            return out.reshape(B, R, -1)
-
-        return mppi.solve(dyn_fn, self.stage_cost, self.terminal_cost, x0, u_init,
-                          config, generator, noise)
+        return mppi.solve(self.lane_dynamics(scenario), self.stage_cost,
+                          self.terminal_cost, x0, u_init, config, generator, noise)
 
     # -- convenience -------------------------------------------------------
     def default_x0(self) -> torch.Tensor:

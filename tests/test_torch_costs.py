@@ -32,7 +32,7 @@ def test_jumping_in_place_costs_match_jax(task):
     agree to a few ulp of the cost scale (|cost| ~ 1-60)."""
     x, u = _states(0)
     j_stage, j_term = jcosts.make_cost(task, jax_go1_config(True), M, H)
-    t_stage, t_term = tcosts.make_cost(task, go1_config(True), M, H)
+    t_stage, t_term = tcosts.make_cost(task, go1_config(True, "cpu"), M, H)
     flat_x, flat_u = x.reshape(-1, 37), u.reshape(-1, M)
     want_stage = jax.vmap(lambda a, b: j_stage(a, b, 0))(flat_x, flat_u).reshape(x.shape[:-1])
     want_term = jax.vmap(j_term)(flat_x).reshape(x.shape[:-1])
@@ -44,5 +44,17 @@ def test_jumping_in_place_costs_match_jax(task):
 
 
 def test_other_tasks_are_not_ported_yet():
-    with pytest.raises(KeyError, match="JUMPING_IN_PLACE"):
-        tcosts.make_cost("BACKFLIP", go1_config(True), M, H)
+    """Named for the slice that had only JUMPING_IN_PLACE and raised KeyError
+    for the rest: now every key of the JAX module returns a cost pair (held
+    to JAX in test_torch_costs_all.py), and an unknown key falls back to the
+    NO_TASK regulation cost, as in JAX."""
+    x, u = (torch.from_numpy(a) for a in _states(1))
+    cfg = go1_config(True, "cpu")
+    t = torch.zeros(x.shape[:-1])
+    fallback = tcosts.make_cost("NO_TASK", cfg, M, H)
+    for task in ("BACKFLIP", "JUMPING_FORWARD", "CONTINUOUS_JUMPING_FORWARD_PPO",
+                 "RECOVERY", "SOME_UNKNOWN_TASK"):
+        stage, term = tcosts.make_cost(task, cfg, M, H)
+        assert stage(x, u, t).shape == term(x).shape == x.shape[:-1]
+        same = torch.equal(stage(x, u, t), fallback[0](x, u, t))
+        assert same == (task == "SOME_UNKNOWN_TASK")

@@ -32,7 +32,7 @@ _jax_env = env_factory(**BASE)
 
 
 def _port_env(**kw):
-    return tenv.QuadrupedEnv(tenv.EnvConfig(**dict(BASE, **kw)))
+    return tenv.QuadrupedEnv(tenv.EnvConfig(**dict(BASE, **kw)), device="cpu")
 
 
 def _standing_states(seed, n=N):
@@ -174,7 +174,7 @@ def test_demo_task_from_an_rsi_start_matches_jax():
     kw = dict(BASE, task_env="JUMPING_IN_PLACE_DEMO")
     demo = np.random.default_rng(8).uniform(-1, 1, (12, 6)).astype(np.float32)
     jenv = QuadrupedEnv(EnvConfig(**kw), demo_actions=jnp.asarray(demo))
-    tenv_ = tenv.QuadrupedEnv(tenv.EnvConfig(**kw), demo_actions=torch.from_numpy(demo))
+    tenv_ = tenv.QuadrupedEnv(tenv.EnvConfig(**kw), demo_actions=torch.from_numpy(demo), device="cpu")
     d = _standing_states(5)
     keys = jax.random.split(jax.random.PRNGKey(9), N)
     js, _ = jax.vmap(lambda k, s: jenv.reset(k, desired_robot_state=s, demo_start_idx=9))(
@@ -292,7 +292,8 @@ def test_wrapper_masks_environments_outside_the_loop():
 
 
 def test_obs_noise_needs_a_generator_and_a_step_counter_of_int32():
-    env = tenv.QuadrupedEnv(tenv.EnvConfig(**dict(BASE, obs_noise=True, settling_steps=0)))
+    env = tenv.QuadrupedEnv(tenv.EnvConfig(**dict(BASE, obs_noise=True, settling_steps=0)),
+                             device="cpu")
     with pytest.raises(ValueError, match="generator"):
         env.reset(n=2)
     gen = torch.Generator().manual_seed(0)

@@ -1,5 +1,7 @@
 """The hand-written CUDA kernels of quadruped_springs_tpu_torch/csrc against
-their plain PyTorch twins on the card, and the env step's launch count. Marked `gpu`: without a CUDA card they
+their plain PyTorch twins on the card (the tangent kernels against
+torch.func.jvp of the twins), the env step's launch count and the planner's
+linearization through the kernels. Marked `gpu`: without a CUDA card they
 skip. On a card (torch only, no jax needed):
 
     python -m pytest --noconftest -m gpu tests/test_torch_kernels.py
@@ -75,6 +77,148 @@ def test_contact_kernel_matches_twin(cuda, clamp):
     _assert_close(f, wf)
     _assert_close(fn, wfn)
     assert torch.equal(inc, winc) and inc.any() and not inc.all()
+
+
+T_DIRS = 5          # tangent directions per launch
+
+
+def _plain_actuation(q_des, q, qd, kp, kd, limits, k, b, rest, sign):
+    tau_m = act.pd_torque(q_des, q, qd, kp, kd, limits)
+    return tau_m + act.spring_torque(q, qd, k, b, rest, sign), tau_m
+
+
+def test_actuation_jvp_kernel_matches_jvp_of_twin(cuda):
+    """Lanes 1-2 saturate the torque clip on either side, lane 3 sits well
+    inside it; the seeded lanes fall on both sides of the spring's
+    engagement. No lane sits on a branch point. The kernel writes the total
+    torque's tangent only; the wrapper's tau_motor carries none on the card."""
+    args = list(_actuation_args(cuda))
+    args[1][0] += 0.05                      # off the spring's engagement point
+    args[0][1] = args[1][1] + 10.0
+    args[0][2] = args[1][2] - 10.0
+    args[0][3], args[2][3] = args[1][3] + 0.01, 0.0
+    gen = torch.Generator(cuda).manual_seed(3)
+    tangents = [torch.randn(T_DIRS, N, 12, generator=gen, device=cuda) for _ in range(3)]
+    before = act.actuation_torque.jvp_launches
+    dtau = act._launch_actuation_jvp(*args, *tangents)
+    torch.cuda.synchronize()
+    assert act.actuation_torque.jvp_launches == before + 1
+    f = lambda a, b, c: _plain_actuation(a, b, c, *args[3:])
+    for t in range(T_DIRS):
+        _, (want, want_m) = torch.func.jvp(f, tuple(args[:3]),
+                                           tuple(d[t] for d in tangents))
+        _assert_close(dtau[t], want)
+        assert (want_m[1:3] == 0).all() and (want_m[3] != 0).all()   # the clip's regimes
+    # the same through torch.func.jvp of the wrapper: one launch of each kernel
+    counts = (act.actuation_torque.launches, act.actuation_torque.jvp_launches)
+    primal, tangent = torch.func.jvp(lambda a, b, c: act.actuation_torque(a, b, c, *args[3:]),
+                                     tuple(args[:3]), tuple(d[0] for d in tangents))
+    assert (act.actuation_torque.launches, act.actuation_torque.jvp_launches) == (
+        counts[0] + 1, counts[1] + 1)
+    assert torch.equal(tangent[0], dtau[0]) and not tangent[1].any()
+    _assert_close(primal[0], f(*args[:3])[0])
+
+
+def _contact_jvp_inputs(dev):
+    """Seeded sites within ±1 cm of the ground, then hand-placed lanes:
+    0 out of contact; 1-2 damping clipped at ∓elastic when the clamp is on;
+    3 pulled apart hard enough that the force floors at 0 (clamp off);
+    4 |v_t|² under its 1e-12 floor; 5 v_t under v_tol, 6 above it."""
+    gen = torch.Generator(dev).manual_seed(4)
+    phi = 0.02 * torch.rand(N, 12, generator=gen, device=dev) - 0.01
+    v_w = torch.randn(N, 12, 3, generator=gen, device=dev)
+    mu = 0.5 + 0.5 * torch.rand(N, generator=gen, device=dev)
+    phi[0] = -1e-3
+    phi[1:7] = 5e-3                       # elastic = 20 N at 4 kN/m
+    v_w[1:7, :, 2] = 0.0
+    v_w[1, :, 2] = 2.0                    # damping -80 N < -elastic
+    v_w[2, :, 2] = -2.0                   # damping +80 N > elastic
+    v_w[3, :, 2] = 1.0                    # elastic + damping = -20 N
+    v_w[4, :, :2] = 3e-7
+    v_w[5, :, 0], v_w[5, :, 1] = 0.012, 0.005
+    v_w[6, :, 0], v_w[6, :, 1] = 0.03, -0.04
+    dphi = torch.randn(T_DIRS, N, 12, generator=gen, device=dev)
+    dv = torch.randn(T_DIRS, N, 12, 3, generator=gen, device=dev)
+    return phi, v_w, mu, dphi, dv
+
+
+@pytest.mark.parametrize("clamp", [False, True])
+def test_contact_jvp_kernel_matches_jvp_of_twin(cuda, clamp):
+    phi, v_w, mu, dphi, dv = _contact_jvp_inputs(cuda)
+    consts = (4000.0, 40.0, 0.02, clamp)
+    before = dyn.contact_forces.jvp_launches
+    df = dyn._launch_contact_jvp(phi, v_w, mu, dphi, dv, *consts)
+    torch.cuda.synchronize()
+    assert dyn.contact_forces.jvp_launches == before + 1
+    f = lambda p, v: dyn.contact_forces_plain(p, v, mu, *consts)[:2]
+    for t in range(T_DIRS):
+        _, (want, want_fn) = torch.func.jvp(f, (phi, v_w), (dphi[t], dv[t]))
+        _assert_close(df[t], want)
+        _assert_close(df[t, ..., 2], want_fn)
+    assert (df[:, 0] == 0).all() and df[:, 4:7].abs().sum() > 0
+    if clamp:      # clipped at -elastic the normal force is 0 and stays 0
+        assert (df[:, 1] == 0).all() and (df[:, 2, :, 2] != 0).all()
+    else:
+        assert (df[:, 3] == 0).all()
+    # through torch.func.jvp of the wrapper (site heights with zero radii)
+    p_w = torch.zeros_like(v_w)
+    p_w[..., 2] = -phi
+    dp = torch.zeros_like(dv)
+    dp[..., 2] = -dphi
+    params = dyn.SimParams(contact_stiffness=4000.0, contact_damping=40.0, friction=mu,
+                           clamp_damping=clamp)
+    wrapper = lambda p, v: dyn.contact_forces(build_model(device=cuda), params, p, v,
+                                              torch.zeros(12, device=cuda))[:2]
+    _, (got, got_fn) = torch.func.jvp(wrapper, (p_w, v_w), (dp[0], dv[0]))
+    assert torch.equal(got, df[0]) and torch.equal(got_fn, df[0, ..., 2])
+
+
+def test_reverse_mode_through_the_kernels_raises(cuda):
+    args = list(_actuation_args(cuda))
+    args[1] = args[1].clone().requires_grad_()
+    with pytest.raises(NotImplementedError, match="reverse-mode"):
+        act.actuation_torque(*args)[0].sum().backward()
+    phi, v_w, mu, _, _ = _contact_jvp_inputs(cuda)
+    p_w = torch.zeros_like(v_w)
+    p_w[..., 2] = -phi
+    p_w.requires_grad_()
+    params = dyn.SimParams(friction=mu)
+    with pytest.raises(NotImplementedError, match="reverse-mode"):
+        dyn.contact_forces(build_model(device=cuda), params, p_w, v_w,
+                           torch.zeros(12, device=cuda))[0].sum().backward()
+
+
+def test_linearization_launches_the_tangent_kernels_and_matches_the_cpu(cuda):
+    """The 37x43 Jacobians of one planner knot at 16 rollout states, through
+    the kernels on the card and through the plain versions on the CPU. Each
+    of the four kernels launches once per substep, for all 43 tangents."""
+    from quadruped_springs_tpu_torch.solver import ilqr
+    from quadruped_springs_tpu_torch.solver.mpc import MPCConfig, MPCProblem
+
+    jac = {}
+    for dev in ("cpu", cuda):
+        prob = MPCProblem(MPCConfig(horizon=16), dev)
+        if dev == "cpu":       # one rollout, so both linearize at the same states
+            lanes = prob.lane_params()
+            us = prob.task_warm_start()
+            x, xs = prob.default_x0()[None], []
+            for t in range(16):
+                xs.append(x)
+                x = prob.dynamics(x, us[t:t + 1], lanes)
+            z_cpu = torch.cat([torch.cat(xs), us], dim=-1)
+        z = z_cpu.to(dev)
+        lanes = prob.lane_params(repeats=16)
+        counts = (act.actuation_torque.launches, act.actuation_torque.jvp_launches,
+                  dyn.contact_forces.launches, dyn.contact_forces.jvp_launches)
+        _, cols = ilqr._basis_jvp(lambda z: prob.dynamics(z[:, :37], z[:, 37:], lanes), z)
+        if dev != "cpu":
+            torch.cuda.synchronize()
+            now = (act.actuation_torque.launches, act.actuation_torque.jvp_launches,
+                   dyn.contact_forces.launches, dyn.contact_forces.jvp_launches)
+            assert [b - a for a, b in zip(counts, now)] == [2, 2, 2, 2]
+        jac[str(dev)] = cols.permute(1, 2, 0).cpu()
+    scale = jac["cpu"].abs().amax(dim=(1, 2), keepdim=True)
+    assert ((jac["cuda"] - jac["cpu"]).abs() <= 1e-4 * scale).all()
 
 
 def _anchored_inputs(dev, n=N):

@@ -34,7 +34,7 @@ def _fields_equal(port_obj, jax_obj, rtol=0.0, atol=0.0):
 
 @pytest.mark.parametrize("springs", [True, False])
 def test_go1_config_equal(springs):
-    _fields_equal(tgp.go1_config(springs), jgp.go1_config(springs))
+    _fields_equal(tgp.go1_config(springs, "cpu"), jgp.go1_config(springs))
 
 
 def _jax_scenarios(n=16, seed=0):
@@ -76,7 +76,7 @@ IFACE_CASES = [("PD", "DEFAULT", "NO_TASK"), ("PD", "SYMMETRIC", "JUMPING_IN_PLA
 def test_interface_transforms_match_jax(motor, action, task):
     jcfg = jgp.go1_config(True)
     jif = jci.make_interface(jcfg, motor, action, task)
-    tif = tci.make_interface(tgp.go1_config(True), motor, action, task)
+    tif = tci.make_interface(tgp.go1_config(True, "cpu"), motor, action, task)
     _fields_equal(tif, jif)
     rng = np.random.default_rng(1)
     a = rng.uniform(-1.2, 1.2, (8, tif.action_dim)).astype(np.float32)
@@ -134,7 +134,7 @@ def test_convert_round_trips():
 
 
 def test_torch_sampler_ranges_and_mass_conservation():
-    cfg = tgp.go1_config(True)
+    cfg = tgp.go1_config(True, "cpu")
     gen = torch.Generator().manual_seed(0)
     s = trnd.sample_scenario(cfg, "TEST_RANDOMIZER", gen, n=512)
     leg = torch.as_tensor(tgp.LEG_MASSES, dtype=torch.float32)
@@ -155,7 +155,7 @@ def test_torch_sampler_ranges_and_mass_conservation():
     np.testing.assert_allclose(model_total.numpy(), nominal_total + tgp.BASE_MASS
                                + tgp.IMU_MASS, rtol=1e-6)
     # no-spring robots keep zero springs; GROUND_RANDOMIZER touches friction only
-    s0 = trnd.sample_scenario(tgp.go1_config(False), "TEST_RANDOMIZER", gen, n=8)
+    s0 = trnd.sample_scenario(tgp.go1_config(False, "cpu"), "TEST_RANDOMIZER", gen, n=8)
     assert torch.all(s0.spring_stiffness == 0)
     g = trnd.sample_scenario(cfg, "GROUND_RANDOMIZER", gen, n=8)
     assert torch.all(g.base_mass == tgp.TRUNK_MASS) and not torch.all(g.friction == 1.0)

@@ -69,7 +69,7 @@ def test_kinematics_and_ik_match_jax():
 @pytest.mark.parametrize("action_mode", ["DEFAULT", "SYMMETRIC", "SYMMETRIC_NO_HIP"])
 def test_cartesian_pd_command_matches_jax(action_mode):
     jif = jci.make_interface(jgp.go1_config(True), "CARTESIAN_PD", action_mode)
-    tif = tci.make_interface(tgp.go1_config(True), "CARTESIAN_PD", action_mode)
+    tif = tci.make_interface(tgp.go1_config(True, "cpu"), "CARTESIAN_PD", action_mode)
     a = _f32(np.random.default_rng(1).uniform(-1.2, 1.2, (32, tif.action_dim)))
     got = tci.action_to_command(tif, t(a))
     want = jax.vmap(lambda x: jci.action_to_command(jif, x))(a)
@@ -142,7 +142,7 @@ def test_sensor_suite_matches_jax(suite):
     want = jax.vmap(lambda c: jsn.read_obs(suite, c))(jctx)
     assert got.shape == want.shape == (8, tsn.obs_dim(suite))
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
-    for g, w in zip(tsn.obs_limits(suite, tgp.go1_config(True)),
+    for g, w in zip(tsn.obs_limits(suite, tgp.go1_config(True, "cpu")),
                     jsn.obs_limits(suite, jgp.go1_config(True))):
         np.testing.assert_allclose(g, w, rtol=1e-6, atol=0)
 
@@ -159,7 +159,7 @@ def test_noisy_obs_std_and_exact_zero_std_entries():
     n = 20000
     big = dataclasses.replace(tctx, **{f.name: getattr(tctx, f.name).expand(
         (n,) + getattr(tctx, f.name).shape[1:]) for f in dataclasses.fields(tctx)})
-    cfg = tgp.go1_config(True)
+    cfg = tgp.go1_config(True, "cpu")
     clean = tsn.read_obs(suite, big)
     noisy = tsn.read_noisy_obs(suite, cfg, big, torch.Generator().manual_seed(0))
     _, _, std = tsn.obs_limits(suite, cfg)

@@ -29,7 +29,7 @@ B, K, H, ITERS = 2, 8, 6, 2
 
 def _problems(horizon=H, iterations=ITERS):
     kw = dict(task="JUMPING_IN_PLACE", horizon=horizon, iterations=iterations)
-    return jmpc.MPCProblem(jmpc.MPCConfig(**kw)), tmpc.MPCProblem(tmpc.MPCConfig(**kw))
+    return jmpc.MPCProblem(jmpc.MPCConfig(**kw)), tmpc.MPCProblem(tmpc.MPCConfig(**kw), "cpu")
 
 
 def _jax_scenarios(jprob, n, seed=0):
