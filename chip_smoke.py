@@ -63,8 +63,40 @@ Phases (any failure raises, so the script exits non-zero):
      (`device_ms`, beside the CUDA-event time of a call through its Python
      wrapper) at every shape of phases 3, 5 and 8, and the breakdown of one
      environment substep (launches, device busy share, kernel classes).
-Against the earlier form of this script, phase 4 times 2 solves (was 3) and
-phase 6 runs 2 segments (was 3), to make room for phases 8-11.
+ 13. hold `actuation`, `contact` and `contact_anchored` against their twins
+     at every lane count the learning stack launches them at (8, 16, 32, 64
+     and 256 lanes: 8 and 32 end in a partial thread block), with each path's
+     task interface, the motor and the landing gains, the clamp on and off;
+     then replay the committed policies (quadruped_springs_tpu_torch.
+     policy_replay) on REPLAY_LANES lanes each, held to the bars of the JAX
+     package's closed-loop gates: the backflip launch policy (full rotation
+     and upright in the gate's scenario, lane 0, and in every lane whose
+     friction is at or above policy_replay.UPRIGHT_FRICTION_EDGE; below it the
+     policy falls over in the JAX package too, and those lanes are counted),
+     the robust launch + landing
+     pair (every nominal lane must pass; the TEST_RANDOMIZER lanes with
+     observation noise are counted), forward_ars, the two-stage flip policy
+     through the flattened autopilot, the continuous-jumping policy over 410
+     steps; the environment's three kernels launch exactly as often as the
+     resets and env steps of each replay say;
+ 14. two ARSTrainer.train_steps and two PPOTrainer.train_steps (one untimed
+     warm-up, one timed) at the widths of the JAX package's training runs
+     (quadruped_springs_tpu_torch.train_bench): every metric finite; every
+     PPO step changed the actor; every ARS step rolled live steps and changed
+     W unless its top returns were all equal (the update is then 0 by the
+     algorithm); the observation statistics grew by the live steps; launches
+     exact; the host syncs of each step printed (the last of each must make
+     none);
+ 15. one ContinuousAutopilotEnv.step and one flattened backflip episode
+     with torch.cuda.set_sync_debug_mode("error"): no read on the host.
+Phase 11 also holds the closed loop to the transfer band of the JAX gate
+(executed apex > 0.45 m, within 10% of the planned one).
+Against the first form of this script, phase 4 times 2 solves (was 3) and
+phase 6 runs 2 segments (was 3), to make room for phases 8-11; phases 1-11
+run as they did before phases 13-15 came, which run before phase 12 (the
+profiler's). The whole takes about 500 s on an NVIDIA H100 80GB HBM3 at
+700 W, some 200 s of it the six replays and 45 s the four train_steps: all
+of them bound by the host's launches, so fewer lanes would save nothing.
 The line before the last is a JSON object of per-kernel results; the last
 line is {"ok": true, "device": {...}}.
 """
@@ -102,6 +134,16 @@ JAC_TOL = 3e-5
 ILQR_FIRST_DROP = 46.1808        # -17.7552 -> -63.9360
 ILQR_MARGIN = 40.0
 LOOP_KNOTS, LOOP_REPLAN, LOOP_HORIZON, LOOP_ITERATIONS, LOOP_ALPHAS = 30, 5, 20, 4, 4
+REPLAY_LANES = 64
+TRAIN_STEPS = 1                  # timed train_steps per trainer, after train_bench's warm-up
+# lane counts at which the learning stack launches the env's kernels, and the
+# task whose interface each path runs: the replays and adapters, the ARS
+# bank's settle and rollout, the PPO bank's settle and segment
+LEARNING_WIDTHS = {"replay": (64, "BACKFLIP"), "replay_forward": (64, "JUMPING_FORWARD"),
+                   "ars_bank": (8, "JUMPING_IN_PLACE"), "ars": (256, "JUMPING_IN_PLACE"),
+                   "ppo_bank": (16, "JUMPING_IN_PLACE_PPO"),
+                   "ppo": (32, "JUMPING_IN_PLACE_PPO")}
+ADAPTER_LANES, ADAPTER_KNOTS = 64, 20
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA's data sheet
 F32_FLOPS_PER_S = 67e12          # float32 outside the tensor cores
 # float32 operations per (lane, motor or site[, tangent]), from the kernels' source
@@ -280,10 +322,10 @@ def profile_kernels(torch, checks):
                   f"{r['bound_ms'] * 1e3:.2f} µs", flush=True)
 
 
-def check_anchored_contact(torch, dyn, model):
-    """Phase 5: the `contact_anchored` kernel against its twin."""
+def check_anchored_contact(torch, dyn, model, n):
+    """The `contact_anchored` kernel against its twin at n lanes x 12 sites
+    with the execution model's constants, clamp on and off."""
     gen = torch.Generator("cuda").manual_seed(13)
-    n = ENVS
     rand = lambda *s: torch.rand(s, generator=gen, device="cuda")
     radii = torch.tensor([0.02] * 4 + [0.008] * 4 + [0.055] * 4, device="cuda")
     p_w = 0.5 * (2 * rand(n, 12, 3) - 1)
@@ -313,10 +355,17 @@ def check_anchored_contact(torch, dyn, model):
         torch.cuda.synchronize()
         inc, new = want[2][:, :4], want[3]
         slid = (new != anchor).any(-1)
-        if (inc[:2].any() or not inc[2:5].all() or slid[2].any() or slid[4].any()
-                or not slid[3].all() or not (inc & slid)[5:].any()
-                or not (inc & ~slid)[5:].any()):
-            raise AssertionError("anchored contact lanes not in the intended regimes")
+        # the hand-placed lanes sit in their regimes; of the seeded lanes, once
+        # there are dozens, some feet stick and some slide
+        regimes = {"lanes 0-1 out of contact": not inc[:2].any(),
+                   "lanes 2-4 in contact": inc[2:5].all(),
+                   "lanes 2 and 4 stick": not (slid[2].any() or slid[4].any()),
+                   "lane 3 slides": slid[3].all(),
+                   "seeded feet stick and slide": n < 64 or ((inc & slid)[5:].any()
+                                                             and (inc & ~slid)[5:].any())}
+        if not all(bool(ok) for ok in regimes.values()):
+            raise AssertionError(f"anchored contact lanes not in the intended regimes at "
+                                 f"{n} lanes: {[k for k, ok in regimes.items() if not ok]}")
         err = max(max_err(torch, g, w, f"contact_anchored clamp={clamp} {k}")
                   for g, w, k in zip(got, want, ("f_world", "fn", "in_contact",
                                                   "new_anchor")))
@@ -326,6 +375,44 @@ def check_anchored_contact(torch, dyn, model):
                           **roofline("contact_anchored", n * 12,
                                      (p_w[..., 2], v_w, p_w, anchor, mu), got)}
     return results
+
+
+def check_learning_widths(torch, act, dyn, model, landing_gains):
+    """Phase 13, first: the environment's three kernels against their twins at
+    every lane count the learning stack launches them at (LEARNING_WIDTHS),
+    each with its path's task interface, under the motor gains and the landing
+    wrappers', with the damping clamp on and off. 12 threads per lane: 8 and
+    32 lanes end in a partial thread block, which the 1,024 and 32,768 lanes
+    of phases 3 and 5 never launch."""
+    from quadruped_springs_tpu_torch.env.env import EnvConfig, QuadrupedEnv
+
+    envs = {task: QuadrupedEnv(EnvConfig(
+        enable_springs=True, task_env=task, action_space_mode="SYMMETRIC",
+        observation_space_mode="ARS_BACKFLIP" if task == "BACKFLIP" else "ARS_BASIC",
+        settling_steps=0), device="cuda") for _, task in LEARNING_WIDTHS.values()}
+    checks = {"actuation": {}, "contact": {}, "contact_anchored": {}}
+    for path, (n, task) in LEARNING_WIDTHS.items():
+        env = envs[task]
+        sim = env.sim_params
+        contact = check_contact(torch, dyn, model, n, sim.contact_stiffness,
+                                sim.contact_damping)
+        anchored = check_anchored_contact(torch, dyn, model, n)
+        checks["actuation"][f"{path}_{n}"] = check_actuation(torch, act, env, n)
+        checks["actuation"][f"{path}_{n}_landing"] = check_actuation(torch, act, env, n,
+                                                                      *landing_gains)
+        for clamp, tag in ((True, "_clamp"), (False, "")):
+            checks["contact"][f"{path}_{n}{tag}"] = contact[clamp]
+            checks["contact_anchored"][f"{path}_{n}{tag}"] = anchored[clamp]
+    for name, by_setting in checks.items():
+        for r in by_setting.values():
+            del r["profile"]       # phase 12 profiles the shapes of phases 3, 5 and 8
+        worst = max(by_setting.values(), key=lambda r: r["max_abs_err"])
+        ms = [r["ms"] for r in by_setting.values()]
+        print(f"phase 13: {name} against its twin at {len(by_setting)} settings of the "
+              f"learning stack's widths {sorted({n for n, _ in LEARNING_WIDTHS.values()})} "
+              f"lanes: max_abs_err {worst['max_abs_err']:.3e} (bound {REL_TOL}·(1+|twin|)), "
+              f"kernel {min(ms):.4f}-{max(ms):.4f} ms through its wrapper", flush=True)
+    return checks
 
 
 def check_actuation_jvp(torch, act, prob, n):
@@ -542,6 +629,10 @@ def run_closed_loop(torch, closed_loop, act, dyn, kind):
     if not (out["finite"] and out["upright"] and out["airborne_knots"] > 0
             and out["executed_apex_m"] > 0.45):
         raise AssertionError(f"phase 11: the closed loop did not jump: {out}")
+    planned, executed = out["planned_apex_max_m"], out["executed_apex_m"]
+    if not abs(planned - executed) < 0.10 * planned:
+        raise AssertionError(f"phase 11: executed apex {executed} m is not within 10% of "
+                             f"the planned {planned} m")
     S = 2                                    # substeps of the relaxed planner knot
     per_solve = S * (LOOP_HORIZON + LOOP_ITERATIONS * (1 + LOOP_HORIZON))
     planner, env = out["solves"] * per_solve, 10 * LOOP_KNOTS
@@ -706,13 +797,220 @@ def run_landing_episode(torch, act, dyn, kind):
     return counts
 
 
+class EnvCalls:
+    """Counts QuadrupedEnv.reset and .step calls (and the settle substeps the
+    resets ran) while it is active, by wrapping the class's methods."""
+
+    def __init__(self, env_cls):
+        self.cls, self.resets, self.steps, self.settle = env_cls, 0, 0, 0
+
+    def __enter__(self):
+        self._reset, self._step = self.cls.reset, self.cls.step
+        calls = self
+
+        def reset(env, *a, **k):
+            calls.resets += 1
+            if k.get("desired_robot_state") is None:
+                calls.settle += env.config.settling_steps
+            return calls._reset(env, *a, **k)
+
+        def step(env, *a, **k):
+            calls.steps += 1
+            return calls._step(env, *a, **k)
+
+        self.cls.reset, self.cls.step = reset, step
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.reset, self.cls.step = self._reset, self._step
+
+    def launches(self, action_repeat=10):
+        substeps = self.settle + action_repeat * self.steps
+        return {"actuation": substeps, "contact_anchored": substeps, "contact": self.resets,
+                "actuation_jvp": 0, "contact_jvp": 0}
+
+
+def run_replay(torch, policy_replay, env_cls, act, dyn, kind):
+    """Phase 13: the committed policies, held to the JAX gates' bars."""
+    by_path, records = {}, {}
+    for name, fn in policy_replay.BEHAVIORS.items():
+        reset_counts(act, dyn)
+        t0 = time.perf_counter()
+        with EnvCalls(env_cls) as calls:
+            rec = fn(lanes=REPLAY_LANES, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts(act, dyn)
+        check_counts(counts, calls.launches(), 13)
+        by_path[f"replay_{name}"], records[name] = counts, rec
+        lists = {k: v for k, v in rec.items() if isinstance(v, list) and k != "ok"}
+        failing = [{"lane": i, **{k: v[i] for k, v in lists.items()}}
+                   for i, ok in enumerate(rec["ok"]) if not ok]
+        print(f"phase 13: {name}: {rec['passed']}/{rec['lanes']} lanes meet the bars "
+              f"{rec['bars']} in {wall:.2f} s on {kind} ({calls.resets} resets, "
+              f"{calls.steps} env steps; launches {counts})"
+              + (f"; failing lanes: {failing}" if failing else ""), flush=True)
+    # which lanes decide: for the launch policy that the JAX package gates on
+    # one friction, the gate's own scenario (lane 0) and every lane whose
+    # friction lies at or above the edge below which the JAX package's replay
+    # falls over as well (policy_replay.UPRIGHT_FRICTION_EDGE); every lane of
+    # the nominal replays; the TEST_RANDOMIZER lanes with observation noise
+    # are reported
+    flip = records["backflip"]
+    if not (flip["gated"][0] and flip["gated_lanes"] > REPLAY_LANES // 2):
+        raise AssertionError(f"phase 13: backflip gates {flip['gated_lanes']} lanes")
+    print(f"phase 13: backflip: {flip['gated_passed']}/{flip['gated_lanes']} lanes at "
+          f"friction >= {policy_replay.UPRIGHT_FRICTION_EDGE} (lane 0: the JAX gate's "
+          f"{flip['friction'][0]:.4f}) meet the bars", flush=True)
+    gates = {"backflip": [ok for ok, g in zip(flip["ok"], flip["gated"]) if g],
+             **{k: records[k]["ok"] for k in ("backflip_nominal", "forward", "two_stage",
+                                              "continuous")}}
+    for name, ok in gates.items():
+        if not all(ok):
+            raise AssertionError(f"phase 13: {name}: {sum(ok)}/{len(ok)} gate lanes pass")
+    cont = records["continuous"]
+    if not (cont["good_jumps_min"] >= policy_replay.GOOD_JUMPS_BAR
+            and cont["mean_perf_mean"] >= policy_replay.MEAN_PERF_BAR):
+        raise AssertionError(f"phase 13: continuous: good jumps min {cont['good_jumps_min']}, "
+                             f"mean performance {cont['mean_perf_mean']}")
+    print(json.dumps({"replay": {
+        name: {k: v for k, v in rec.items() if not isinstance(v, list)}
+        for name, rec in records.items()}}))
+    return by_path
+
+
+def run_train(torch, train_bench, act, dyn, kind):
+    """Phase 14: the two trainers at the widths of the JAX training runs."""
+    reset_counts(act, dyn)
+    rec = train_bench.run(steps=TRAIN_STEPS, device="cuda")
+    torch.cuda.synchronize()
+    counts = read_counts(act, dyn)
+    ars, ppo = rec["ars"], rec["ppo"]
+    a_cfg, p_cfg = train_bench.ARS_CONFIG, train_bench.PPO_CONFIG
+    settle, all_steps = 600, train_bench.WARMUP_STEPS + TRAIN_STEPS
+    ars_sub, ppo_sub = settle + 10 * a_cfg.episode_steps, 10 * p_cfg.segment_len
+    # `launches` are the timed steps'; the whole phase's follow below
+    check_counts(ars["launches"], {"actuation": TRAIN_STEPS * ars_sub,
+                                   "contact_anchored": TRAIN_STEPS * ars_sub,
+                                   "contact": TRAIN_STEPS}, 14)
+    check_counts(ppo["launches"], {"actuation": TRAIN_STEPS * ppo_sub,
+                                   "contact_anchored": TRAIN_STEPS * ppo_sub,
+                                   "contact": 0}, 14)
+    check_counts(ppo["init_launches"], {"actuation": settle, "contact_anchored": settle,
+                                        "contact": 1}, 14)
+    # the bench's last segment, rolled alone to time it, adds one segment's substeps
+    total = all_steps * (ars_sub + ppo_sub) + settle + ppo_sub
+    check_counts(counts, {"actuation": total, "contact_anchored": total,
+                          "contact": all_steps + 1, "actuation_jvp": 0, "contact_jvp": 0}, 14)
+    for algo in (ars, ppo):
+        for m in algo["metrics"]:
+            bad = {k: v for k, v in m.items() if v != v or abs(v) == float("inf")}
+            if bad:
+                raise AssertionError(f"phase 14: non-finite metrics {bad}")
+    a0, a1 = ars["state0"], ars["state"]
+    live = sum(m["live_steps"] for m in ars["metrics"])
+    grew = float(a1.obs_norm.count - a0.obs_norm.count)
+    lanes_steps = ars["lanes"] * a_cfg.episode_steps
+    # every step is held alone: it rolled live steps, and it moved W unless
+    # the top directions' returns were all equal (sigma_r is then its 1e-8
+    # floor and the update is 0 by the algorithm: the sparse task pays nothing
+    # to a policy that does not jump, and the JAX package's own run at this
+    # width returned 0 in its steps 2 to 5, examples/out/two_stage_results.json)
+    ars_dw = [m["max_weight_change"] for m in ars["metrics"]]
+    for i, m in enumerate(ars["metrics"]):
+        if not 0 < m["live_steps"] <= lanes_steps:
+            raise AssertionError(f"phase 14: ARS step {i} had {m['live_steps']} live steps")
+        if not (m["max_weight_change"] > 0 or m["sigma_r"] < 2e-8):
+            raise AssertionError(f"phase 14: ARS step {i} left W unchanged at sigma_r "
+                                 f"{m['sigma_r']}")
+    if not (ars_dw[0] > 0 and bool(torch.isfinite(a1.W).all())):
+        raise AssertionError("phase 14: ARS's first step left W unchanged, or W non-finite")
+    if abs(grew - live) > 1e-3 * live:
+        raise AssertionError(f"phase 14: the ARS statistics grew by {grew}, the rollouts "
+                             f"had {live} live steps")
+    p0, p1 = ppo["state0"], ppo["state"]
+    ppo_dw = [m["max_weight_change"] for m in ppo["metrics"]]
+    actor1 = [p for n, p in p1.net.named_parameters() if not n.startswith("vf_")]
+    if not (all(d > 0 for d in ppo_dw) and all(bool(torch.isfinite(p).all()) for p in actor1)):
+        raise AssertionError(f"phase 14: a PPO step left the actor unchanged ({ppo_dw}), or "
+                             "a parameter non-finite")
+    seg = all_steps * p_cfg.n_envs * p_cfg.segment_len
+    grew = float(p1.obs_norm.count - p0.obs_norm.count)
+    if abs(grew - seg) > 1e-3 * seg:
+        raise AssertionError(f"phase 14: the PPO statistics grew by {grew}, expected {seg}")
+    print(f"phase 14: {all_steps} ARS train_steps, the last {TRAIN_STEPS} timed "
+          f"({ars['lanes']} lanes x {a_cfg.episode_steps} steps, bank "
+          f"{a_cfg.reset_bank_size}): {ars['seconds_per_step']:.3f} s per step, "
+          f"{ars['env_steps_per_s']:.1f} env steps/s, {live:.0f} live steps, max |dW| per "
+          f"step {ars_dw} at sigma_r {[m['sigma_r'] for m in ars['metrics']]}, host syncs "
+          f"per step {ars['host_syncs']} {ars['host_syncs_at']}; {all_steps} PPO "
+          f"train_steps, the last {TRAIN_STEPS} timed ({p_cfg.n_envs} envs x "
+          f"{p_cfg.segment_len} steps, {p_cfg.n_epochs} x {p_cfg.n_minibatches} minibatches): "
+          f"{ppo['seconds_per_step']:.3f} s per step ({ppo['rollout_seconds']:.3f} s of it "
+          f"the segment rollout), {ppo['env_steps_per_s']:.1f} env steps/s, max actor "
+          f"change per step {ppo_dw}, host syncs per step {ppo['host_syncs']} "
+          f"{ppo['host_syncs_at']}, on {kind}; launches {counts}", flush=True)
+    print(json.dumps({"train_bench": train_bench.public(rec)}))
+    if ars["host_syncs"][-1] or ppo["host_syncs"][-1]:
+        raise AssertionError("phase 14: a warm train_step synchronised the host: "
+                             f"{ars['host_syncs_at']} {ppo['host_syncs_at']}")
+    return counts
+
+
+def run_adapters(torch, act, dyn, kind):
+    """Phase 15: the two branch-free autopilot adapters read nothing on the
+    host (any synchronisation raises in the "error" debug mode)."""
+    from quadruped_springs_tpu_torch.env import flat_rollout
+    from quadruped_springs_tpu_torch.env.continuous_autopilot import ContinuousAutopilotEnv
+    from quadruped_springs_tpu_torch.env.env import EnvConfig, QuadrupedEnv
+
+    gen = torch.Generator("cuda").manual_seed(3)
+    common = dict(enable_springs=True, action_space_mode="SYMMETRIC", settling_steps=100)
+    aenv = ContinuousAutopilotEnv(QuadrupedEnv(EnvConfig(
+        task_env="CONTINUOUS_JUMPING_FORWARD3",
+        observation_space_mode="PPO_CONTINUOUS_JUMPING_FORWARD", **common), device="cuda"))
+    fenv = QuadrupedEnv(EnvConfig(task_env="BACKFLIP", observation_space_mode="ARS_BACKFLIP",
+                                  **common), device="cuda")
+    reset_counts(act, dyn)
+    astate, _ = aenv.reset(gen, ADAPTER_LANES)
+    fstate, fobs = fenv.reset(gen, ADAPTER_LANES)
+    action = aenv.get_init_action().expand(ADAPTER_LANES, -1)
+    landing = fenv.get_landing_action().expand(ADAPTER_LANES, -1)
+    # warm: each path's device constants are made once per device, by a copy
+    # from the host that the debug mode would flag
+    astate = aenv.step(astate, action, gen)[0]
+    flat_rollout.backflip_episode(fenv, lambda o: landing, lambda o: landing, fstate, fobs,
+                                  1, gen)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        astate, _, _, _, info = aenv.step(astate, action, gen)
+        fstate, phase, traj = flat_rollout.backflip_episode(
+            fenv, lambda o: landing, lambda o: landing, fstate, fobs, ADAPTER_KNOTS, gen)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    counts = read_counts(act, dyn)
+    substeps = 2 * 100 + 10 * (3 + ADAPTER_KNOTS)
+    check_counts(counts, {"actuation": substeps, "contact_anchored": substeps, "contact": 2,
+                          "actuation_jvp": 0, "contact_jvp": 0}, 15)
+    if not (bool(info["policy_in_control"].all()) and traj["phase"].shape ==
+            (ADAPTER_KNOTS, ADAPTER_LANES) and bool(torch.isfinite(traj["z"]).all())):
+        raise AssertionError("phase 15: the adapters' outputs are off")
+    print(f"phase 15: ContinuousAutopilotEnv.step and a {ADAPTER_KNOTS}-step flattened "
+          f"backflip episode at {ADAPTER_LANES} lanes on {kind}: no host sync (sync debug "
+          f"mode \"error\"); launches {counts}", flush=True)
+    return counts
+
+
 def main():
     import torch
 
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
                          "this script needs a CUDA card and has no CPU fallback")
-    from quadruped_springs_tpu_torch import bench, closed_loop, env_bench, kernels
+    from quadruped_springs_tpu_torch import (bench, closed_loop, env_bench, kernels,
+                                             policy_replay, train_bench)
     from quadruped_springs_tpu_torch.env import randomizers as rnd
     from quadruped_springs_tpu_torch.env.wrappers import LANDING_KD, LANDING_KP
     from quadruped_springs_tpu_torch.models import dynamics as dyn
@@ -782,7 +1080,7 @@ def main():
     landing = [torch.full((12,), g, device="cuda") for g in (LANDING_KP, LANDING_KD)]
     env_contact = check_contact(torch, dyn, model, ENVS, sim.contact_stiffness,
                                 sim.contact_damping)
-    anchored = check_anchored_contact(torch, dyn, model)
+    anchored = check_anchored_contact(torch, dyn, model, ENVS)
     env_checks = {"actuation": {"env": check_actuation(torch, act, env, ENVS),
                                 "env_landing": check_actuation(torch, act, env, ENVS,
                                                                *landing)},
@@ -816,8 +1114,14 @@ def main():
     check_linearization(torch, ilqr, MPCConfig, MPCProblem)
     by_path["ilqr_solve"] = run_ilqr_solve(torch, bench, ilqr, act, dyn, kind)
     by_path["closed_loop"] = run_closed_loop(torch, closed_loop, act, dyn, kind)
+    width_checks = check_learning_widths(torch, act, dyn, model, landing)
+    by_path.update(run_replay(torch, policy_replay, env_bench.QuadrupedEnv, act, dyn, kind))
+    by_path["train"] = run_train(torch, train_bench, act, dyn, kind)
+    by_path["autopilot_adapters"] = run_adapters(torch, act, dyn, kind)
     profile_kernels(torch, checks)
     print(json.dumps({"env_substep_breakdown": env_breakdown()}))
+    for name, by_setting in width_checks.items():
+        checks[name].update(by_setting)
 
     # the contact_anchored kernel extends the memoryless contact kernel
     # (the TPU kernel fused_contact) with the feet's anchor stiction

@@ -5,6 +5,11 @@ JAX arrays without importing jax, and lands on the given device as a
 tensor; Python scalars, strings and flags stay Python values. The tests use
 these converters so that both implementations compute on identical
 parameters (e.g. scenarios sampled by jax.random).
+
+The learning stack's state crosses the same way: running observation
+statistics, a flax parameter tree of ``MLPPolicy`` (as numpy) into the
+module's ``state_dict``, a whole ``EnvState``; and the loaders of the
+committed policy files under ``examples/policies/`` read numpy only.
 """
 
 from __future__ import annotations
@@ -15,15 +20,20 @@ import numpy as np
 import torch
 
 from quadruped_springs_tpu_torch.control.interfaces import ControlInterface
+from quadruped_springs_tpu_torch.env.env import EnvState
 from quadruped_springs_tpu_torch.env.randomizers import ScenarioParams
-from quadruped_springs_tpu_torch.models.dynamics import SimParams
+from quadruped_springs_tpu_torch.models.dynamics import RobotState, SimParams
 from quadruped_springs_tpu_torch.models.go1_params import (
     SCENARIO_FIELDS,
     Go1Config,
     Go1Model,
 )
 from quadruped_springs_tpu_torch.solver.ilqr import ILQRConfig, ILQRSolution
+from quadruped_springs_tpu_torch.ops.action_filter import ButterFilterState
 from quadruped_springs_tpu_torch.solver.mpc import MPCConfig
+from quadruped_springs_tpu_torch.tasks.tasks import TaskState
+from quadruped_springs_tpu_torch.train.networks import MLPPolicy
+from quadruped_springs_tpu_torch.train.normalize import RunningNorm
 
 
 def _tensor(obj, name, device):
@@ -110,3 +120,109 @@ def ilqr_solution(sol, device=None) -> ILQRSolution:
         out = ILQRSolution(**{f.name: getattr(out, f.name)[None]
                               for f in dataclasses.fields(ILQRSolution)})
     return out
+
+
+# -- the learning stack ------------------------------------------------------
+
+def running_norm(rn, device=None) -> RunningNorm:
+    return _convert(rn, RunningNorm, device)
+
+
+_ENV_STATE_NESTED = {"robot": RobotState, "task": TaskState, "scenario": ScenarioParams,
+                     "filter_state": ButterFilterState}
+
+
+def env_state(state, device=None) -> EnvState:
+    """A JAX EnvState, single or stacked by `vmap`, as the port's batched
+    EnvState (batch 1 for a single one), every field; the JAX state's PRNG
+    key has no counterpart (the port draws from a torch.Generator)."""
+    single = np.asarray(state.sim_step_counter).ndim == 0
+
+    def leaf(x):
+        t = torch.tensor(np.asarray(x), device=device)
+        return t[None] if single else t
+
+    def tree(obj, cls):
+        return cls(**{f.name: (tree(getattr(obj, f.name), _ENV_STATE_NESTED[f.name])
+                               if cls is EnvState and f.name in _ENV_STATE_NESTED
+                               else leaf(getattr(obj, f.name)))
+                      for f in dataclasses.fields(cls)})
+
+    return tree(state, EnvState)
+
+
+def mlp_policy_params(params, device=None) -> dict:
+    """A flax parameter tree of MLPPolicy, `{"params": {"pi_0": {"kernel",
+    "bias"}, ..., "log_std"}}` of arrays, as the `state_dict` of the port's
+    module. A flax Dense kernel is (in, out), an nn.Linear weight (out, in)."""
+    tree = params["params"] if "params" in params else params
+    out = {}
+    for name, leaf in tree.items():
+        if name == "log_std":
+            out[name] = torch.tensor(np.asarray(leaf), device=device)
+        else:
+            out[f"{name}.weight"] = torch.tensor(np.asarray(leaf["kernel"]).T.copy(),
+                                                 device=device)
+            out[f"{name}.bias"] = torch.tensor(np.asarray(leaf["bias"]), device=device)
+    return out
+
+
+def mlp_policy(params, device=None) -> MLPPolicy:
+    """The port's module holding a flax parameter tree's values; widths are
+    read from the tree."""
+    sd = mlp_policy_params(params, device)
+    n_hidden = sum(1 for k in sd if k.startswith("pi_") and k.endswith(".bias")) - 1
+    hidden = tuple(sd[f"pi_{i}.bias"].shape[0] for i in range(n_hidden))
+    net = MLPPolicy(sd["pi_0.weight"].shape[1], sd["log_std"].shape[0], hidden).to(device)
+    net.load_state_dict(sd)
+    return net
+
+
+def _norm_from(d, prefix, device):
+    return RunningNorm(*(torch.tensor(np.asarray(d[prefix + k], np.float32), device=device)
+                         for k in ("mean", "var", "count")))
+
+
+def load_linear_policy(path, device=None):
+    """A committed linear policy (`W`, `mean`, `var`, `count`): (W (A, obs_dim),
+    its observation statistics)."""
+    d = np.load(path)
+    return (torch.tensor(np.asarray(d["W"], np.float32), device=device),
+            _norm_from(d, "", device))
+
+
+def load_small_mlp(path, device=None):
+    """A committed one-hidden-layer policy (`W1`, `b1`, `W2`, `b2`): a function
+    of normalised observations (N, obs_dim) -> actions (N, A) in [-1, 1], and
+    the file's observation statistics."""
+    d = np.load(path)
+    W1, b1, W2, b2 = (torch.tensor(np.asarray(d[k], np.float32), device=device)
+                      for k in ("W1", "b1", "W2", "b2"))
+
+    def apply(o):
+        return torch.clamp(torch.tanh(o @ W1.T + b1) @ W2.T + b2, -1.0, 1.0)
+
+    return apply, _norm_from(d, "", device)
+
+
+# flax flattens a parameter dict by sorted key: `log_std`, then `bias` and
+# `kernel` of each Dense
+_FLAT_LEAVES = ("log_std",) + tuple(
+    (m, leaf) for m in ("pi_0", "pi_1", "pi_out", "vf_0", "vf_1", "vf_out")
+    for leaf in ("bias", "kernel"))
+
+
+def load_flat_mlp_policy(path, device=None):
+    """A committed MLPPolicy saved as flattened flax leaves (`n_leaves`,
+    `leaf_0..12`, `on_mean`, `on_var`, `on_count`): (module, statistics)."""
+    d = np.load(path)
+    if int(d["n_leaves"]) != len(_FLAT_LEAVES):
+        raise ValueError(f"{path}: {int(d['n_leaves'])} leaves, expected "
+                         f"{len(_FLAT_LEAVES)} (a 2-hidden-layer MLPPolicy)")
+    tree = {}
+    for i, key in enumerate(_FLAT_LEAVES):
+        if key == "log_std":
+            tree[key] = d[f"leaf_{i}"]
+        else:
+            tree.setdefault(key[0], {})[key[1]] = d[f"leaf_{i}"]
+    return mlp_policy({"params": tree}, device), _norm_from(d, "on_", device)

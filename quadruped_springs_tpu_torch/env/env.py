@@ -97,6 +97,18 @@ def select(mask: torch.Tensor, new, old):
         for f in dataclasses.fields(new)})
 
 
+def take(tree, idx: torch.Tensor):
+    """Rows idx (M,) of every tensor of a (nested) state dataclass, a tuple
+    or a tensor with a leading N: the gather beside `select` (a reset bank's
+    entries handed to M lanes)."""
+    if torch.is_tensor(tree):
+        return tree[idx]
+    if isinstance(tree, tuple):
+        return tuple(take(t, idx) for t in tree)
+    return dataclasses.replace(tree, **{
+        f.name: take(getattr(tree, f.name), idx) for f in dataclasses.fields(tree)})
+
+
 class QuadrupedEnv:
     """Holds config-derived constants on one device; reset and step are
     functions of an explicit EnvState."""
