@@ -27,8 +27,8 @@ Phases (any failure raises, so the script exits non-zero):
      x 12 sites with the execution model's 180 kN/m and 100 N s/m, clamp on
      and off;
   6. drive the environment rollout bench (quadruped_springs_tpu_torch.
-     env_bench: 1024 environments, settle 600 substeps, one warm-up and 3
-     timed segments of T control steps x 10 substeps holding the init
+     env_bench: 1024 environments, settle 600 substeps, one warm-up and
+     ENV_SEGMENTS timed segments of T control steps x 10 substeps holding the init
      action): every environment stands after reset (height in (0.25, 0.36),
      four feet in contact, no other site) and stays upright and finite,
      no foot drifts more than CREEP_BOUND in world xy over a timed segment,
@@ -88,20 +88,54 @@ Phases (any failure raises, so the script exits non-zero):
      exact; the host syncs of each step printed (the last of each must make
      none);
  15. one ContinuousAutopilotEnv.step and one flattened backflip episode
-     with torch.cuda.set_sync_debug_mode("error"): no read on the host.
+     with torch.cuda.set_sync_debug_mode("error"): no read on the host;
+ 16. first `actuation`, `contact` and `contact_anchored` against their twins
+     launched on 1 and 2 lanes (12 and 24 threads) with fidelity_env's
+     constants (motor gains with springs and without, 180 kN/m, the clamp on
+     and off); then the oracle-trace gate: the six committed traces
+     tests/data/oracle_*.qsts through the port's
+     utils/verification.verify_against_trace at their real size (the
+     fidelity env, the 2,500-substep settle, 170 control steps), one lane
+     each, held to the assertions of tests/test_golden_trace.py. The six
+     replays are bound by the host's launches, so they run at once, one
+     spawned process each, on the one card; launches exact per trace;
+ 17. first `actuation_jvp` and `contact_jvp` (clamp on and off) against
+     torch.func.jvp of their twins at the transfer gate's linearization
+     block (one problem, all 50 knots: 50 lanes x 43 tangents, a partial
+     thread block), to the bound of phase 8; then the open-loop transfer
+     gate of tests/test_transfer.py: one MPPI and one iLQR plan (H=50, 10
+     iterations) on the relaxed model from the settled fidelity env,
+     executed as two lanes of one record_golden_trace: planned and executed
+     apexes above 0.45 m and within 25%, upright; launches exact;
+ 18. scale-out at world size 1: init_distributed (NCCL), sharded_solve of
+     SHARDED_BATCH BACKFLIP TEST_RANDOMIZER scenarios (H=50, 10 iterations,
+     8 alphas) inside profiling.annotate, checked with sanitize.finite_mask:
+     0 diverged, finite costs, no scenario above its warm start's cost, the
+     mean cost SHARDED_MARGIN below the warm start's, launches exact,
+     solves/s printed; then the first GAP_ROWS scenarios solved again as one
+     batch and as batches of GAP_BLOCK, their gap printed and their cost
+     traces non-increasing; then sharded_lqt_backward on the Go1 sizes
+     (H=50, n=37, m=6) against riccati_sequential and _parallel_lqt_backward
+     at the tolerances of tests/test_riccati_sharded.py.
 Phase 11 also holds the closed loop to the transfer band of the JAX gate
 (executed apex > 0.45 m, within 10% of the planned one).
-Against the first form of this script, phase 4 times 2 solves (was 3) and
-phase 6 runs 2 segments (was 3), to make room for phases 8-11; phases 1-11
-run as they did before phases 13-15 came, which run before phase 12 (the
-profiler's). The whole takes about 500 s on an NVIDIA H100 80GB HBM3 at
-700 W, some 200 s of it the six replays and 45 s the four train_steps: all
-of them bound by the host's launches, so fewer lanes would save nothing.
+Against the first form of this script, phase 4 times 1 solve (was 3) and
+phase 6 runs 1 segment (was 3): the first cut of each made room for phases
+8-11, the second for phase 18's second look at 8 of its scenarios (about
+90 s of small, host-bound solves), which would have taken the script past
+800 s on a slow host; phase 7's landing episodes are the next cut. Phases
+13-18 run before phase 12 (the profiler's). The whole takes about 550-800 s
+on an NVIDIA H100 80GB HBM3 at 700 W, some 200 s of it the six replays of
+phase 13, 45-60 s the four train_steps, 50-60 s phase 16, 80-95 s phase 17
+and 130-140 s phase 18: all of them bound by the host's launches, so fewer
+lanes would save nothing.
 The line before the last is a JSON object of per-kernel results; the last
 line is {"ok": true, "device": {...}}.
 """
 
+import dataclasses
 import json
+import multiprocessing
 import statistics
 import subprocess
 import sys
@@ -111,12 +145,12 @@ import warnings
 REFERENCE_COST = -70.98          # JAX MPPI headline mean final cost (BENCH_r05.json)
 COST_BAND = 0.03                 # ±3%: the bf16-sample path's -66.7 falls outside
 BATCH, SAMPLES, HORIZON, ITERATIONS = 1024, 32, 50, 10
-TIMED_RUNS = 2
+TIMED_RUNS = 1
 LANES = BATCH * SAMPLES
 REL_TOL = 1e-5
 CANCEL_TOL = 1e-6                # ~8 ulp of f32, relative to cancelling terms
 SOURCE = "quadruped_springs_tpu_torch/csrc/planner_ops.cu"
-ENVS, ENV_STEPS, ENV_SEGMENTS, ENV_SETTLE = 1024, 100, 2, 600
+ENVS, ENV_STEPS, ENV_SEGMENTS, ENV_SETTLE = 1024, 100, 1, 600
 # The anchor springs hold a static stance with ~1 mm of spring travel
 # (quadruped_springs_tpu/models/dynamics.py:71-78); a stance held by them
 # moves far less than that in a second, while the memoryless friction it
@@ -144,6 +178,22 @@ LEARNING_WIDTHS = {"replay": (64, "BACKFLIP"), "replay_forward": (64, "JUMPING_F
                    "ppo_bank": (16, "JUMPING_IN_PLACE_PPO"),
                    "ppo": (32, "JUMPING_IN_PLACE_PPO")}
 ADAPTER_LANES, ADAPTER_KNOTS = 64, 20
+# phase 16 and 17 run the environment's kernels at 1 and 2 lanes; their
+# checks build the hand-placed regimes on SMALL_INPUT_LANES lanes
+FIDELITY_LANES, SMALL_INPUT_LANES = (1, 2), 8
+ORACLE_TRACES = [("JUMPING_IN_PLACE", True), ("JUMPING_FORWARD", True), ("BACKFLIP", True),
+                 ("CONTINUOUS_JUMPING_FORWARD", True), ("JUMPING_IN_PLACE", False),
+                 ("JUMPING_FORWARD", False)]
+SHARDED_BATCH = 1024             # one card's share of BASELINE config 5 (4,096 over 4)
+# least drop of the sharded BACKFLIP solve's mean cost below the warm start's:
+# the first run on an NVIDIA H100 80GB HBM3 (700 W) dropped it by 2,241.6668
+# (-424.6240 -> -2,666.2908)
+SHARDED_MARGIN = 2000.0
+# phase 18 solves the first GAP_ROWS scenarios again, as one batch and as
+# batches of GAP_BLOCK, and prints how far the answers part; and once more as
+# one batch with the last row's start NaN, which must leave the others as
+# they were
+GAP_ROWS, GAP_BLOCK = 8, 2
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA's data sheet
 F32_FLOPS_PER_S = 67e12          # float32 outside the tensor cores
 # float32 operations per (lane, motor or site[, tangent]), from the kernels' source
@@ -221,13 +271,16 @@ def max_err(torch, got, want, name, term_scale=None):
     return float(err.max())
 
 
-def check_actuation(torch, act, owner, n, kp=None, kd=None):
+def check_actuation(torch, act, owner, n, kp=None, kd=None, lanes=None):
     """The `actuation` kernel against its twin at n lanes with owner's (an
     MPCProblem's or a QuadrupedEnv's) config, limits and spring signs;
-    kp, kd: (12,) gains, the motor gains by default."""
+    kp, kd: (12,) gains, the motor gains by default. `lanes` < n launches the
+    kernel on consecutive blocks of that many lanes (times and bound: one
+    launch)."""
     cfg = owner.cfg
     kp = cfg.motor_kp if kp is None else kp
     kd = cfg.motor_kd if kd is None else kd
+    lanes = n if lanes is None else lanes
     gen = torch.Generator("cuda").manual_seed(11)
     randn = lambda *s: torch.randn(s, generator=gen, device="cuda")
     rand = lambda *s: torch.rand(s, generator=gen, device="cuda")
@@ -242,27 +295,40 @@ def check_actuation(torch, act, owner, n, kp=None, kd=None):
     q[1] = rest12
     qd[1] = 0.0
     q_des[2] = q[2] + 10.0             # saturate the torque clip
-    args = (q_des, q, qd, kp, kd, cfg.torque_limits, spring_k, spring_b,
-            cfg.spring_rest_angles, owner.engage_sign)
+
+    def args(i=0, m=n):
+        s = slice(i, i + m)
+        return (q_des[s], q[s], qd[s], kp, kd, cfg.torque_limits, spring_k[s], spring_b[s],
+                cfg.spring_rest_angles, owner.engage_sign)
 
     def twin():
         tau_m = act.pd_torque(q_des, q, qd, kp, kd, cfg.torque_limits)
         return tau_m + act.spring_torque(q, qd, spring_k, spring_b,
                                          cfg.spring_rest_angles, owner.engage_sign), tau_m
 
-    got, want = act.actuation_torque(*args), twin()
+    one = lambda: act.actuation_torque(*args(0, lanes))
+    got, want = launch_blocks(torch, lambda i: act.actuation_torque(*args(i, lanes)), n,
+                              lanes), twin()
     torch.cuda.synchronize()
     err = max(max_err(torch, g, w, f"actuation {k}")
               for g, w, k in zip(got, want, ("tau", "tau_motor")))
-    return {"max_abs_err": err,
-            "ms": cuda_time_ms(torch, lambda: act.actuation_torque(*args)),
-            "profile": (lambda: act.actuation_torque(*args), "actuation_kernel"),
-            "plain_ms": cuda_time_ms(torch, twin), **roofline("actuation", q.numel(), args, got)}
+    return {"max_abs_err": err, "ms": cuda_time_ms(torch, one),
+            "profile": (one, "actuation_kernel"), "plain_ms": cuda_time_ms(torch, twin),
+            **roofline("actuation", lanes * 12, args(0, lanes), one())}
 
 
-def check_contact(torch, dyn, model, n, kn, dn):
+def launch_blocks(torch, launch, n, lanes):
+    """The outputs of launch(i) for i = 0, lanes, 2·lanes, ... < n, joined
+    along the lane axis."""
+    outs = [launch(i) for i in range(0, n, lanes)]
+    return tuple(torch.cat(parts) for parts in zip(*outs))
+
+
+def check_contact(torch, dyn, model, n, kn, dn, lanes=None):
     """The memoryless `contact` kernel against its twin at n lanes x 12
-    sites with normal stiffness kn and damping dn, clamp on and off."""
+    sites with normal stiffness kn and damping dn, clamp on and off;
+    `lanes` as in check_actuation."""
+    lanes = n if lanes is None else lanes
     gen = torch.Generator("cuda").manual_seed(12)
     phi = 0.02 * torch.rand((n, 12), generator=gen, device="cuda") - 0.01
     v_w = torch.randn((n, 12, 3), generator=gen, device="cuda")
@@ -282,20 +348,27 @@ def check_contact(torch, dyn, model, n, kn, dn):
     for clamp in (False, True):
         params = dyn.SimParams(contact_stiffness=kn, contact_damping=dn, friction=mu,
                                clamp_damping=clamp)
+
         # (bound now: phase 12 calls it after the loop has moved on)
-        kernel = lambda params=params: dyn.contact_forces(model, params, p_w, v_w, radii)[:3]
+        def launch(i, params=params):
+            s = slice(i, i + lanes)
+            return dyn.contact_forces(model, dataclasses.replace(params, friction=mu[s]),
+                                      p_w[s], v_w[s], radii)[:3]
+
+        one = lambda launch=launch: launch(0)
         twin = lambda: dyn.contact_forces_plain(phi, v_w, mu, kn, dn,
                                                 params.slip_vel_tol, clamp)
-        got, want = kernel(), twin()
+        got, want = launch_blocks(torch, launch, n, lanes), twin()
         torch.cuda.synchronize()
         if not bool(want[2][2:6].all()) or bool(want[2][0:2].any()):
             raise AssertionError("contact edge rows not in the intended regime")
         err = max(max_err(torch, g, w, f"contact clamp={clamp} {k}")
                   for g, w, k in zip(got, want, ("f_world", "fn", "in_contact")))
-        results[clamp] = {"max_abs_err": err, "ms": cuda_time_ms(torch, kernel),
-                          "profile": (kernel, "contact_kernel"),
+        results[clamp] = {"max_abs_err": err, "ms": cuda_time_ms(torch, one),
+                          "profile": (one, "contact_kernel"),
                           "plain_ms": cuda_time_ms(torch, twin),
-                          **roofline("contact", phi.numel(), (phi, v_w, mu), got)}
+                          **roofline("contact", lanes * 12,
+                                     (phi[:lanes], v_w[:lanes], mu[:lanes]), one())}
     return results
 
 
@@ -314,6 +387,8 @@ def profile_kernels(torch, checks):
     process once it has run and must not weigh on their launches."""
     for name, by_setting in checks.items():
         for setting, r in by_setting.items():
+            if "profile" not in r:
+                continue
             r["device_ms"] = device_time_ms(torch, *r.pop("profile"))
             device = ("not recorded" if r["device_ms"] is None
                       else f"{r['device_ms'] * 1e3:.2f} µs")
@@ -322,9 +397,11 @@ def profile_kernels(torch, checks):
                   f"{r['bound_ms'] * 1e3:.2f} µs", flush=True)
 
 
-def check_anchored_contact(torch, dyn, model, n):
+def check_anchored_contact(torch, dyn, model, n, lanes=None):
     """The `contact_anchored` kernel against its twin at n lanes x 12 sites
-    with the execution model's constants, clamp on and off."""
+    with the execution model's constants, clamp on and off; `lanes` as in
+    check_actuation."""
+    lanes = n if lanes is None else lanes
     gen = torch.Generator("cuda").manual_seed(13)
     rand = lambda *s: torch.rand(s, generator=gen, device="cuda")
     radii = torch.tensor([0.02] * 4 + [0.008] * 4 + [0.055] * 4, device="cuda")
@@ -345,13 +422,18 @@ def check_anchored_contact(torch, dyn, model, n):
     results = {}
     for clamp in (False, True):
         params = dyn.SimParams(friction=mu, clamp_damping=clamp)
-        kernel = lambda params=params: dyn.contact_forces(model, params, p_w, v_w, radii,
-                                                          anchor)
+
+        def launch(i, params=params):
+            s = slice(i, i + lanes)
+            return dyn.contact_forces(model, dataclasses.replace(params, friction=mu[s]),
+                                      p_w[s], v_w[s], radii, anchor[s])
+
+        one = lambda launch=launch: launch(0)
         twin = lambda: dyn.contact_forces_anchored_plain(
             radii - p_w[..., 2], v_w, p_w[:, :4, :2], anchor, mu,
             params.contact_stiffness, params.contact_damping, params.tangential_stiffness,
             params.tangential_damping, params.slip_vel_tol, clamp)
-        got, want = kernel(), twin()
+        got, want = launch_blocks(torch, launch, n, lanes), twin()
         torch.cuda.synchronize()
         inc, new = want[2][:, :4], want[3]
         slid = (new != anchor).any(-1)
@@ -369,11 +451,12 @@ def check_anchored_contact(torch, dyn, model, n):
         err = max(max_err(torch, g, w, f"contact_anchored clamp={clamp} {k}")
                   for g, w, k in zip(got, want, ("f_world", "fn", "in_contact",
                                                   "new_anchor")))
-        results[clamp] = {"max_abs_err": err, "ms": cuda_time_ms(torch, kernel),
-                          "profile": (kernel, "contact_anchored_kernel"),
+        results[clamp] = {"max_abs_err": err, "ms": cuda_time_ms(torch, one),
+                          "profile": (one, "contact_anchored_kernel"),
                           "plain_ms": cuda_time_ms(torch, twin),
-                          **roofline("contact_anchored", n * 12,
-                                     (p_w[..., 2], v_w, p_w, anchor, mu), got)}
+                          **roofline("contact_anchored", lanes * 12,
+                                     (p_w[:lanes, :, 2], v_w[:lanes], p_w[:lanes],
+                                      anchor[:lanes], mu[:lanes]), one())}
     return results
 
 
@@ -566,8 +649,6 @@ def check_linearization(torch, ilqr, MPCConfig, MPCProblem):
 
 def run_ilqr_solve(torch, bench, ilqr, act, dyn, kind):
     """Phase 10: the full-width iLQR solve."""
-    import dataclasses
-
     reset_counts(act, dyn)
     rec = bench.run(batch=BATCH, horizon=HORIZON, iterations=ITERATIONS,
                     runs=ILQR_TIMED_RUNS, device="cuda", ilqr=True)
@@ -1003,6 +1084,380 @@ def run_adapters(torch, act, dyn, kind):
     return counts
 
 
+def check_fidelity_widths(torch, act, dyn, model):
+    """Before phase 16: the environment's three kernels against their twins
+    at the fidelity gates' widths, one lane (phase 16) and two (phase 17),
+    with fidelity_env's constants: the motor gains with springs and without,
+    180 kN/m and 100 N s/m, the clamp on and off. The hand-placed regimes
+    need 6 lanes, so each check launches its kernel on consecutive blocks of
+    1 or 2 of SMALL_INPUT_LANES lanes: 12 and 24 threads, a partial block."""
+    from quadruped_springs_tpu_torch.utils.verification import fidelity_env
+
+    checks = {"actuation": {}, "contact": {}, "contact_anchored": {}}
+    for springs in (True, False):
+        env = fidelity_env("JUMPING_IN_PLACE", springs, device="cuda")
+        sim = env.sim_params
+        for lanes in FIDELITY_LANES:
+            tag = f"fidelity_{lanes}" + ("" if springs else "_nospring")
+            checks["actuation"][tag] = check_actuation(torch, act, env, SMALL_INPUT_LANES,
+                                                       lanes=lanes)
+            if not springs:
+                continue      # the contact laws do not depend on the springs
+            contact = check_contact(torch, dyn, model, SMALL_INPUT_LANES,
+                                    sim.contact_stiffness, sim.contact_damping, lanes)
+            anchored = check_anchored_contact(torch, dyn, model, SMALL_INPUT_LANES, lanes)
+            for clamp, ctag in ((True, "_clamp"), (False, "")):
+                checks["contact"][tag + ctag] = contact[clamp]
+                checks["contact_anchored"][tag + ctag] = anchored[clamp]
+    for name, by_setting in checks.items():
+        for tag, r in by_setting.items():
+            if not tag.startswith("fidelity_1"):
+                del r["profile"]   # phase 12 profiles one launch at one lane
+        worst = max(by_setting.values(), key=lambda r: r["max_abs_err"])
+        ms = [r["ms"] for r in by_setting.values()]
+        print(f"phase 16: {name} against its twin at {len(by_setting)} settings of "
+              f"{FIDELITY_LANES} lanes per launch: max_abs_err {worst['max_abs_err']:.3e} "
+              f"(bound {REL_TOL}·(1+|twin|)), kernel {min(ms):.4f}-{max(ms):.4f} ms through "
+              f"its wrapper", flush=True)
+    return checks
+
+
+def _oracle_trace_worker(job):
+    """Phase 16, in a process of its own: one committed oracle trace through
+    the port's verify_against_trace on the card. Returns the report, the
+    kernels' launches and the wall time."""
+    import torch
+
+    from quadruped_springs_tpu_torch.models import dynamics as dyn
+    from quadruped_springs_tpu_torch.ops import actuation as act
+    from quadruped_springs_tpu_torch.utils import verification as V
+
+    task, springs = job
+    torch.backends.cuda.matmul.allow_tf32 = False
+    env = V.fidelity_env(task, springs, device="cuda")
+    path = f"tests/data/oracle_{task.lower()}{'' if springs else '_nospring'}.qsts"
+    reset_counts(act, dyn)
+    t0 = time.perf_counter()
+    report = V.verify_against_trace(env, path, torch.Generator("cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    return {"report": report, "launches": read_counts(act, dyn),
+            "seconds": time.perf_counter() - t0,
+            "substeps": env.config.settling_steps + env.config.action_repeat * report["steps"]}
+
+
+def run_oracle_gate(kind):
+    """Phase 16: the six committed oracle traces through the port, each at
+    its real size (fidelity_env, the 2,500-substep settle, every control
+    step), one lane each, held to the gate of tests/test_golden_trace.py.
+    The six replays are bound by the host's launches, so they run at once,
+    one process each (ORACLE_TRACES), on the one card."""
+    from quadruped_springs_tpu_torch.runtime import trajstore
+
+    trajstore.library()              # build the store once, before the workers read it
+    t0 = time.perf_counter()
+    with multiprocessing.get_context("spawn").Pool(len(ORACLE_TRACES)) as pool:
+        results = pool.map(_oracle_trace_worker, ORACLE_TRACES)
+    wall = time.perf_counter() - t0
+    total = dict.fromkeys(("actuation", "contact", "contact_anchored", "actuation_jvp",
+                           "contact_jvp"), 0)
+    failed = []
+    for (task, springs), res in zip(ORACLE_TRACES, results):
+        r, sub = res["report"], res["substeps"]
+        check_counts(res["launches"], {"actuation": sub, "contact_anchored": sub, "contact": 1,
+                                       "actuation_jvp": 0, "contact_jvp": 0}, 16)
+        for k, v in res["launches"].items():
+            total[k] += v
+        ok = (r["steps"] >= 170 and r["pass"] and r["static_flight_max_dev_frac"] < 0.02
+              and r["mean_torque_dev_frac_pre_touchdown"] < 0.02
+              and r["max_height_dev_m_pre_touchdown"] < 0.03
+              and r["gated_fraction_strict"] >= 0.15
+              and r["ungated_fraction_post_touchdown"] <= 0.55)
+        name = task.lower() + ("" if springs else "_nospring")
+        if not ok:
+            failed.append(name)
+        print(f"phase 16: oracle_{name}: pass {r['pass']}, static/flight "
+              f"{r['static_flight_max_dev_frac']:.5f}, mean pre-touchdown "
+              f"{r['mean_torque_dev_frac_pre_touchdown']:.5f}, height "
+              f"{r['max_height_dev_m_pre_touchdown']:.5f} m, strict share "
+              f"{r['gated_fraction_strict']:.4f}, post-touchdown "
+              f"{r['ungated_fraction_post_touchdown']:.4f}; dynamic "
+              f"{r['dynamic_max_dev_frac']:.5f}, events {r['event_timing_max_offset_knots']}, "
+              f"apex {r['apex_max_dev_m']:.5f} m; {sub} substeps in {res['seconds']:.2f} s on "
+              f"{kind}", flush=True)
+    print(json.dumps({"oracle_gate": {
+        task.lower() + ("" if springs else "_nospring"): {
+            k: v for k, v in res["report"].items() if k not in ("gate", "tolerances")}
+        for (task, springs), res in zip(ORACLE_TRACES, results)}}))
+    print(f"phase 16: {len(ORACLE_TRACES)} oracle traces in {wall:.2f} s ({len(ORACLE_TRACES)} "
+          f"processes on one card); launches {total}", flush=True)
+    if failed:
+        raise AssertionError(f"phase 16: the oracle gate fails on {failed}")
+    return total
+
+
+def check_transfer_block(torch, act, dyn, ilqr, prob):
+    """Head of phase 17: the two tangent kernels against torch.func.jvp of
+    their twins at the shape of the transfer gate's linearization. Its iLQR
+    plan is a batch of one, so one block holds all HORIZON knots: 50 lanes
+    x N_TANGENTS, 600 threads, the last 256-thread block partial (88)."""
+    n = ilqr.linearization_blocks(1, HORIZON, N_TANGENTS)
+    contact_jvp = check_contact_jvp(torch, dyn, n)
+    checks = {"actuation_jvp": {"transfer_block": check_actuation_jvp(torch, act, prob, n)},
+              "contact_jvp": {"transfer_block": contact_jvp[False],
+                              "transfer_block_clamp": contact_jvp[True]}}
+    report_checks(17, checks, f"{n} x {N_TANGENTS}", "lanes x tangents")
+    return checks
+
+
+def run_transfer_gate(torch, act, dyn, ilqr, kind):
+    """Phase 17: tests/test_transfer.py's open-loop gate. One MPPI plan and
+    one iLQR plan (H = 50, 10 iterations; iLQR with 8 alphas) on the relaxed
+    planner model from the settled state of fidelity_env, executed through
+    record_golden_trace as two lanes of one fidelity_env (one settle): both
+    planned and executed apexes above 0.45 m, within 25% of each other, the
+    robot upright at the end."""
+    from quadruped_springs_tpu_torch.solver import mppi
+    from quadruped_springs_tpu_torch.solver.mpc import MPCConfig, MPCProblem, state_to_vec
+    from quadruped_springs_tpu_torch.utils import verification as V
+
+    reset_counts(act, dyn)
+    t0 = time.perf_counter()
+    prob = MPCProblem(MPCConfig(task="JUMPING_IN_PLACE", horizon=HORIZON, iterations=ITERATIONS,
+                                n_alphas=ILQR_ALPHAS), "cuda")
+    env = V.fidelity_env("JUMPING_IN_PLACE", device="cuda")
+    state, _ = env.reset(torch.Generator("cuda").manual_seed(0), 1)
+    x0 = state_to_vec(state.robot)
+    u0 = prob.task_warm_start()
+    mppi_cfg = mppi.MPPIConfig(horizon=HORIZON, iterations=ITERATIONS)
+    plans = {"mppi": prob.solve_mppi(x0, u0[None], torch.Generator("cuda").manual_seed(1),
+                                     mppi_cfg),
+             "ilqr": ilqr.first_problem(prob.solve_batch(x0, u0[None]))}
+    actions = torch.stack([plans["mppi"].us[0], plans["ilqr"].us])
+    rows = V.record_golden_trace(env, actions, torch.Generator("cuda").manual_seed(2))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts(act, dyn)
+    S, settle = prob.config.solver_substeps, env.config.settling_steps
+    mppi_sub = S * HORIZON * (2 + 2 * ITERATIONS)     # first, 2 per iteration, last
+    blocks = -(-HORIZON // ilqr.linearization_blocks(1, HORIZON, N_TANGENTS))
+    ilqr_sub = S * (HORIZON + ITERATIONS * (blocks + HORIZON))
+    env_sub = 2 * settle + 10 * HORIZON
+    check_counts(counts, {"actuation": env_sub + mppi_sub + ilqr_sub, "contact_anchored": env_sub,
+                          "contact": 2 + mppi_sub + ilqr_sub,
+                          "actuation_jvp": S * ITERATIONS * blocks,
+                          "contact_jvp": S * ITERATIONS * blocks}, 17)
+    out, failed = {}, []
+    for lane, (name, sol) in enumerate(plans.items()):
+        xs = sol.xs[0] if name == "mppi" else sol.xs
+        got = V.split_trace(rows[lane].cpu().numpy(), env.action_dim)
+        planned, executed = float(xs[:, 2].max()), float(got["pos"][:, 2].max())
+        z_end, tilt = float(got["pos"][-1, 2]), float(abs(got["quat"][-1, 0])
+                                                     + abs(got["quat"][-1, 1]))
+        out[name] = {"planned_apex_m": planned, "executed_apex_m": executed,
+                     "final_z_m": z_end, "final_tilt": tilt}
+        if not (planned > 0.45 and executed > 0.45
+                and abs(planned - executed) < 0.25 * planned and z_end > 0.15 and tilt < 0.5):
+            failed.append(name)
+        print(f"phase 17: {name} plan: planned apex {planned:.3f} m, executed {executed:.3f} m "
+              f"({(executed - planned) / planned:+.1%}), final height {z_end:.3f} m, "
+              f"|qx|+|qy| {tilt:.4f}", flush=True)
+    print(f"phase 17: the transfer gate in {wall:.2f} s on {kind} (reset, both plans, one "
+          f"2-lane replay); launches {counts}", flush=True)
+    print(json.dumps({"transfer_gate": out}))
+    if failed:
+        raise AssertionError(f"phase 17: the transfer gate fails for {failed}: {out}")
+    return counts
+
+
+def random_lq(torch, gen, H, n, m):
+    """tests/test_riccati_sharded.py's random LQ problem, one problem, drawn
+    on the card."""
+    r = lambda *s: torch.randn(s, generator=gen, device="cuda")
+    eye = lambda k: torch.eye(k, device="cuda")
+    W, V = r(1, H, n, n) / n, r(1, H, m, m) / (4 * m)
+    return (0.9 * eye(n) + 0.1 * r(1, H, n, n) / n, r(1, H, n, m) / n, r(1, H, n), r(1, H, m),
+            W @ W.transpose(-1, -2) + 0.5 * eye(n), V @ V.transpose(-1, -2) + eye(m),
+            0.1 * r(1, H, m, n), r(1, n), 2.0 * eye(n)[None])
+
+
+def batch_rounding_probe(torch, ilqr, prob, rows):
+    """Phase 18: which stage of an iLQR solve rounds differently in a batch
+    of GAP_ROWS problems and in one of GAP_BLOCK on the card. Each stage
+    runs on identical inputs at both sizes; max |d| over the first GAP_BLOCK
+    problems (0: bitwise equal). rows(a, b) gives (x0s, u0s, scenarios) of
+    problems a..b."""
+    def gap(f, big, small, axis=0):
+        a, b = f(*big), f(*small)
+        return float((a.narrow(axis, 0, GAP_BLOCK) - b).abs().max())
+
+    big, small = rows(0, GAP_ROWS), rows(0, GAP_BLOCK)
+    n = big[0].shape[-1]
+
+    def knot(x0, u0, scen, lanes=1):      # lanes per problem: 1 rollout, alphas search
+        x = x0[:, None].expand(-1, lanes, -1).contiguous()
+        u = u0[:, None, 0].expand(-1, lanes, -1).contiguous()
+        return prob.lane_dynamics(scen)(x, u)
+
+    def tangents(x0, u0, scen):          # the knot's basis tangents: one linearization
+        f = prob.lane_dynamics(scen)
+        z = torch.cat([x0, u0[:, 0]], dim=-1)[:, None]
+        return ilqr._basis_jvp(lambda z: f(z[..., :n], z[..., n:]), z)[1]
+
+    out = {"knot": gap(knot, big, small),
+           "knot_line_search": gap(lambda *a: knot(*a, lanes=ILQR_ALPHAS), big, small),
+           "knot_tangents": gap(tangents, big, small, axis=1)}
+    # the backward sweep's batched linear algebra, on seeded inputs of its
+    # shapes and layouts (a knot's slice of (P, H, ...) blocks)
+    gen = torch.Generator("cuda").manual_seed(7)
+    r = lambda *s: torch.randn(s, generator=gen, device="cuda")
+    m = prob.action_dim
+    A, B = r(GAP_ROWS, HORIZON, n, n)[:, 7], r(GAP_ROWS, HORIZON, n, m)[:, 7]
+    V, W, rhs = r(GAP_ROWS, n, n), r(GAP_ROWS, m, m), r(GAP_ROWS, m, n + 1)
+    Q = W @ W.transpose(-1, -2) + m * torch.eye(m, device="cuda")
+    L = torch.linalg.cholesky_ex(Q)[0]
+    t = lambda M: M.transpose(-1, -2)
+    ops = {"matmul A^T V A": (lambda A, V: t(A) @ V @ A, (A, V)),
+           "matmul B^T V B": (lambda B, V: t(B) @ V @ B, (B, V)),
+           "cholesky_ex": (lambda Q: torch.linalg.cholesky_ex(Q)[0], (Q,)),
+           "cholesky_solve": (torch.cholesky_solve, (rhs, L)),
+           "solve_ex": (lambda A, V: ilqr._solve(A @ t(A) + torch.eye(n, device="cuda"), V),
+                        (A, V)),
+           "gershgorin_min": (ilqr._gershgorin_min, (Q,))}
+    for name, (f, args) in ops.items():
+        out[name] = gap(f, args, tuple(a[:GAP_BLOCK] for a in args))
+    return out
+
+
+def run_sharded(torch, act, dyn, ilqr, kind):
+    """Phase 18: the scale-out path at world size 1 over NCCL on the card.
+    sharded_solve of SHARDED_BATCH BACKFLIP TEST_RANDOMIZER scenarios (H = 50,
+    10 iterations, 8 alphas: one card's share of BASELINE config 5) and its
+    global statistics; the first GAP_ROWS of them solved again as one batch
+    and in batches of GAP_BLOCK (the gap between the two, and their cost
+    traces); then sharded_lqt_backward on the Go1 problem's sizes against
+    the port's sequential and single-device parallel sweeps."""
+    import torch.distributed as dist
+
+    from quadruped_springs_tpu_torch.env.env import take
+    from quadruped_springs_tpu_torch.parallel import mesh as pmesh
+    from quadruped_springs_tpu_torch.parallel.riccati import sharded_lqt_backward
+    from quadruped_springs_tpu_torch.parallel.scenarios import (
+        global_stats, sample_scenario_batch, sharded_solve)
+    from quadruped_springs_tpu_torch.solver.mpc import MPCConfig, MPCProblem
+    from quadruped_springs_tpu_torch.utils import profiling, sanitize
+
+    pmesh.init_distributed()
+    backend, mesh = dist.get_backend(), pmesh.scenario_mesh("cuda")
+    prob = MPCProblem(MPCConfig(task="BACKFLIP", horizon=HORIZON, iterations=ITERATIONS,
+                                n_alphas=ILQR_ALPHAS), "cuda")
+    scenarios = sample_scenario_batch(prob.cfg, "TEST_RANDOMIZER",
+                                      torch.Generator("cuda").manual_seed(0), SHARDED_BATCH)
+    x0s = prob.default_x0().expand(SHARDED_BATCH, -1)
+    u0s = prob.task_warm_start().expand(SHARDED_BATCH, -1, -1)
+    warm = ilqr.solve_batched(prob.lane_dynamics(scenarios), prob.stage_cost,
+                              prob.terminal_cost, x0s, u0s,
+                              dataclasses.replace(prob.ilqr_config, iterations=0)).cost
+    torch.cuda.synchronize()
+    reset_counts(act, dyn)
+    t0 = time.perf_counter()
+    with profiling.annotate("sharded_solve"):
+        us, costs, diverged = sharded_solve(prob, x0s, u0s, scenarios, mesh)
+        stats = global_stats(costs, diverged, mesh)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts(act, dyn)
+    S = prob.config.solver_substeps
+    blocks = -(-HORIZON // ilqr.linearization_blocks(SHARDED_BATCH, HORIZON, N_TANGENTS))
+    primal = S * (HORIZON + ITERATIONS * (blocks + HORIZON))
+    check_counts(counts, {"actuation": primal, "contact": primal, "contact_anchored": 0,
+                          "actuation_jvp": S * ITERATIONS * blocks,
+                          "contact_jvp": S * ITERATIONS * blocks}, 18)
+    finite = sanitize.finite_mask((us, costs))
+    ok = ~diverged
+    n_div, mean = int(stats["n_diverged"]), float(stats["mean_cost"])
+    drop = float(warm.mean()) - mean
+    print(f"phase 18: sharded_solve over {backend} at world size {dist.get_world_size()} "
+          f"(mesh {tuple(mesh.mesh.shape)} {mesh.mesh_dim_names}): {SHARDED_BATCH} BACKFLIP "
+          f"scenarios (H={HORIZON}, {ITERATIONS} iterations, {ILQR_ALPHAS} alphas) in "
+          f"{wall:.2f} s = {SHARDED_BATCH / wall:.3f} solves/s on {kind}; n_diverged {n_div}; "
+          f"mean cost {float(warm.mean()):.4f} -> {mean:.4f} (drop {drop:.4f}, margin "
+          f"{SHARDED_MARGIN}), best {float(stats['best_cost']):.4f}; launches {counts}",
+          flush=True)
+    if not (n_div == 0 and bool(torch.equal(finite, ok)) and bool(torch.isfinite(costs).all())):
+        raise AssertionError(f"phase 18: {n_div} scenarios diverged, or a cost is not finite")
+    # a step is accepted only where it lowers the problem's cost
+    if bool((costs > warm).any()):
+        raise AssertionError("phase 18: a scenario ended above its warm start's cost")
+    if not drop > SHARDED_MARGIN:
+        raise AssertionError(f"phase 18: the mean cost dropped by {drop}, not {SHARDED_MARGIN}")
+
+    # the first GAP_ROWS scenarios again, as one batch and as batches of
+    # GAP_BLOCK: how far a problem's answer depends on its batch's size
+    rows = lambda a, b: (x0s[a:b], u0s[a:b], take(scenarios, torch.arange(a, b, device="cuda")))
+    t0 = time.perf_counter()
+    whole = prob.solve_batch(*rows(0, GAP_ROWS))
+    split = [prob.solve_batch(*rows(i, i + GAP_BLOCK)) for i in range(0, GAP_ROWS, GAP_BLOCK)]
+    # and with the last row's start NaN: every other row must stay bitwise
+    x0_nan, u0_head, scen_head = rows(0, GAP_ROWS)
+    x0_nan = x0_nan.clone()
+    x0_nan[-1] = float("nan")
+    probe = prob.solve_batch(x0_nan, u0_head, scen_head)
+    torch.cuda.synchronize()
+    gap_wall = time.perf_counter() - t0
+    scale = float(whole.cost.abs().max())
+    trace_gap = (whole.cost_trace - torch.cat([b.cost_trace for b in split])).abs().amax(0)
+    gap = {"cost_abs": float(trace_gap[-1]),
+           "us_abs": float((whole.us - torch.cat([b.us for b in split])).abs().max()),
+           "cost_abs_by_iteration": trace_gap.tolist(),
+           "cost_vs_full_batch_abs": float((whole.cost - costs[:GAP_ROWS]).abs().max()),
+           "cost_scale": scale}
+    probe_diverged = ~(torch.isfinite(probe.cost) & torch.isfinite(probe.us).all(dim=(1, 2)))
+    isolated = (bool(torch.equal(probe.us[:-1], whole.us[:-1]))
+                and bool(torch.equal(probe.cost[:-1], whole.cost[:-1])))
+    print(f"phase 18: the first {GAP_ROWS} scenarios as one batch and as "
+          f"{GAP_ROWS // GAP_BLOCK} batches of {GAP_BLOCK}: max |d cost| {gap['cost_abs']:.6g} "
+          f"({gap['cost_abs'] / scale:.3g} of the cost scale {scale:.4f}), max |d us| "
+          f"{gap['us_abs']:.6g}; by iteration {[f'{g:.3g}' for g in gap['cost_abs_by_iteration']]}; "
+          f"against the same rows of the {SHARDED_BATCH}-batch max |d cost| "
+          f"{gap['cost_vs_full_batch_abs']:.6g}; with row {GAP_ROWS - 1}'s start NaN: diverged "
+          f"{probe_diverged.tolist()}, the other rows bitwise unchanged: {isolated} "
+          f"({gap_wall:.2f} s)", flush=True)
+    gap["stages"] = batch_rounding_probe(torch, ilqr, prob, rows)
+    print(f"phase 18: per stage, max |d| between a batch of {GAP_ROWS} and one of {GAP_BLOCK} "
+          f"on identical inputs: {gap['stages']}", flush=True)
+    traces = torch.cat([whole.cost_trace] + [b.cost_trace for b in split])
+    if bool((traces[:, 1:] > traces[:, :-1]).any()):
+        raise AssertionError("phase 18: a cost trace increases")
+    if not (isolated and probe_diverged.tolist() == [False] * (GAP_ROWS - 1) + [True]):
+        raise AssertionError("phase 18: a NaN scenario was not flagged, or it moved another row")
+
+    args = random_lq(torch, torch.Generator("cuda").manual_seed(5), HORIZON, 37, 6)
+    reg_seq, reg_par = torch.tensor([1e-5], device="cuda"), torch.tensor([1e-2], device="cuda")
+    ks_s, Ks_s, _, ok_s = ilqr.riccati_sequential(*args, reg_seq, ilqr.ILQRConfig(HORIZON))
+    ks_p, Ks_p, _, ok_p = ilqr._parallel_lqt_backward(*args, reg_par)
+    gains = {"seq": (sharded_lqt_backward(*args, reg_seq, mesh), (ks_s, Ks_s), (2e-3, 2e-4)),
+             "par": (sharded_lqt_backward(*args, reg_par, mesh), (ks_p, Ks_p), (1e-4, 1e-5))}
+    errs = {}
+    for name, (got, want, (rtol, atol)) in gains.items():
+        for g, w, k in zip(got, want, ("ks", "Ks")):
+            errs[f"{name}_{k}"] = float((g - w).abs().max())
+            if not torch.allclose(g, w, rtol=rtol, atol=atol):
+                raise AssertionError(f"phase 18: sharded_lqt_backward {k} differs from the "
+                                     f"{name} sweep by {errs[f'{name}_{k}']}")
+    if not (bool(ok_s.all()) and bool(ok_p.all())):
+        raise AssertionError("phase 18: a reference sweep failed")
+    print(f"phase 18: sharded_lqt_backward at world size 1 (H={HORIZON}, n=37, m=6) against "
+          f"riccati_sequential (rtol 2e-3, atol 2e-4) and _parallel_lqt_backward (rtol 1e-4, "
+          f"atol 1e-5): max |d| {errs}", flush=True)
+    print(json.dumps({"sharded_solve": {"solves_per_s": SHARDED_BATCH / wall, "seconds": wall,
+                                        "n_diverged": n_div, "warm_start_mean_cost":
+                                        float(warm.mean()), "mean_cost": mean,
+                                        "best_cost": float(stats["best_cost"]),
+                                        "batch_gap": gap, "lqt_max_abs_diff": errs}}))
+    dist.destroy_process_group()
+    return counts
+
+
 def main():
     import torch
 
@@ -1118,10 +1573,16 @@ def main():
     by_path.update(run_replay(torch, policy_replay, env_bench.QuadrupedEnv, act, dyn, kind))
     by_path["train"] = run_train(torch, train_bench, act, dyn, kind)
     by_path["autopilot_adapters"] = run_adapters(torch, act, dyn, kind)
+    fidelity_checks = check_fidelity_widths(torch, act, dyn, model)
+    by_path["oracle_gate"] = run_oracle_gate(kind)
+    transfer_checks = check_transfer_block(torch, act, dyn, ilqr, prob)
+    by_path["transfer_gate"] = run_transfer_gate(torch, act, dyn, ilqr, kind)
+    by_path["sharded_solve"] = run_sharded(torch, act, dyn, ilqr, kind)
+    for extra in (fidelity_checks, width_checks, transfer_checks):
+        for name, by_setting in extra.items():
+            checks[name].update(by_setting)
     profile_kernels(torch, checks)
     print(json.dumps({"env_substep_breakdown": env_breakdown()}))
-    for name, by_setting in width_checks.items():
-        checks[name].update(by_setting)
 
     # the contact_anchored kernel extends the memoryless contact kernel
     # (the TPU kernel fused_contact) with the feet's anchor stiction

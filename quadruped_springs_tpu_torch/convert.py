@@ -34,6 +34,7 @@ from quadruped_springs_tpu_torch.solver.mpc import MPCConfig
 from quadruped_springs_tpu_torch.tasks.tasks import TaskState
 from quadruped_springs_tpu_torch.train.networks import MLPPolicy
 from quadruped_springs_tpu_torch.train.normalize import RunningNorm
+from quadruped_springs_tpu_torch.utils.lcp_oracle import OracleState
 
 
 def _tensor(obj, name, device):
@@ -120,6 +121,20 @@ def ilqr_solution(sol, device=None) -> ILQRSolution:
         out = ILQRSolution(**{f.name: getattr(out, f.name)[None]
                               for f in dataclasses.fields(ILQRSolution)})
     return out
+
+
+def lq_problem(args, device=None, dtype=torch.float32) -> tuple:
+    """The LQ subproblem of one JAX problem, (A (H,n,n), B, lx, lu, lxx, luu,
+    lux, VxT (n,), VxxT (n,n)), as the port's batch of one: (A (1,H,n,n),
+    ..., VxxT (1,n,n)), so that both packages sweep the same arrays."""
+    return tuple(torch.tensor(np.asarray(a), dtype=dtype, device=device)[None]
+                 for a in args)
+
+
+def oracle_state(st) -> OracleState:
+    """A JAX OracleState (float64 NumPy fields) as the port's, copied."""
+    return OracleState(**{f.name: np.array(getattr(st, f.name), np.float64)
+                          for f in dataclasses.fields(OracleState)})
 
 
 # -- the learning stack ------------------------------------------------------

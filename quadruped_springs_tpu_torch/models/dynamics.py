@@ -649,3 +649,60 @@ def step(model: Go1Model, params: SimParams, state: RobotState, tau,
         qd=qd,
     )
     return new_state, info
+
+
+# ---------------------------------------------------------------------------
+# Diagnostics used by tests and the contact oracle (energy / momentum audits)
+# ---------------------------------------------------------------------------
+
+def _generalized_velocity(state: RobotState):
+    """(R (N,3,3), u = [ω_b; v_b; qd] (N,18))."""
+    R = sp.quat_to_mat(state.quat)
+    return R, torch.cat([_rmatvec(R, state.ang_vel), _rmatvec(R, state.lin_vel),
+                         state.qd], dim=-1)
+
+
+def _dense_mass_matrix(A, B, D):
+    n = A.shape[0]
+    top = torch.cat([A, B.permute(0, 2, 1, 3).reshape(n, 6, 12)], dim=-1)
+    eye4 = torch.eye(4, dtype=D.dtype, device=D.device)
+    D_full = (D[:, :, :, None, :] * eye4[:, None, :, None]).reshape(n, 12, 12)
+    bottom = torch.cat([B.transpose(-1, -2).reshape(n, 12, 6), D_full], dim=-1)
+    return torch.cat([top, bottom], dim=1)
+
+
+def mass_matrix(model: Go1Model, q: torch.Tensor) -> torch.Tensor:
+    """Dense (N,18,18) M(q) assembled from the star-topology blocks (for
+    tests and the contact oracle; the dynamics solve with the blocks)."""
+    return _dense_mass_matrix(*mass_matrix_blocks(model, q)[:3])
+
+
+def kinetic_energy(model: Go1Model, state: RobotState) -> torch.Tensor:
+    """½ uᵀ M(q) u per lane, (N,)."""
+    _, u = _generalized_velocity(state)
+    return 0.5 * (u * _matvec(mass_matrix(model, state.q), u)).sum(-1)
+
+
+def potential_energy(model: Go1Model, state: RobotState) -> torch.Tensor:
+    """-m g · com_world summed over the bodies, (N,)."""
+    fk = leg_fk_base(model, state.q)
+    R = sp.quat_to_mat(state.quat)
+    # trunk COM from its spatial inertia: I[0:3,3:6] = m c×
+    mcx = model.trunk_inertia6[:, :3, 3:]
+    c_trunk = torch.stack([mcx[:, 2, 1], mcx[:, 0, 2], mcx[:, 1, 0]],
+                          dim=-1) / model.trunk_mass[:, None]
+    coms_b = fk["o"] + _matvec(fk["R"], model.leg_coms)           # (N,4,3,3)
+    coms_w = state.pos[:, None, None] + coms_b @ R.transpose(-1, -2)[:, None]
+    trunk_w = state.pos + _matvec(R, c_trunk)
+    pe = -model.trunk_mass * (trunk_w * model.gravity).sum(-1)
+    return pe - (model.leg_masses * _matvec(coms_w, model.gravity)).sum(dim=(1, 2))
+
+
+def inverse_dynamics(model: Go1Model, state: RobotState, a0: torch.Tensor,
+                     qdd: torch.Tensor) -> torch.Tensor:
+    """Generalized forces M [a0; qdd] + h for given accelerations (RNEA,
+    full), (N,18). Test oracle: ID(FD(tau)) == tau_gen."""
+    R, u = _generalized_velocity(state)
+    A, B, D, fk, s = mass_matrix_blocks(model, state.q)
+    h = bias_forces(model, R, u, fk, s)
+    return _matvec(_dense_mass_matrix(A, B, D), torch.cat([a0, qdd], dim=-1)) + h

@@ -55,6 +55,15 @@ def spring_torque(q, qd, stiffness3, damping3, rest_angles3, engage_sign):
     return torch.where(engaged, tau, torch.zeros_like(tau))
 
 
+def spring_energy(q, stiffness3, rest_angles3, engage_sign):
+    """Elastic energy ½ k (q - q̄)² of the engaged springs, (..., 12) (the
+    reference monitor's spring-energy plot)."""
+    k12 = torch.tile(stiffness3, (4,))
+    r12 = torch.tile(rest_angles3, (4,))
+    engaged = engage_sign * (q - r12) >= 0.0
+    return torch.where(engaged, 0.5 * k12 * (q - r12) ** 2, torch.zeros_like(q))
+
+
 def _check_actuation_primals(q_des, q, qd, kp, kd, torque_limits, spring_k, spring_b,
                              rest_angles3, engage_sign):
     n, dev = q.shape[0], q.device

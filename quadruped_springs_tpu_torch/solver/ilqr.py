@@ -99,9 +99,14 @@ def _solve(A, rhs):
 
 
 def _gershgorin_min(M):
-    """Gershgorin lower bound on the smallest eigenvalue of (...,m,m) M."""
+    """Gershgorin lower bound on the smallest eigenvalue of (...,m,m) M.
+
+    The row sums run over a contiguous copy: Q_uu's strides follow the
+    batch size, and a reduction sums in an order set by the strides, so
+    without it one problem's bound (and so its solve) would depend in the
+    last bits on how many problems share the batch."""
     diag = torch.diagonal(M, dim1=-2, dim2=-1)
-    offdiag = M.abs().sum(-1) - diag.abs()
+    offdiag = M.abs().contiguous().sum(-1) - diag.abs()
     return (diag - offdiag).min(dim=-1).values
 
 

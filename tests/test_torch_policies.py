@@ -9,6 +9,7 @@ package.
 """
 
 import ast
+import importlib
 import json
 import os
 from pathlib import Path
@@ -125,6 +126,14 @@ def test_the_port_imports_nothing_of_jax_or_the_jax_package():
     bad = [(str(f.relative_to(ROOT)), m) for f in files for m in _imports(f)
            if m.split(".")[0] in banned]
     assert not bad, bad
+    # the walk covers the scale-out and utility modules, and they import
+    walked = {str(f.relative_to(ROOT / "quadruped_springs_tpu_torch")) for f in files[:-1]}
+    for name in ("graft_entry", "parallel/mesh", "parallel/scenarios", "parallel/riccati",
+                 "utils/verification", "utils/lcp_oracle", "utils/monitor", "utils/render",
+                 "utils/camera", "utils/profiling", "utils/sanitize", "utils/timer",
+                 "utils/registry"):
+        assert f"{name}.py" in walked, name
+        importlib.import_module("quadruped_springs_tpu_torch." + name.replace("/", "."))
     # the check sees an import where there is one
     assert "jax" in set(_imports(Path(__file__)))
 
