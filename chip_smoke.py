@@ -10,12 +10,20 @@ Phases (any failure raises, so the script exits non-zero):
   3. hold each kernel against its plain PyTorch twin on the card at the
      planner's shape (32,768 lanes), on seeded inputs plus hand-placed edge
      cases, to |kernel - twin| <= 1e-5·(1 + |twin|) (FMA contraction is the
-     only expected difference), and time both with CUDA events;
+     only expected difference), and time both with CUDA events; the bf16
+     variants of `actuation` and `contact` (the latter at the relaxed
+     model's constants and at the bf16 full-rate knot's 180,224 N/m) against
+     their plain versions (the f32 twin on the upcast inputs, rounded) to
+     that bound plus one bf16 ulp of |twin|;
   4. drive the port's headline solve (quadruped_springs_tpu_torch.bench at
      full width: 1024 scenarios x 32 samples, H=50, 10 iterations, fused
      accept), check that every final cost is finite and that the mean lies
      within 3% of the JAX reference's -70.98, and that each kernel launched
-     exactly once per planner substep the solves executed;
+     exactly once per planner substep the solves executed; print bench.py's
+     eight-key line; then the full-rate row (bench --full-rate --horizon
+     25 at the same width, 10 substeps per knot at 180 kN/m): finite costs,
+     the mean final cost within 3% of JAX's FULL_RATE_REFERENCE_COST,
+     `actuation` and `contact` launched 2,750 times per solve;
   5. hold every kernel of the environment's path against its twin at the
      environment's shapes and constants, to the bound of phase 3, and time
      both: the anchored contact kernel at 1024 environments x 12 sites
@@ -38,26 +46,32 @@ Phases (any failure raises, so the script exits non-zero):
      GROUND_RANDOMIZER environments (default 2500-substep settle, crouch
      30 steps, then extend for up to 120): every environment jumps higher
      than 0.2 m and switches to its landing controller;
-  8. hold the two tangent kernels (`actuation_jvp`, `contact_jvp`) against
-     torch.func.jvp of the plain versions at the shape of one block of the
-     iLQR linearization (5,120 lanes, T = 43 tangent directions), on seeded
-     inputs plus hand-placed lanes on both sides of every branch, to the
-     bound of phase 3 widened by CANCEL_TOL x the magnitude of the terms a
-     tangent sums (they cancel), `contact_jvp` with the damping clamp off
-     and on, and time both; time an empty kernel (the card's launch floor);
+  8. hold the two tangent kernels (`actuation_jvp`, `contact_jvp`) and
+     their bf16 variants against torch.func.jvp of the plain versions at the
+     shape of one block of the iLQR linearization (5,120 lanes, T = 43
+     tangent directions), on seeded inputs plus hand-placed lanes on both
+     sides of every branch, to the bound of phase 3 widened by CANCEL_TOL x
+     the magnitude of the terms a tangent sums (they cancel; bf16: plus one
+     bf16 ulp), `contact_jvp` with the damping clamp off and on, and time
+     them; time an empty kernel (the card's launch floor);
   9. the 37x43 Jacobians of one planner knot at 64 states of a rollout
      (stance, push-off, flight), through the kernels on the card and through
      the plain versions on the CPU, to JAC_TOL of each knot's max |J|;
- 10. drive the full-width iLQR solve (quadruped_springs_tpu_torch.bench
+ 10. drive both full-width iLQR rows (quadruped_springs_tpu_torch.bench
      --ilqr: 1024 scenarios, H=50, 10 iterations, 8 line-search candidates):
-     every final cost finite, every problem's cost trace non-increasing, the
-     mean final cost at least ILQR_MARGIN below the warm start's mean cost,
-     each of the four kernels launched exactly as often as the solve's
-     substeps say, no host sync in a full-width rollout plus iteration;
-     print solves/s and the seconds per stage;
- 11. closed-loop MPC (quadruped_springs_tpu_torch.closed_loop): iLQR plans
-     on the relaxed model executed on the 1 kHz environment for
-     LOOP_KNOTS knots: finite, the robot leaves the ground, launches exact;
+     --exact (float32 Jacobians every iteration) and the default (Jacobians
+     of the bf16 knot, relinearized every 3rd iteration). Each: every final
+     cost finite, every problem's cost trace non-increasing, the mean final
+     cost at least ILQR_MARGIN below the warm start's mean cost, each kernel
+     launched exactly as often as the solve's substeps say (the bf16 row's
+     linearization through the four bf16 variants); the exact row makes no
+     host sync in a full-width rollout plus iteration; print solves/s, the
+     seconds per stage and the bf16 row's gap to the exact row's cost;
+ 11. closed-loop MPC (quadruped_springs_tpu_torch.closed_loop) at the JAX
+     loop's defaults, LOOP_KNOTS knots, a solve every LOOP_REPLAN, executed
+     by closed_loop.execute_knot (the JAX loop's 1 kHz executor): iLQR on
+     the relaxed model, then MPPI on the execution-rate model (--full-rate);
+     each finite, airborne at some knot, launches exact;
  12. after every timed path (the profiler stays attached to the process once
      it has run): torch.profiler's time of each kernel on the card alone
      (`device_ms`, beside the CUDA-event time of a call through its Python
@@ -113,22 +127,35 @@ Phases (any failure raises, so the script exits non-zero):
      0 diverged, finite costs, no scenario above its warm start's cost, the
      mean cost SHARDED_MARGIN below the warm start's, launches exact,
      solves/s printed; then the first GAP_ROWS scenarios solved again as one
-     batch and as batches of GAP_BLOCK, their gap printed and their cost
-     traces non-increasing; then sharded_lqt_backward on the Go1 sizes
-     (H=50, n=37, m=6) against riccati_sequential and _parallel_lqt_backward
-     at the tolerances of tests/test_riccati_sharded.py.
-Phase 11 also holds the closed loop to the transfer band of the JAX gate
-(executed apex > 0.45 m, within 10% of the planned one).
-Against the first form of this script, phase 4 times 1 solve (was 3) and
-phase 6 runs 1 segment (was 3): the first cut of each made room for phases
-8-11, the second for phase 18's second look at 8 of its scenarios (about
-90 s of small, host-bound solves), which would have taken the script past
-800 s on a slow host; phase 7's landing episodes are the next cut. Phases
-13-18 run before phase 12 (the profiler's). The whole takes about 550-800 s
-on an NVIDIA H100 80GB HBM3 at 700 W, some 200 s of it the six replays of
-phase 13, 45-60 s the four train_steps, 50-60 s phase 16, 80-95 s phase 17
-and 130-140 s phase 18: all of them bound by the host's launches, so fewer
-lanes would save nothing.
+     batch and as batches of GAP_BLOCK (one spawned process each: host-bound
+     small solves), their cost traces non-increasing, and once more with the
+     last row's start NaN, which must leave the other rows bitwise as they
+     were; rows 0-GAP_ROWS-1 must be bitwise equal across
+     the 1,024-row sharded solve, the 8-row solve and the 2-row solves
+     (costs, us, cost traces), and every stage of the per-stage probe (the
+     knot, the line search's knot, the knot's 43 tangents, the cost
+     derivatives, the backward sweep, its Cholesky solve, the line search's
+     feedback) must read 0 at 1,024 and 8 rows against 2; then the
+     headline's MPPI solve (GAP_MPPI_ITERATIONS iterations) with its draws
+     given, rows 0-GAP_ROWS-1 bitwise equal at 1,024, 8 and 2 rows (costs,
+     us, states, cost traces); then sharded_lqt_backward on the Go1 sizes (H=50, n=37, m=6) against
+     riccati_sequential and _parallel_lqt_backward at the tolerances of
+     tests/test_riccati_sharded.py.
+Phase 11 also holds both loops to the transfer band of the JAX gate
+(executed apex > 0.45 m, upright, within LOOP_BAND of the largest planned
+apex; the JAX package's own loops meet 10% on the CPU).
+Cuts of depth, against the first form of this script: phase 4 times 1
+solve (was 3) and phase 6 runs 1 segment (was 3), to make room for phases
+8-11 and then for phase 18's second look at 8 of its scenarios; phase 7
+settles its environments for EPISODE_SETTLE substeps (the env's default is
+2,500), to make room for phase 4's full-rate row, phase 10's bf16 row and
+phase 11's full-rate loop. The host-bound runs of phases 11, 13, 16 and 17
+(the two loops, the six replays, the six oracle traces, the transfer gate)
+go at once in HOST_PROCESSES spawned processes on the one card, after the
+kernel checks of phases 13, 16 and 17, and phase 18's six small solves one
+process each. Phases 13-18 run before phase 12 (the profiler's). Most phases are bound by
+the host's launches, so fewer lanes would save nothing; PERF.md section 5
+gives each phase's time on the card.
 The line before the last is a JSON object of per-kernel results; the last
 line is {"ok": true, "device": {...}}.
 """
@@ -143,6 +170,11 @@ import time
 import warnings
 
 REFERENCE_COST = -70.98          # JAX MPPI headline mean final cost (BENCH_r05.json)
+# JAX's mean final cost of the full-rate row (`python bench.py --cpu
+# --full-rate --horizon 25 --batch 256`: 1,888 s on an 8-core CPU shared with
+# other jobs; at the bench's 1024 scenarios the run would take about two
+# hours there, so it was taken at 256)
+FULL_RATE_REFERENCE_COST, FULL_RATE_HORIZON = -63.96, 25
 COST_BAND = 0.03                 # ±3%: the bf16-sample path's -66.7 falls outside
 BATCH, SAMPLES, HORIZON, ITERATIONS = 1024, 32, 50, 10
 TIMED_RUNS = 1
@@ -157,6 +189,9 @@ ENVS, ENV_STEPS, ENV_SEGMENTS, ENV_SETTLE = 1024, 100, 1, 600
 # replaced crept ~4 cm/s. 1 mm per 1 s segment separates the two 40-fold.
 CREEP_BOUND = 1e-3
 EPISODE_ENVS, EPISODE_LEN = 64, 3.0   # episode cut to 3 s (the jump ends by ~1 s)
+# the settle before the episodes, cut from the env's 2,500 substeps to
+# env_bench's 600 (every environment stands after it, phase 6)
+EPISODE_SETTLE = 600
 N_TANGENTS = 43                  # n + m basis tangents of the linearization
 ILQR_ALPHAS, ILQR_TIMED_RUNS = 8, 1
 JAC_STATES = 64
@@ -167,7 +202,11 @@ JAC_TOL = 3e-5
 # NVIDIA H100 80GB HBM3 (700 W) dropped it by ILQR_FIRST_DROP
 ILQR_FIRST_DROP = 46.1808        # -17.7552 -> -63.9360
 ILQR_MARGIN = 40.0
-LOOP_KNOTS, LOOP_REPLAN, LOOP_HORIZON, LOOP_ITERATIONS, LOOP_ALPHAS = 30, 5, 20, 4, 4
+# the JAX loop's defaults (examples/run_closed_loop_mpc.py): 40 knots, a
+# solve every 5; the band of tests/test_transfer.py's closed-loop gate on
+# the executed against the largest planned apex, for both loops
+LOOP_KNOTS, LOOP_REPLAN = 40, 5
+LOOP_BAND = 0.10
 REPLAY_LANES = 64
 TRAIN_STEPS = 1                  # timed train_steps per trainer, after train_bench's warm-up
 # lane counts at which the learning stack launches the env's kernels, and the
@@ -181,6 +220,8 @@ ADAPTER_LANES, ADAPTER_KNOTS = 64, 20
 # phase 16 and 17 run the environment's kernels at 1 and 2 lanes; their
 # checks build the hand-placed regimes on SMALL_INPUT_LANES lanes
 FIDELITY_LANES, SMALL_INPUT_LANES = (1, 2), 8
+# phases 11, 13, 16 and 17 run their host-bound paths in this many processes
+HOST_PROCESSES = 8
 ORACLE_TRACES = [("JUMPING_IN_PLACE", True), ("JUMPING_FORWARD", True), ("BACKFLIP", True),
                  ("CONTINUOUS_JUMPING_FORWARD", True), ("JUMPING_IN_PLACE", False),
                  ("JUMPING_FORWARD", False)]
@@ -190,10 +231,12 @@ SHARDED_BATCH = 1024             # one card's share of BASELINE config 5 (4,096 
 # (-424.6240 -> -2,666.2908)
 SHARDED_MARGIN = 2000.0
 # phase 18 solves the first GAP_ROWS scenarios again, as one batch and as
-# batches of GAP_BLOCK, and prints how far the answers part; and once more as
+# batches of GAP_BLOCK, which must give the answers bitwise; and once more as
 # one batch with the last row's start NaN, which must leave the others as
-# they were
-GAP_ROWS, GAP_BLOCK = 8, 2
+# they were. The MPPI batch check runs the headline's solve with
+# GAP_MPPI_ITERATIONS iterations (10 in the headline: every op of the solve
+# runs in each iteration, and the host's launches set the time)
+GAP_ROWS, GAP_BLOCK, GAP_MPPI_ITERATIONS = 8, 2, 3
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA's data sheet
 F32_FLOPS_PER_S = 67e12          # float32 outside the tensor cores
 # float32 operations per (lane, motor or site[, tangent]), from the kernels' source
@@ -252,31 +295,46 @@ def roofline(name, elems, inputs, outputs):
             "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
 
 
+def bf16_ulp(torch, x):
+    """One bfloat16 ulp at |x| (8 significant bits): 2^(e - 8) for
+    |x| = m·2^e, 0.5 <= m < 1."""
+    return torch.ldexp(torch.ones_like(x), torch.frexp(x)[1] - 8)
+
+
 def max_err(torch, got, want, name, term_scale=None):
     """Max |got - want|; raises unless within REL_TOL·(1 + |want|) everywhere.
     `term_scale`, the summed magnitudes of the terms an output adds up, widens
     the bound by CANCEL_TOL·term_scale: where the terms cancel, kernel and
-    plain version each carry the rounding of the terms, not of their sum."""
+    plain version each carry the rounding of the terms, not of their sum.
+    bfloat16 outputs (a bf16 variant against its plain version, both f32
+    arithmetic rounded to bf16 once) get one bf16 ulp of |want| more: an f32
+    difference within the bound can straddle a bf16 rounding boundary."""
     if got.dtype == torch.bool:
         if not torch.equal(got, want):
             raise AssertionError(f"{name}: boolean outputs differ")
         return 0.0
+    bf16 = want.dtype == torch.bfloat16
+    got, want = got.float(), want.float()
     err = (got - want).abs()
     bound = REL_TOL * (1.0 + want.abs())
     if term_scale is not None:
         bound = bound + CANCEL_TOL * term_scale
+    if bf16:
+        bound = bound + bf16_ulp(torch, want.abs())
     if not bool(torch.all(err <= bound)):
         raise AssertionError(f"{name}: max |kernel - twin| {float(err.max())} exceeds "
-                             f"{REL_TOL}·(1+|twin|)")
+                             f"{REL_TOL}·(1+|twin|)" + (" + 1 bf16 ulp" if bf16 else ""))
     return float(err.max())
 
 
-def check_actuation(torch, act, owner, n, kp=None, kd=None, lanes=None):
+def check_actuation(torch, act, owner, n, kp=None, kd=None, lanes=None,
+                    dtype=None):
     """The `actuation` kernel against its twin at n lanes with owner's (an
     MPCProblem's or a QuadrupedEnv's) config, limits and spring signs;
     kp, kd: (12,) gains, the motor gains by default. `lanes` < n launches the
     kernel on consecutive blocks of that many lanes (times and bound: one
-    launch)."""
+    launch). `dtype` bfloat16: every argument cast to it, the bf16 variant
+    against act.actuation_plain (the f32 twin, rounded)."""
     cfg = owner.cfg
     kp = cfg.motor_kp if kp is None else kp
     kd = cfg.motor_kd if kd is None else kd
@@ -295,16 +353,15 @@ def check_actuation(torch, act, owner, n, kp=None, kd=None, lanes=None):
     q[1] = rest12
     qd[1] = 0.0
     q_des[2] = q[2] + 10.0             # saturate the torque clip
+    full = tuple(t.to(dtype or torch.float32).contiguous() for t in (
+        q_des, q, qd, kp, kd, cfg.torque_limits, spring_k, spring_b,
+        cfg.spring_rest_angles, owner.engage_sign))
 
     def args(i=0, m=n):
         s = slice(i, i + m)
-        return (q_des[s], q[s], qd[s], kp, kd, cfg.torque_limits, spring_k[s], spring_b[s],
-                cfg.spring_rest_angles, owner.engage_sign)
+        return tuple(t[s] if k in (0, 1, 2, 6, 7) else t for k, t in enumerate(full))
 
-    def twin():
-        tau_m = act.pd_torque(q_des, q, qd, kp, kd, cfg.torque_limits)
-        return tau_m + act.spring_torque(q, qd, spring_k, spring_b,
-                                         cfg.spring_rest_angles, owner.engage_sign), tau_m
+    twin = lambda: act.actuation_plain(*full)
 
     one = lambda: act.actuation_torque(*args(0, lanes))
     got, want = launch_blocks(torch, lambda i: act.actuation_torque(*args(i, lanes)), n,
@@ -324,10 +381,11 @@ def launch_blocks(torch, launch, n, lanes):
     return tuple(torch.cat(parts) for parts in zip(*outs))
 
 
-def check_contact(torch, dyn, model, n, kn, dn, lanes=None):
+def check_contact(torch, dyn, model, n, kn, dn, lanes=None, dtype=None):
     """The memoryless `contact` kernel against its twin at n lanes x 12
     sites with normal stiffness kn and damping dn, clamp on and off;
-    `lanes` as in check_actuation."""
+    `lanes` and `dtype` as in check_actuation (bf16: the twin is
+    contact_forces_plain on the bf16 inputs, the f32 law rounded)."""
     lanes = n if lanes is None else lanes
     gen = torch.Generator("cuda").manual_seed(12)
     phi = 0.02 * torch.rand((n, 12), generator=gen, device="cuda") - 0.01
@@ -340,10 +398,11 @@ def check_contact(torch, dyn, model, n, kn, dn, lanes=None):
     v_w[3, :, :2] = 0.0
     v_w[4, :, 0], v_w[4, :, 1] = 0.0199, 0.0   # just below v_tol = 0.02
     v_w[5, :, 0], v_w[5, :, 1] = 0.0, 0.0201   # just above
+    phi, v_w, mu = (t.to(dtype or torch.float32) for t in (phi, v_w, mu))
     # the wrapper takes site heights: with zero radii, φ = -z exactly
     p_w = torch.zeros_like(v_w)
     p_w[..., 2] = -phi
-    radii = torch.zeros(12, device="cuda")
+    radii = torch.zeros(12, dtype=phi.dtype, device="cuda")
     results = {}
     for clamp in (False, True):
         params = dyn.SimParams(contact_stiffness=kn, contact_damping=dn, friction=mu,
@@ -498,10 +557,11 @@ def check_learning_widths(torch, act, dyn, model, landing_gains):
     return checks
 
 
-def check_actuation_jvp(torch, act, prob, n):
+def check_actuation_jvp(torch, act, prob, n, dtype=None):
     """Phase 8: the `actuation_jvp` kernel (the total torque's tangent)
-    against torch.func.jvp of pd_torque + spring_torque at n lanes x
-    N_TANGENTS directions."""
+    against torch.func.jvp of act.actuation_plain at n lanes x N_TANGENTS
+    directions; `dtype` bfloat16: every argument cast to it (the branch
+    lanes are checked on the f32 twin at the cast inputs)."""
     cfg = prob.cfg
     gen = torch.Generator("cuda").manual_seed(21)
     randn = lambda *s: torch.randn(s, generator=gen, device="cuda")
@@ -516,31 +576,34 @@ def check_actuation_jvp(torch, act, prob, n):
     q_des[4], qd[4] = q[4] + 0.01, 0.0             # well inside the clip
     spring_k = cfg.spring_stiffness * (0.9 + 0.2 * rand(n, 3))
     spring_b = cfg.spring_damping * (0.9 + 0.2 * rand(n, 3))
-    constants = (cfg.motor_kp, cfg.motor_kd, cfg.torque_limits, spring_k, spring_b,
-                 cfg.spring_rest_angles, prob.engage_sign)
-    primals = (q_des, q, qd)
-    tangents = tuple(randn(N_TANGENTS, n, 12) for _ in range(3))
+    dt = dtype or torch.float32
+    constants = tuple(t.to(dt).contiguous() for t in (
+        cfg.motor_kp, cfg.motor_kd, cfg.torque_limits, spring_k, spring_b,
+        cfg.spring_rest_angles, prob.engage_sign))
+    primals = tuple(t.to(dt) for t in (q_des, q, qd))
+    tangents = tuple(randn(N_TANGENTS, n, 12).to(dt) for _ in range(3))
 
-    def plain_fn(a, b, c):
-        tau_m = act.pd_torque(a, b, c, *constants[:3])
-        return tau_m + act.spring_torque(b, c, *constants[3:]), tau_m
+    def jvp_of(fn, primals, tangents, constants):
+        return torch.func.vmap(lambda a, b, c: torch.func.jvp(
+            lambda *p: fn(*p, *constants), primals, (a, b, c))[1])(*tangents)
 
     kernel = lambda: act._launch_actuation_jvp(*primals, *constants, *tangents)
-    plain_both = lambda: torch.func.vmap(
-        lambda a, b, c: torch.func.jvp(plain_fn, primals, (a, b, c))[1])(*tangents)
-    plain = lambda: torch.func.vmap(       # what the kernel computes: dtau alone
-        lambda a, b, c: torch.func.jvp(lambda *p: plain_fn(*p)[0], primals,
-                                       (a, b, c))[1])(*tangents)
-    got, want = kernel(), plain_both()
+    # what the kernel computes: the total torque's tangent alone
+    plain = lambda: jvp_of(lambda *a: act.actuation_plain(*a)[0], primals, tangents,
+                           constants)
+    got, want = kernel(), plain()
+    up = lambda ts: tuple(t.float() for t in ts)
+    regime = jvp_of(act.actuation_plain, up(primals), up(tangents), up(constants))
     torch.cuda.synchronize()
-    if not (bool((want[1][:, 2:4] == 0).all()) and bool((want[1][:, 4] != 0).all())
-            and bool(((want[0] - want[1])[:, :2] != 0).any())
-            and bool(((want[0] - want[1])[:, :2] == 0).any())):
+    if not (bool((regime[1][:, 2:4] == 0).all()) and bool((regime[1][:, 4] != 0).all())
+            and bool(((regime[0] - regime[1])[:, :2] != 0).any())
+            and bool(((regime[0] - regime[1])[:, :2] == 0).any())):
         raise AssertionError("actuation_jvp edge lanes not in the intended regimes")
-    k12, b12 = (torch.tile(t, (1, 4)) for t in (spring_k, spring_b))
-    d_des, d_q, d_qd = (t.abs() for t in tangents)
-    terms = (cfg.motor_kp * (d_q + d_des) + cfg.motor_kd * d_qd + k12 * d_q + b12 * d_qd)
-    return {"max_abs_err": max_err(torch, got, want[0], "actuation_jvp dtau", terms),
+    kp, kd, _, k3, b3 = (t.float() for t in constants[:5])
+    k12, b12 = (torch.tile(t, (1, 4)) for t in (k3, b3))
+    d_des, d_q, d_qd = (t.float().abs() for t in tangents)
+    terms = kp * (d_q + d_des) + kd * d_qd + k12 * d_q + b12 * d_qd
+    return {"max_abs_err": max_err(torch, got, want, "actuation_jvp dtau", terms),
             "ms": cuda_time_ms(torch, kernel),
             "profile": (kernel, "actuation_jvp_kernel"),
             "plain_ms": cuda_time_ms(torch, plain, reps=5),
@@ -548,10 +611,11 @@ def check_actuation_jvp(torch, act, prob, n):
                        (*primals, *constants, *tangents), (got,))}
 
 
-def check_contact_jvp(torch, dyn, n):
+def check_contact_jvp(torch, dyn, n, dtype=None):
     """Phase 8: the `contact_jvp` kernel against torch.func.jvp of
     contact_forces_plain at n lanes x 12 sites x N_TANGENTS directions, at
-    the planner's constants, with the damping clamp off and on."""
+    the planner's constants, with the damping clamp off and on; `dtype` as
+    in check_actuation_jvp."""
     gen = torch.Generator("cuda").manual_seed(22)
     kn, dn, v_tol = 4000.0, 40.0, 0.02
     phi = 0.02 * torch.rand((n, 12), generator=gen, device="cuda") - 0.01
@@ -575,6 +639,10 @@ def check_contact_jvp(torch, dyn, n):
     # the tangent is -scale x (dv_t less its component along v_t)
     dv[:, 7, :, :2] *= 1e-4
     dphi[:, 8], dv[:, 8, :, 2] = 0.0, 0.0
+    dt = dtype or torch.float32
+    phi, v_w, mu, dphi, dv = (t.to(dt).float() for t in (phi, v_w, mu, dphi, dv))
+    # in the storage type: what the kernel and its plain version take
+    phi_s, v_s, mu_s, dphi_s, dv_s = (t.to(dt) for t in (phi, v_w, mu, dphi, dv))
     # the friction tangent is -(dscale·v_t + scale·dv_t) with scale = μ·fn/den
     # and dscale = (μ·dfn - scale·dden)/den: magnitudes of those terms
     vt = v_w[..., :2].norm(dim=-1)
@@ -589,12 +657,16 @@ def check_contact_jvp(torch, dyn, n):
     results = {}
     for clamp in (False, True):
         consts = (kn, dn, v_tol, clamp)
-        plain_fn = lambda p, v: dyn.contact_forces_plain(p, v, mu, *consts)[0]
-        kernel = lambda consts=consts: dyn._launch_contact_jvp(phi, v_w, mu, dphi, dv,
-                                                               *consts)
-        plain = lambda: torch.func.vmap(
-            lambda a, b: torch.func.jvp(plain_fn, (phi, v_w), (a, b))[1])(dphi, dv)
-        got, want = kernel(), plain()
+        plain_fn = lambda p, v, mu=mu: dyn.contact_forces_plain(p, v, mu, *consts)[0]
+        kernel = lambda consts=consts: dyn._launch_contact_jvp(phi_s, v_s, mu_s, dphi_s,
+                                                               dv_s, *consts)
+        jvp_of = lambda fn, p, v, dp, dv: torch.func.vmap(
+            lambda a, b: torch.func.jvp(fn, (p, v), (a, b))[1])(dp, dv)
+        plain = lambda plain_fn=plain_fn: jvp_of(lambda p, v: plain_fn(p, v, mu_s), phi_s,
+                                                 v_s, dphi_s, dv_s)
+        got, want_s = kernel(), plain()
+        # the branch lanes, checked on the f32 twin at the (cast) inputs
+        want = jvp_of(plain_fn, phi, v_w, dphi, dv)
         torch.cuda.synchronize()
         dead = 1 if clamp else 3           # the lane whose force stays 0
         scale_dv = (mu[:, None] * 5e-3 * kn / 5.0 * dv[..., :2].norm(dim=-1))[:, 7]
@@ -608,12 +680,13 @@ def check_contact_jvp(torch, dyn, n):
                 and bool((want[:, 8, :, :2] != 0).any())):
             raise AssertionError("contact_jvp edge lanes not in the intended regimes")
         results[clamp] = {
-            "max_abs_err": max_err(torch, got, want, f"contact_jvp clamp={clamp}",
+            "max_abs_err": max_err(torch, got, want_s, f"contact_jvp clamp={clamp}",
                                    friction_terms(plain_fn(phi, v_w), want)),
             "ms": cuda_time_ms(torch, kernel),
             "profile": (kernel, "contact_jvp_kernel"),
             "plain_ms": cuda_time_ms(torch, plain, reps=5),
-            **roofline("contact_jvp", dphi.numel(), (phi, v_w, mu, dphi, dv), (got,))}
+            **roofline("contact_jvp", dphi.numel(), (phi_s, v_s, mu_s, dphi_s, dv_s),
+                       (got,))}
     return results
 
 
@@ -647,24 +720,65 @@ def check_linearization(torch, ilqr, MPCConfig, MPCProblem):
           f"max |J| {float(scale.min()):.1f}-{float(scale.max()):.1f}", flush=True)
 
 
-def run_ilqr_solve(torch, bench, ilqr, act, dyn, kind):
-    """Phase 10: the full-width iLQR solve."""
+def run_full_rate(torch, bench, act, dyn, kind):
+    """Phase 4, second row: bench --full-rate --horizon 25 at full width
+    (1024 scenarios x 32 samples, 10 iterations) on the execution-rate model:
+    finite costs, the mean final cost within COST_BAND of the JAX bench's at
+    the same configuration, `actuation` and `contact` launched once per
+    substep: 2,750 per solve (11 rollouts x 25 knots x 10 substeps)."""
     reset_counts(act, dyn)
-    rec = bench.run(batch=BATCH, horizon=HORIZON, iterations=ITERATIONS,
-                    runs=ILQR_TIMED_RUNS, device="cuda", ilqr=True)
+    rec = bench.run(batch=BATCH, horizon=FULL_RATE_HORIZON, iterations=ITERATIONS,
+                    samples=SAMPLES, runs=TIMED_RUNS, device="cuda", full_rate=True)
     torch.cuda.synchronize()
     counts = read_counts(act, dyn)
+    if not bool(torch.isfinite(rec["costs"]).all()):
+        raise AssertionError("phase 4: non-finite final costs in the full-rate solve")
+    per_solve = (ITERATIONS + 1) * FULL_RATE_HORIZON * 10
+    substeps = rec["solves"] * per_solve
+    check_counts(counts, {"actuation": substeps, "contact": substeps, "contact_anchored": 0,
+                          "actuation_jvp": 0, "contact_jvp": 0,
+                          **dict.fromkeys(BF16_KERNELS, 0)}, 4)
+    mean_cost = rec["mean_final_cost"]
+    lo, hi = sorted((FULL_RATE_REFERENCE_COST * (1 - COST_BAND),
+                     FULL_RATE_REFERENCE_COST * (1 + COST_BAND)))
+    if not lo <= mean_cost <= hi:
+        raise AssertionError(f"phase 4: full-rate mean final cost {mean_cost} outside "
+                             f"[{lo:.2f}, {hi:.2f}]")
+    print(f"phase 4: {rec['solves']} full-rate solves (H={FULL_RATE_HORIZON}, 10 substeps "
+          f"per knot at 180 kN/m, clamp on) ran {per_solve} substeps each; mean final cost "
+          f"{mean_cost:.4f} (band [{lo:.2f}, {hi:.2f}]); {rec['value']:.2f} solves/s on "
+          f"{kind}; launches {counts}", flush=True)
+    print(json.dumps({"bench_full_rate": bench.line(rec)}))
+    return counts
+
+
+def check_ilqr_record(rec, phase):
+    """The guards of an iLQR row: finite final costs, non-increasing cost
+    traces, the mean final cost ILQR_MARGIN below the warm start's."""
     sol = rec["solution"]
-    if not bool(torch.isfinite(sol.cost).all()):
-        raise AssertionError("phase 10: non-finite final costs")
+    if not bool(sol.cost.isfinite().all()):
+        raise AssertionError(f"phase {phase}: non-finite final costs")
     if sol.cost_trace.shape != (BATCH, ITERATIONS) or bool(
             (sol.cost_trace[:, 1:] > sol.cost_trace[:, :-1]).any()):
-        raise AssertionError("phase 10: a cost trace increases")
-    warm = rec["warm_start_mean_cost"]
-    drop = warm - rec["mean_final_cost"]
+        raise AssertionError(f"phase {phase}: a cost trace increases")
+    drop = rec["warm_start_mean_cost"] - rec["mean_final_cost"]
     if not drop > ILQR_MARGIN:
-        raise AssertionError(f"phase 10: mean final cost {rec['mean_final_cost']} is not "
-                             f"{ILQR_MARGIN} below the warm start's {warm}")
+        raise AssertionError(f"phase {phase}: mean final cost {rec['mean_final_cost']} is "
+                             f"not {ILQR_MARGIN} below the warm start's "
+                             f"{rec['warm_start_mean_cost']}")
+    return drop
+
+
+def run_ilqr_solve(torch, bench, ilqr, act, dyn, kind):
+    """Phase 10: the full-width iLQR solve, exact float32 (bench --ilqr
+    --exact). Returns the launches and the mean final cost."""
+    reset_counts(act, dyn)
+    rec = bench.run(batch=BATCH, horizon=HORIZON, iterations=ITERATIONS,
+                    runs=ILQR_TIMED_RUNS, device="cuda", ilqr=True, exact=True)
+    torch.cuda.synchronize()
+    counts = read_counts(act, dyn)
+    drop = check_ilqr_record(rec, 10)
+    warm = rec["warm_start_mean_cost"]
     prob, x0, u0, scenarios = rec["problem"]
     S = prob.config.solver_substeps
     blocks = -(-HORIZON // ilqr.linearization_blocks(BATCH, HORIZON, N_TANGENTS))
@@ -673,7 +787,8 @@ def run_ilqr_solve(torch, bench, ilqr, act, dyn, kind):
     primal = S * (HORIZON + rec["solves"] * (HORIZON + ITERATIONS * (blocks + HORIZON)))
     tangent = rec["solves"] * S * ITERATIONS * blocks
     check_counts(counts, {"actuation": primal, "contact": primal, "actuation_jvp": tangent,
-                          "contact_jvp": tangent, "contact_anchored": 0}, 10)
+                          "contact_jvp": tangent, "contact_anchored": 0,
+                          **dict.fromkeys(BF16_KERNELS, 0)}, 10)
     # the same full-width problem, its rollout and one whole iteration, under
     # the sync debug mode (no stage clock: reading its events is the one sync
     # a timed solve makes, after the last iteration)
@@ -681,67 +796,178 @@ def run_ilqr_solve(torch, bench, ilqr, act, dyn, kind):
     syncs, where = count_syncs(torch, lambda: ilqr.solve_batched(
         prob.lane_dynamics(scenarios), prob.stage_cost, prob.terminal_cost, x0, u0, one))
     stages = rec["stage_times"]
-    print(f"phase 10: {rec['solves']} full-width iLQR solves ({BATCH} scenarios, H={HORIZON}, "
-          f"{ITERATIONS} iterations, {ILQR_ALPHAS} alphas, {blocks} linearization blocks per "
-          f"iteration): {rec['value']:.3f} solves/s on {kind}; mean cost "
-          f"{warm:.4f} -> {rec['mean_final_cost']:.4f} (drop {drop:.4f}, "
-          f"margin {ILQR_MARGIN}, first run {ILQR_FIRST_DROP}); launches {counts}; host "
-          f"syncs in a full-width rollout plus iteration: {syncs}; peak memory "
+    print(f"phase 10: {rec['solves']} full-width exact iLQR solves ({BATCH} scenarios, "
+          f"H={HORIZON}, {ITERATIONS} iterations, {ILQR_ALPHAS} alphas, {blocks} "
+          f"linearization blocks per iteration): {rec['value']:.3f} solves/s on {kind}; mean "
+          f"cost {warm:.4f} -> {rec['mean_final_cost']:.4f} (drop {drop:.4f}, margin "
+          f"{ILQR_MARGIN}, first run {ILQR_FIRST_DROP}); launches {counts}; host syncs in a "
+          f"full-width rollout plus iteration: {syncs}; peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
-    print(json.dumps({"ilqr_bench": {**{k: rec[k] for k in
-                                        ("metric", "value", "unit", "mean_final_cost",
-                                         "warm_start_mean_cost")},
+    print(json.dumps({"ilqr_bench": {**bench.line(rec), "warm_start_mean_cost": warm,
                                      "stage_seconds_last_solve": stages}}))
     if syncs:
         raise AssertionError(f"phase 10: an iteration synchronised the host {syncs} "
                              f"times: {where}")
+    return counts, rec["mean_final_cost"]
+
+
+def run_ilqr_bf16(torch, bench, ilqr, act, dyn, kind, exact_cost):
+    """Phase 10, second row: the JAX bench's default iLQR row (bench --ilqr):
+    Jacobians of the bf16 knot, relinearized every ILQR_RELIN_EVERY-th
+    iteration, at full width; held to the guards of the exact row, the four
+    bf16 variants launched once per substep of each linearization block."""
+    reset_counts(act, dyn)
+    rec = bench.run(batch=BATCH, horizon=HORIZON, iterations=ITERATIONS,
+                    runs=ILQR_TIMED_RUNS, device="cuda", ilqr=True)
+    torch.cuda.synchronize()
+    counts = read_counts(act, dyn)
+    drop = check_ilqr_record(rec, 10)
+    prob = rec["problem"][0]
+    S, relin = prob.config.solver_substeps, prob.config.relin_every
+    blocks = -(-HORIZON // ilqr.linearization_blocks(BATCH, HORIZON, N_TANGENTS))
+    primal = S * (HORIZON + rec["solves"] * (HORIZON + ITERATIONS * HORIZON))
+    lin = rec["solves"] * S * blocks * -(-ITERATIONS // relin)
+    check_counts(counts, {"actuation": primal, "contact": primal, "actuation_jvp": 0,
+                          "contact_jvp": 0, "contact_anchored": 0,
+                          **dict.fromkeys(BF16_KERNELS, lin)}, 10)
+    gap = (rec["mean_final_cost"] - exact_cost) / abs(exact_cost)
+    print(f"phase 10: {rec['solves']} full-width iLQR solves, bf16 linearization "
+          f"relinearized every {relin}: {rec['value']:.3f} solves/s on {kind}; mean cost "
+          f"{rec['warm_start_mean_cost']:.4f} -> {rec['mean_final_cost']:.4f} (drop "
+          f"{drop:.4f}, margin {ILQR_MARGIN}); {gap:+.2%} of the exact row's "
+          f"{exact_cost:.4f}; launches {counts}", flush=True)
+    print(json.dumps({"ilqr_bench_bf16": {
+        **bench.line(rec), "warm_start_mean_cost": rec["warm_start_mean_cost"],
+        "gap_to_exact": gap, "stage_seconds_last_solve": rec["stage_times"]}}))
     return counts
 
 
-def run_closed_loop(torch, closed_loop, act, dyn, kind):
-    """Phase 11: receding-horizon iLQR on the 1 kHz environment."""
+def _closed_loop_worker(full_rate):
+    """Phase 11, in a process of its own: one closed loop on the card.
+    Returns its record, the kernels' launches and the wall time."""
+    import torch
+
+    from quadruped_springs_tpu_torch import closed_loop
+    from quadruped_springs_tpu_torch.models import dynamics as dyn
+    from quadruped_springs_tpu_torch.ops import actuation as act
+
+    torch.backends.cuda.matmul.allow_tf32 = False
     reset_counts(act, dyn)
     t0 = time.perf_counter()
-    out = closed_loop.run(LOOP_KNOTS, LOOP_REPLAN, LOOP_HORIZON, LOOP_ITERATIONS,
-                          LOOP_ALPHAS, device="cuda")
+    out = closed_loop.run(LOOP_KNOTS, LOOP_REPLAN, device="cuda", full_rate=full_rate)
     torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    counts = read_counts(act, dyn)
-    if not (out["finite"] and out["upright"] and out["airborne_knots"] > 0
-            and out["executed_apex_m"] > 0.45):
-        raise AssertionError(f"phase 11: the closed loop did not jump: {out}")
+    return {"out": out, "launches": read_counts(act, dyn),
+            "seconds": time.perf_counter() - t0}
+
+
+def check_closed_loop(res, kind, full_rate):
+    """Phase 11: receding-horizon MPC executed on the stiff 1 kHz simulator
+    (closed_loop.execute_knot, the JAX loop's executor), at the JAX loop's
+    defaults: iLQR on the relaxed model or, with full_rate, MPPI on the
+    execution-rate model; held to the bars of tests/test_transfer.py's
+    closed-loop gate."""
+    from quadruped_springs_tpu_torch import closed_loop
+
+    out, counts, wall = res["out"], res["launches"], res["seconds"]
+    name = "full-rate MPPI" if full_rate else "iLQR"
     planned, executed = out["planned_apex_max_m"], out["executed_apex_m"]
-    if not abs(planned - executed) < 0.10 * planned:
-        raise AssertionError(f"phase 11: executed apex {executed} m is not within 10% of "
-                             f"the planned {planned} m")
-    S = 2                                    # substeps of the relaxed planner knot
-    per_solve = S * (LOOP_HORIZON + LOOP_ITERATIONS * (1 + LOOP_HORIZON))
-    planner, env = out["solves"] * per_solve, 10 * LOOP_KNOTS
-    check_counts(counts, {"actuation": planner + env, "contact": planner + 1,
-                          "actuation_jvp": out["solves"] * S * LOOP_ITERATIONS,
-                          "contact_jvp": out["solves"] * S * LOOP_ITERATIONS,
-                          "contact_anchored": env}, 11)
-    print(f"phase 11: closed loop of {LOOP_KNOTS} knots, {out['solves']} solves (H="
-          f"{LOOP_HORIZON}, {LOOP_ITERATIONS} iterations) in {wall:.2f} s on {kind}: planned "
-          f"apex {out['planned_apex_max_m']:.3f} m, executed {out['executed_apex_m']:.3f} m, "
-          f"airborne for {out['airborne_knots']} knots; launches {counts}", flush=True)
+    if not (out["finite"] and out["upright"] and out["airborne_knots"] > 0
+            and executed > 0.45 and abs(planned - executed) < LOOP_BAND * planned):
+        raise AssertionError(f"phase 11: the {name} loop misses the closed-loop gate "
+                             f"(executed apex > 0.45 m, upright, within {LOOP_BAND:.0%} of the "
+                             f"planned {planned} m): {out}")
+    H, its = (closed_loop.FULL_RATE_HORIZON if full_rate else 20), 4
+    if full_rate:
+        per_solve, tangent = (its + 1) * H * 10, 0
+    else:
+        per_solve, tangent = 2 * (H + its * (1 + H)), out["solves"] * 2 * its
+    primal = out["solves"] * per_solve + closed_loop.EXEC_SUBSTEPS * LOOP_KNOTS
+    check_counts(counts, {"actuation": primal, "contact": primal, "actuation_jvp": tangent,
+                          "contact_jvp": tangent, "contact_anchored": 0,
+                          **dict.fromkeys(BF16_KERNELS, 0)}, 11)
+    print(f"phase 11: {name} closed loop ({out['planner']}) of {LOOP_KNOTS} knots, "
+          f"{out['solves']} solves (H={H}, {its} iterations) in {wall:.2f} s on {kind}: "
+          f"planned apex {planned:.3f} m, executed {executed:.3f} m "
+          f"({(executed - planned) / planned:+.1%}, band {LOOP_BAND:.0%}), final height "
+          f"{out['final_z_m']:.3f} m, airborne for {out['airborne_knots']} knots; "
+          f"launches {counts}", flush=True)
+    print(json.dumps({"closed_loop_full_rate" if full_rate else "closed_loop": out}))
     return counts
+
+
+def _replay_worker(name):
+    """Phase 13, in a process of its own: one behaviour's replay on the card.
+    Returns its record, the kernels' launches, the launches its resets and
+    env steps call for, and the wall time."""
+    import torch
+
+    from quadruped_springs_tpu_torch import policy_replay
+    from quadruped_springs_tpu_torch.env.env import QuadrupedEnv
+    from quadruped_springs_tpu_torch.models import dynamics as dyn
+    from quadruped_springs_tpu_torch.ops import actuation as act
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    reset_counts(act, dyn)
+    t0 = time.perf_counter()
+    with EnvCalls(QuadrupedEnv) as calls:
+        rec = policy_replay.BEHAVIORS[name](lanes=REPLAY_LANES, device="cuda")
+    torch.cuda.synchronize()
+    return {"record": rec, "launches": read_counts(act, dyn), "want": calls.launches(),
+            "resets": calls.resets, "steps": calls.steps,
+            "seconds": time.perf_counter() - t0}
+
+
+def run_host_bound_paths(policy_replay, kind):
+    """Phases 11, 13, 16 and 17 at once: the two closed loops, the replays of
+    the committed policies, the six oracle traces and the transfer gate are
+    bound by the host's launches, so they run as HOST_PROCESSES spawned
+    processes on the one card, the longest first. Each process counts its
+    own kernels' launches."""
+    from quadruped_springs_tpu_torch.runtime import trajstore
+
+    trajstore.library()              # build the store once, before the workers read it
+    replays = list(policy_replay.BEHAVIORS)
+    jobs = ([(_closed_loop_worker, True), (_transfer_gate_worker, None),
+             (_closed_loop_worker, False)] + [(_replay_worker, n) for n in replays]
+            + [(_oracle_trace_worker, job) for job in ORACLE_TRACES])
+    t0 = time.perf_counter()
+    with multiprocessing.get_context("spawn").Pool(HOST_PROCESSES) as pool:
+        pending = [pool.apply_async(fn, (arg,)) for fn, arg in jobs]
+        results = [r.get() for r in pending]
+    wall = time.perf_counter() - t0
+    print(f"phases 11, 13, 16 and 17: {len(jobs)} host-bound paths in {wall:.2f} s "
+          f"({HOST_PROCESSES} processes on one card)", flush=True)
+    by_path = {"closed_loop_full_rate": check_closed_loop(results[0], kind, True),
+               "closed_loop": check_closed_loop(results[2], kind, False)}
+    k = 3 + len(replays)
+    by_path.update(check_replays(dict(zip(replays, results[3:k])), policy_replay, kind))
+    by_path["oracle_gate"] = check_oracle_gate(results[k:], kind)
+    by_path["transfer_gate"] = check_transfer_gate(results[1], kind)
+    return by_path
+
+
+# kernel name -> (wrapper, its launch counter)
+COUNTERS = {"actuation": ("act", "launches"), "contact": ("dyn", "launches"),
+            "contact_anchored": ("dyn", "anchored_launches"),
+            "actuation_jvp": ("act", "jvp_launches"), "contact_jvp": ("dyn", "jvp_launches"),
+            "actuation_bf16": ("act", "bf16_launches"), "contact_bf16": ("dyn", "bf16_launches"),
+            "actuation_jvp_bf16": ("act", "bf16_jvp_launches"),
+            "contact_jvp_bf16": ("dyn", "bf16_jvp_launches")}
+BF16_KERNELS = ("actuation_bf16", "contact_bf16", "actuation_jvp_bf16", "contact_jvp_bf16")
+
+
+def _counter_owner(act, dyn, which):
+    return act.actuation_torque if which == "act" else dyn.contact_forces
 
 
 def reset_counts(act, dyn):
-    act.actuation_torque.launches = 0
-    act.actuation_torque.jvp_launches = 0
-    dyn.contact_forces.launches = 0
-    dyn.contact_forces.jvp_launches = 0
-    dyn.contact_forces.anchored_launches = 0
+    for which, attr in COUNTERS.values():
+        setattr(_counter_owner(act, dyn, which), attr, 0)
 
 
 def read_counts(act, dyn):
-    return {"actuation": act.actuation_torque.launches,
-            "contact": dyn.contact_forces.launches,
-            "contact_anchored": dyn.contact_forces.anchored_launches,
-            "actuation_jvp": act.actuation_torque.jvp_launches,
-            "contact_jvp": dyn.contact_forces.jvp_launches}
+    return {name: getattr(_counter_owner(act, dyn, which), attr)
+            for name, (which, attr) in COUNTERS.items()}
 
 
 def check_counts(counts, want, phase):
@@ -832,7 +1058,8 @@ def run_landing_episode(torch, act, dyn, kind):
                                  action_space_mode="SYMMETRIC", task_env="JUMPING_IN_PLACE",
                                  observation_space_mode="ARS_BASIC",
                                  env_randomizer_mode="GROUND_RANDOMIZER",
-                                 max_ep_len=EPISODE_LEN), device="cuda")
+                                 max_ep_len=EPISODE_LEN, settling_steps=EPISODE_SETTLE),
+                       device="cuda")
     steps = [0]
     env_step = env.step
 
@@ -911,25 +1138,19 @@ class EnvCalls:
                 "actuation_jvp": 0, "contact_jvp": 0}
 
 
-def run_replay(torch, policy_replay, env_cls, act, dyn, kind):
+def check_replays(results, policy_replay, kind):
     """Phase 13: the committed policies, held to the JAX gates' bars."""
     by_path, records = {}, {}
-    for name, fn in policy_replay.BEHAVIORS.items():
-        reset_counts(act, dyn)
-        t0 = time.perf_counter()
-        with EnvCalls(env_cls) as calls:
-            rec = fn(lanes=REPLAY_LANES, device="cuda")
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        counts = read_counts(act, dyn)
-        check_counts(counts, calls.launches(), 13)
+    for name, res in results.items():
+        rec, counts, wall = res["record"], res["launches"], res["seconds"]
+        check_counts(counts, res["want"], 13)
         by_path[f"replay_{name}"], records[name] = counts, rec
         lists = {k: v for k, v in rec.items() if isinstance(v, list) and k != "ok"}
         failing = [{"lane": i, **{k: v[i] for k, v in lists.items()}}
                    for i, ok in enumerate(rec["ok"]) if not ok]
         print(f"phase 13: {name}: {rec['passed']}/{rec['lanes']} lanes meet the bars "
-              f"{rec['bars']} in {wall:.2f} s on {kind} ({calls.resets} resets, "
-              f"{calls.steps} env steps; launches {counts})"
+              f"{rec['bars']} in {wall:.2f} s on {kind} ({res['resets']} resets, "
+              f"{res['steps']} env steps; launches {counts})"
               + (f"; failing lanes: {failing}" if failing else ""), flush=True)
     # which lanes decide: for the launch policy that the JAX package gates on
     # one friction, the gate's own scenario (lane 0) and every lane whose
@@ -1145,21 +1366,12 @@ def _oracle_trace_worker(job):
             "substeps": env.config.settling_steps + env.config.action_repeat * report["steps"]}
 
 
-def run_oracle_gate(kind):
+def check_oracle_gate(results, kind):
     """Phase 16: the six committed oracle traces through the port, each at
     its real size (fidelity_env, the 2,500-substep settle, every control
     step), one lane each, held to the gate of tests/test_golden_trace.py.
-    The six replays are bound by the host's launches, so they run at once,
-    one process each (ORACLE_TRACES), on the one card."""
-    from quadruped_springs_tpu_torch.runtime import trajstore
-
-    trajstore.library()              # build the store once, before the workers read it
-    t0 = time.perf_counter()
-    with multiprocessing.get_context("spawn").Pool(len(ORACLE_TRACES)) as pool:
-        results = pool.map(_oracle_trace_worker, ORACLE_TRACES)
-    wall = time.perf_counter() - t0
-    total = dict.fromkeys(("actuation", "contact", "contact_anchored", "actuation_jvp",
-                           "contact_jvp"), 0)
+    `results` are _oracle_trace_worker's, in the order of ORACLE_TRACES."""
+    total = dict.fromkeys(COUNTERS, 0)
     failed = []
     for (task, springs), res in zip(ORACLE_TRACES, results):
         r, sub = res["report"], res["substeps"]
@@ -1188,8 +1400,7 @@ def run_oracle_gate(kind):
         task.lower() + ("" if springs else "_nospring"): {
             k: v for k, v in res["report"].items() if k not in ("gate", "tolerances")}
         for (task, springs), res in zip(ORACLE_TRACES, results)}}))
-    print(f"phase 16: {len(ORACLE_TRACES)} oracle traces in {wall:.2f} s ({len(ORACLE_TRACES)} "
-          f"processes on one card); launches {total}", flush=True)
+    print(f"phase 16: {len(ORACLE_TRACES)} oracle traces; launches {total}", flush=True)
     if failed:
         raise AssertionError(f"phase 16: the oracle gate fails on {failed}")
     return total
@@ -1209,17 +1420,23 @@ def check_transfer_block(torch, act, dyn, ilqr, prob):
     return checks
 
 
-def run_transfer_gate(torch, act, dyn, ilqr, kind):
-    """Phase 17: tests/test_transfer.py's open-loop gate. One MPPI plan and
-    one iLQR plan (H = 50, 10 iterations; iLQR with 8 alphas) on the relaxed
-    planner model from the settled state of fidelity_env, executed through
-    record_golden_trace as two lanes of one fidelity_env (one settle): both
-    planned and executed apexes above 0.45 m, within 25% of each other, the
-    robot upright at the end."""
-    from quadruped_springs_tpu_torch.solver import mppi
+def _transfer_gate_worker(_):
+    """Phase 17, in a process of its own: tests/test_transfer.py's open-loop
+    gate. One MPPI plan and one iLQR plan (H = 50, 10 iterations; iLQR with 8
+    alphas) on the relaxed planner model from the settled state of
+    fidelity_env, executed through record_golden_trace as two lanes of one
+    fidelity_env (one settle). Returns per plan the planned and executed
+    apex, the final height and tilt; the kernels' launches and the launches
+    the plans and the replay call for; the wall time."""
+    import torch
+
+    from quadruped_springs_tpu_torch.models import dynamics as dyn
+    from quadruped_springs_tpu_torch.ops import actuation as act
+    from quadruped_springs_tpu_torch.solver import ilqr, mppi
     from quadruped_springs_tpu_torch.solver.mpc import MPCConfig, MPCProblem, state_to_vec
     from quadruped_springs_tpu_torch.utils import verification as V
 
+    torch.backends.cuda.matmul.allow_tf32 = False
     reset_counts(act, dyn)
     t0 = time.perf_counter()
     prob = MPCProblem(MPCConfig(task="JUMPING_IN_PLACE", horizon=HORIZON, iterations=ITERATIONS,
@@ -1236,33 +1453,42 @@ def run_transfer_gate(torch, act, dyn, ilqr, kind):
     rows = V.record_golden_trace(env, actions, torch.Generator("cuda").manual_seed(2))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = read_counts(act, dyn)
     S, settle = prob.config.solver_substeps, env.config.settling_steps
     mppi_sub = S * HORIZON * (2 + 2 * ITERATIONS)     # first, 2 per iteration, last
     blocks = -(-HORIZON // ilqr.linearization_blocks(1, HORIZON, N_TANGENTS))
     ilqr_sub = S * (HORIZON + ITERATIONS * (blocks + HORIZON))
     env_sub = 2 * settle + 10 * HORIZON
-    check_counts(counts, {"actuation": env_sub + mppi_sub + ilqr_sub, "contact_anchored": env_sub,
-                          "contact": 2 + mppi_sub + ilqr_sub,
-                          "actuation_jvp": S * ITERATIONS * blocks,
-                          "contact_jvp": S * ITERATIONS * blocks}, 17)
-    out, failed = {}, []
+    want = {"actuation": env_sub + mppi_sub + ilqr_sub, "contact_anchored": env_sub,
+            "contact": 2 + mppi_sub + ilqr_sub, "actuation_jvp": S * ITERATIONS * blocks,
+            "contact_jvp": S * ITERATIONS * blocks}
+    out = {}
     for lane, (name, sol) in enumerate(plans.items()):
         xs = sol.xs[0] if name == "mppi" else sol.xs
         got = V.split_trace(rows[lane].cpu().numpy(), env.action_dim)
-        planned, executed = float(xs[:, 2].max()), float(got["pos"][:, 2].max())
-        z_end, tilt = float(got["pos"][-1, 2]), float(abs(got["quat"][-1, 0])
-                                                     + abs(got["quat"][-1, 1]))
-        out[name] = {"planned_apex_m": planned, "executed_apex_m": executed,
-                     "final_z_m": z_end, "final_tilt": tilt}
+        out[name] = {"planned_apex_m": float(xs[:, 2].max()),
+                     "executed_apex_m": float(got["pos"][:, 2].max()),
+                     "final_z_m": float(got["pos"][-1, 2]),
+                     "final_tilt": float(abs(got["quat"][-1, 0]) + abs(got["quat"][-1, 1]))}
+    return {"out": out, "launches": read_counts(act, dyn), "want": want, "seconds": wall}
+
+
+def check_transfer_gate(res, kind):
+    """Phase 17: both planned and executed apexes above 0.45 m, within 25% of
+    each other, the robot upright at the end; launches exact."""
+    out, counts = res["out"], res["launches"]
+    check_counts(counts, res["want"], 17)
+    failed = []
+    for name, r in out.items():
+        planned, executed = r["planned_apex_m"], r["executed_apex_m"]
+        z_end, tilt = r["final_z_m"], r["final_tilt"]
         if not (planned > 0.45 and executed > 0.45
                 and abs(planned - executed) < 0.25 * planned and z_end > 0.15 and tilt < 0.5):
             failed.append(name)
         print(f"phase 17: {name} plan: planned apex {planned:.3f} m, executed {executed:.3f} m "
               f"({(executed - planned) / planned:+.1%}), final height {z_end:.3f} m, "
               f"|qx|+|qy| {tilt:.4f}", flush=True)
-    print(f"phase 17: the transfer gate in {wall:.2f} s on {kind} (reset, both plans, one "
-          f"2-lane replay); launches {counts}", flush=True)
+    print(f"phase 17: the transfer gate in {res['seconds']:.2f} s on {kind} (reset, both "
+          f"plans, one 2-lane replay); launches {counts}", flush=True)
     print(json.dumps({"transfer_gate": out}))
     if failed:
         raise AssertionError(f"phase 17: the transfer gate fails for {failed}: {out}")
@@ -1281,17 +1507,16 @@ def random_lq(torch, gen, H, n, m):
 
 
 def batch_rounding_probe(torch, ilqr, prob, rows):
-    """Phase 18: which stage of an iLQR solve rounds differently in a batch
-    of GAP_ROWS problems and in one of GAP_BLOCK on the card. Each stage
-    runs on identical inputs at both sizes; max |d| over the first GAP_BLOCK
+    """Phase 18: every stage of an iLQR solve, on identical inputs, in
+    batches of SHARDED_BATCH, GAP_ROWS and GAP_BLOCK problems; per stage and
+    batch size, max |d| against the smallest batch over its GAP_BLOCK
     problems (0: bitwise equal). rows(a, b) gives (x0s, u0s, scenarios) of
-    problems a..b."""
-    def gap(f, big, small, axis=0):
-        a, b = f(*big), f(*small)
-        return float((a.narrow(axis, 0, GAP_BLOCK) - b).abs().max())
+    problems a..b. The backward sweep and its Cholesky solve run on seeded
+    inputs of the Go1 problem's shapes."""
+    from quadruped_springs_tpu_torch.models import spatial as sp
 
-    big, small = rows(0, GAP_ROWS), rows(0, GAP_BLOCK)
-    n = big[0].shape[-1]
+    sizes = (SHARDED_BATCH, GAP_ROWS)
+    n, m = 37, prob.action_dim
 
     def knot(x0, u0, scen, lanes=1):      # lanes per problem: 1 rollout, alphas search
         x = x0[:, None].expand(-1, lanes, -1).contiguous()
@@ -1301,31 +1526,130 @@ def batch_rounding_probe(torch, ilqr, prob, rows):
     def tangents(x0, u0, scen):          # the knot's basis tangents: one linearization
         f = prob.lane_dynamics(scen)
         z = torch.cat([x0, u0[:, 0]], dim=-1)[:, None]
-        return ilqr._basis_jvp(lambda z: f(z[..., :n], z[..., n:]), z)[1]
+        return ilqr._basis_jvp(lambda z: f(z[..., :n], z[..., n:]), z)[1].movedim(1, 0)
 
-    out = {"knot": gap(knot, big, small),
-           "knot_line_search": gap(lambda *a: knot(*a, lanes=ILQR_ALPHAS), big, small),
-           "knot_tangents": gap(tangents, big, small, axis=1)}
-    # the backward sweep's batched linear algebra, on seeded inputs of its
-    # shapes and layouts (a knot's slice of (P, H, ...) blocks)
+    def cost_derivatives(x0, u0, scen):  # the stage cost's gradient and Hessian
+        z = torch.cat([knot(x0, u0, scen)[:, 0], u0[:, 0]], dim=-1)[:, None]
+        t = torch.zeros(1, dtype=torch.long, device=z.device)
+        g = lambda z: torch.func.grad(
+            lambda z: prob.stage_cost(z[..., :n], z[..., n:], t).sum())(z)
+        return torch.cat([a.reshape(z.shape[0], -1) for a in (
+            g(z), ilqr._basis_jvp(g, z)[1].movedim(1, 0))], dim=-1)
+
     gen = torch.Generator("cuda").manual_seed(7)
     r = lambda *s: torch.randn(s, generator=gen, device="cuda")
-    m = prob.action_dim
-    A, B = r(GAP_ROWS, HORIZON, n, n)[:, 7], r(GAP_ROWS, HORIZON, n, m)[:, 7]
-    V, W, rhs = r(GAP_ROWS, n, n), r(GAP_ROWS, m, m), r(GAP_ROWS, m, n + 1)
-    Q = W @ W.transpose(-1, -2) + m * torch.eye(m, device="cuda")
-    L = torch.linalg.cholesky_ex(Q)[0]
-    t = lambda M: M.transpose(-1, -2)
-    ops = {"matmul A^T V A": (lambda A, V: t(A) @ V @ A, (A, V)),
-           "matmul B^T V B": (lambda B, V: t(B) @ V @ B, (B, V)),
-           "cholesky_ex": (lambda Q: torch.linalg.cholesky_ex(Q)[0], (Q,)),
-           "cholesky_solve": (torch.cholesky_solve, (rhs, L)),
-           "solve_ex": (lambda A, V: ilqr._solve(A @ t(A) + torch.eye(n, device="cuda"), V),
-                        (A, V)),
-           "gershgorin_min": (ilqr._gershgorin_min, (Q,))}
-    for name, (f, args) in ops.items():
-        out[name] = gap(f, args, tuple(a[:GAP_BLOCK] for a in args))
+    P, H = SHARDED_BATCH, 8
+    eye_n, eye_m = torch.eye(n, device="cuda"), torch.eye(m, device="cuda")
+    W, V, Vt = r(P, H, m, m), r(P, H, n, n), r(P, n, n)
+    lq = (0.9 * eye_n + 0.1 * r(P, H, n, n) / n, r(P, H, n, m) / n,   # A, B
+          r(P, H, n), r(P, H, m),                                      # lx, lu
+          V @ V.transpose(-1, -2) / n + eye_n,                         # lxx
+          W @ W.transpose(-1, -2) + m * eye_m,                         # luu
+          0.1 * r(P, H, m, n),                                         # lux
+          r(P, n), Vt @ Vt.transpose(-1, -2) / n + eye_n,              # Vx, Vxx
+          torch.full((P,), 1e-3, device="cuda"))                       # reg
+    rhs, dX = r(P, m, n + 1), r(P, ILQR_ALPHAS, n)
+    cfg = ilqr.ILQRConfig(H)
+    sweep = lambda k: torch.cat([a.reshape(k, -1).float() for a in ilqr.riccati_sequential(
+        *(a[:k] for a in lq), cfg)], dim=-1)
+    chol = lambda k: ilqr._chol_solve(lq[5][:k, 0], rhs[:k])[0]
+    feedback = lambda k: sp.mv(lq[6][:k, None, 0], dX[:k])
+    stages = {"knot": lambda k: knot(*rows(0, k)),
+              "knot_line_search": lambda k: knot(*rows(0, k), lanes=ILQR_ALPHAS),
+              "knot_tangents": lambda k: tangents(*rows(0, k)),
+              "cost_derivatives": lambda k: cost_derivatives(*rows(0, k)),
+              "riccati_sequential": sweep, "cholesky_solve": chol,
+              "line_search_feedback": feedback}
+    out = {}
+    for name, f in stages.items():
+        ref = f(GAP_BLOCK)
+        out[name] = {k: float((f(k)[:GAP_BLOCK] - ref).abs().max()) for k in sizes}
     return out
+
+
+def check_mppi_batching(torch):
+    """Phase 18: the headline's MPPI solve (JUMPING_IN_PLACE on the relaxed
+    model, BATCH TEST_RANDOMIZER scenarios, K = SAMPLES, H = HORIZON, fused
+    accept; GAP_MPPI_ITERATIONS iterations) with its standard-normal draws
+    given, then its first GAP_ROWS rows as one batch and in batches of
+    GAP_BLOCK with the same rows' draws: costs, controls, states and cost
+    traces must be bitwise equal. Returns max |d| per batching and field."""
+    from quadruped_springs_tpu_torch.env import randomizers as rnd
+    from quadruped_springs_tpu_torch.env.env import take
+    from quadruped_springs_tpu_torch.solver.mppi import MPPIConfig
+    from quadruped_springs_tpu_torch.solver.mpc import MPCConfig, MPCProblem
+
+    prob = MPCProblem(MPCConfig(task="JUMPING_IN_PLACE", horizon=HORIZON,
+                                iterations=GAP_MPPI_ITERATIONS), "cuda")
+    cfg = MPPIConfig(horizon=HORIZON, iterations=GAP_MPPI_ITERATIONS, n_samples=SAMPLES,
+                     fused_accept=True)
+    scen = rnd.sample_scenario(prob.cfg, "TEST_RANDOMIZER",
+                               torch.Generator("cuda").manual_seed(0), n=BATCH)
+    x0 = prob.default_x0().expand(BATCH, -1)
+    u0 = prob.task_warm_start().expand(BATCH, -1, -1)
+    noise = torch.randn((GAP_MPPI_ITERATIONS, BATCH, SAMPLES, HORIZON, prob.action_dim),
+                        generator=torch.Generator("cuda").manual_seed(1), device="cuda")
+    fields = ("cost", "us", "xs", "cost_trace")
+
+    def solve(a, b):
+        sol = prob.solve_mppi(x0[a:b], u0[a:b], config=cfg, noise=noise[:, a:b],
+                              scenario=take(scen, torch.arange(a, b, device="cuda")))
+        return {k: getattr(sol, k) for k in fields}
+
+    t0 = time.perf_counter()
+    full, whole = solve(0, BATCH), solve(0, GAP_ROWS)
+    split = [solve(i, i + GAP_BLOCK) for i in range(0, GAP_ROWS, GAP_BLOCK)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if not bool(torch.isfinite(full["cost"]).all()):
+        raise AssertionError("phase 18: a non-finite MPPI cost")
+    gap = {}
+    for name, sol in ((str(BATCH), full), (f"{GAP_ROWS // GAP_BLOCK} x {GAP_BLOCK}", None)):
+        for k in fields:
+            got = (torch.cat([b[k] for b in split]) if sol is None else sol[k][:GAP_ROWS])
+            gap[f"mppi {name} {k}"] = float((got - whole[k]).abs().max())
+    print(f"phase 18: MPPI (the headline's problem, {GAP_MPPI_ITERATIONS} iterations) rows "
+          f"0-{GAP_ROWS - 1} solved in batches of {BATCH}, {GAP_ROWS} and {GAP_BLOCK} with "
+          f"the same draws: max |d| against the {GAP_ROWS}-row solve {gap} (0: bitwise "
+          f"equal; {wall:.2f} s)", flush=True)
+    moved = [k for k, v in gap.items() if v != 0.0]
+    if moved:
+        raise AssertionError(f"phase 18: the MPPI answer depends on the batch size: {moved}")
+    return gap
+
+
+def _sharded_problem(torch):
+    """Phase 18's problem and scenarios: BACKFLIP (H=50, 10 iterations, 8
+    alphas) on SHARDED_BATCH TEST_RANDOMIZER scenarios drawn from seed 0,
+    with their starts and warm starts."""
+    from quadruped_springs_tpu_torch.parallel.scenarios import sample_scenario_batch
+    from quadruped_springs_tpu_torch.solver.mpc import MPCConfig, MPCProblem
+
+    prob = MPCProblem(MPCConfig(task="BACKFLIP", horizon=HORIZON, iterations=ITERATIONS,
+                                n_alphas=ILQR_ALPHAS), "cuda")
+    scenarios = sample_scenario_batch(prob.cfg, "TEST_RANDOMIZER",
+                                      torch.Generator("cuda").manual_seed(0), SHARDED_BATCH)
+    x0s = prob.default_x0().expand(SHARDED_BATCH, -1)
+    u0s = prob.task_warm_start().expand(SHARDED_BATCH, -1, -1)
+    return prob, x0s, u0s, scenarios
+
+
+def _small_solve_worker(job):
+    """Phase 18, in a process of its own: rows a..b of phase 18's problem
+    solved as one batch (with the last row's start NaN when asked). Returns
+    the costs, controls and cost traces on the CPU."""
+    import torch
+
+    from quadruped_springs_tpu_torch.env.env import take
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    a, b, nan_last = job
+    prob, x0s, u0s, scenarios = _sharded_problem(torch)
+    x0 = x0s[a:b].clone()
+    if nan_last:
+        x0[-1] = float("nan")
+    sol = prob.solve_batch(x0, u0s[a:b], take(scenarios, torch.arange(a, b, device="cuda")))
+    return {k: getattr(sol, k).cpu() for k in ("cost", "us", "cost_trace")}
 
 
 def run_sharded(torch, act, dyn, ilqr, kind):
@@ -1333,36 +1657,37 @@ def run_sharded(torch, act, dyn, ilqr, kind):
     sharded_solve of SHARDED_BATCH BACKFLIP TEST_RANDOMIZER scenarios (H = 50,
     10 iterations, 8 alphas: one card's share of BASELINE config 5) and its
     global statistics; the first GAP_ROWS of them solved again as one batch
-    and in batches of GAP_BLOCK (the gap between the two, and their cost
-    traces); then sharded_lqt_backward on the Go1 problem's sizes against
-    the port's sequential and single-device parallel sweeps."""
+    and in batches of GAP_BLOCK, one process each, all three batchings
+    bitwise equal, and the per-stage probe; then sharded_lqt_backward on the
+    Go1 problem's sizes against the port's sequential and single-device
+    parallel sweeps."""
     import torch.distributed as dist
 
     from quadruped_springs_tpu_torch.env.env import take
     from quadruped_springs_tpu_torch.parallel import mesh as pmesh
     from quadruped_springs_tpu_torch.parallel.riccati import sharded_lqt_backward
-    from quadruped_springs_tpu_torch.parallel.scenarios import (
-        global_stats, sample_scenario_batch, sharded_solve)
-    from quadruped_springs_tpu_torch.solver.mpc import MPCConfig, MPCProblem
+    from quadruped_springs_tpu_torch.parallel.scenarios import global_stats, sharded_solve
     from quadruped_springs_tpu_torch.utils import profiling, sanitize
 
     pmesh.init_distributed()
     backend, mesh = dist.get_backend(), pmesh.scenario_mesh("cuda")
-    prob = MPCProblem(MPCConfig(task="BACKFLIP", horizon=HORIZON, iterations=ITERATIONS,
-                                n_alphas=ILQR_ALPHAS), "cuda")
-    scenarios = sample_scenario_batch(prob.cfg, "TEST_RANDOMIZER",
-                                      torch.Generator("cuda").manual_seed(0), SHARDED_BATCH)
-    x0s = prob.default_x0().expand(SHARDED_BATCH, -1)
-    u0s = prob.task_warm_start().expand(SHARDED_BATCH, -1, -1)
+    prob, x0s, u0s, scenarios = _sharded_problem(torch)
     warm = ilqr.solve_batched(prob.lane_dynamics(scenarios), prob.stage_cost,
                               prob.terminal_cost, x0s, u0s,
                               dataclasses.replace(prob.ilqr_config, iterations=0)).cost
     torch.cuda.synchronize()
     reset_counts(act, dyn)
     t0 = time.perf_counter()
-    with profiling.annotate("sharded_solve"):
-        us, costs, diverged = sharded_solve(prob, x0s, u0s, scenarios, mesh)
-        stats = global_stats(costs, diverged, mesh)
+    # keep the solution sharded_solve computes (its cost traces) for the
+    # batch-size check below
+    solved, solve_batch = [], prob.solve_batch
+    prob.solve_batch = lambda *a, **k: solved.append(solve_batch(*a, **k)) or solved[-1]
+    try:
+        with profiling.annotate("sharded_solve"):
+            us, costs, diverged = sharded_solve(prob, x0s, u0s, scenarios, mesh)
+            stats = global_stats(costs, diverged, mesh)
+    finally:
+        del prob.solve_batch
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = read_counts(act, dyn)
@@ -1392,44 +1717,51 @@ def run_sharded(torch, act, dyn, ilqr, kind):
         raise AssertionError(f"phase 18: the mean cost dropped by {drop}, not {SHARDED_MARGIN}")
 
     # the first GAP_ROWS scenarios again, as one batch and as batches of
-    # GAP_BLOCK: how far a problem's answer depends on its batch's size
+    # GAP_BLOCK: a problem's answer must not depend on its batch's size
     rows = lambda a, b: (x0s[a:b], u0s[a:b], take(scenarios, torch.arange(a, b, device="cuda")))
+    # the small solves are bound by the host's launches: one process each
+    # (the same problem and scenarios, rebuilt from the same seed), and once
+    # more with the last row's start NaN, which must leave the others as they
+    # were
+    jobs = [(0, GAP_ROWS, False)] + [(i, i + GAP_BLOCK, False)
+                                     for i in range(0, GAP_ROWS, GAP_BLOCK)]
+    jobs.append((0, GAP_ROWS, True))
     t0 = time.perf_counter()
-    whole = prob.solve_batch(*rows(0, GAP_ROWS))
-    split = [prob.solve_batch(*rows(i, i + GAP_BLOCK)) for i in range(0, GAP_ROWS, GAP_BLOCK)]
-    # and with the last row's start NaN: every other row must stay bitwise
-    x0_nan, u0_head, scen_head = rows(0, GAP_ROWS)
-    x0_nan = x0_nan.clone()
-    x0_nan[-1] = float("nan")
-    probe = prob.solve_batch(x0_nan, u0_head, scen_head)
-    torch.cuda.synchronize()
+    with multiprocessing.get_context("spawn").Pool(len(jobs)) as pool:
+        sols = pool.map(_small_solve_worker, jobs)
     gap_wall = time.perf_counter() - t0
-    scale = float(whole.cost.abs().max())
-    trace_gap = (whole.cost_trace - torch.cat([b.cost_trace for b in split])).abs().amax(0)
-    gap = {"cost_abs": float(trace_gap[-1]),
-           "us_abs": float((whole.us - torch.cat([b.us for b in split])).abs().max()),
-           "cost_abs_by_iteration": trace_gap.tolist(),
-           "cost_vs_full_batch_abs": float((whole.cost - costs[:GAP_ROWS]).abs().max()),
-           "cost_scale": scale}
-    probe_diverged = ~(torch.isfinite(probe.cost) & torch.isfinite(probe.us).all(dim=(1, 2)))
-    isolated = (bool(torch.equal(probe.us[:-1], whole.us[:-1]))
-                and bool(torch.equal(probe.cost[:-1], whole.cost[:-1])))
-    print(f"phase 18: the first {GAP_ROWS} scenarios as one batch and as "
-          f"{GAP_ROWS // GAP_BLOCK} batches of {GAP_BLOCK}: max |d cost| {gap['cost_abs']:.6g} "
-          f"({gap['cost_abs'] / scale:.3g} of the cost scale {scale:.4f}), max |d us| "
-          f"{gap['us_abs']:.6g}; by iteration {[f'{g:.3g}' for g in gap['cost_abs_by_iteration']]}; "
-          f"against the same rows of the {SHARDED_BATCH}-batch max |d cost| "
-          f"{gap['cost_vs_full_batch_abs']:.6g}; with row {GAP_ROWS - 1}'s start NaN: diverged "
-          f"{probe_diverged.tolist()}, the other rows bitwise unchanged: {isolated} "
-          f"({gap_wall:.2f} s)", flush=True)
+    whole, split, probe = sols[0], sols[1:-1], sols[-1]
+    full = {k: getattr(solved[0], k).cpu() for k in whole}
+    batchings = {f"{SHARDED_BATCH} (sharded_solve)": full, str(GAP_ROWS): whole,
+                 f"{GAP_ROWS // GAP_BLOCK} x {GAP_BLOCK}": None}
+    gap = {}
+    for name, sol in batchings.items():
+        for field in ("cost", "us", "cost_trace"):
+            got = (torch.cat([b[field] for b in split]) if sol is None
+                   else sol[field][:GAP_ROWS])
+            gap[f"{name} {field}"] = float((got - whole[field]).abs().max())
+    probe_diverged = ~(torch.isfinite(probe["cost"]) & torch.isfinite(probe["us"]).all(dim=(1, 2)))
+    isolated = (bool(torch.equal(probe["us"][:-1], whole["us"][:-1]))
+                and bool(torch.equal(probe["cost"][:-1], whole["cost"][:-1])))
+    print(f"phase 18: rows 0-{GAP_ROWS - 1} solved in batches of {SHARDED_BATCH}, {GAP_ROWS} "
+          f"and {GAP_BLOCK}: max |d| against the {GAP_ROWS}-row solve {gap} (0: bitwise "
+          f"equal); with row {GAP_ROWS - 1}'s start NaN: diverged {probe_diverged.tolist()}, "
+          f"the other rows bitwise unchanged: {isolated} ({gap_wall:.2f} s)", flush=True)
     gap["stages"] = batch_rounding_probe(torch, ilqr, prob, rows)
-    print(f"phase 18: per stage, max |d| between a batch of {GAP_ROWS} and one of {GAP_BLOCK} "
-          f"on identical inputs: {gap['stages']}", flush=True)
-    traces = torch.cat([whole.cost_trace] + [b.cost_trace for b in split])
+    print(f"phase 18: per stage, max |d| of the first {GAP_BLOCK} problems in batches of "
+          f"{SHARDED_BATCH} and {GAP_ROWS} against one of {GAP_BLOCK}, on identical inputs: "
+          f"{gap['stages']}", flush=True)
+    traces = torch.cat([whole["cost_trace"]] + [b["cost_trace"] for b in split])
     if bool((traces[:, 1:] > traces[:, :-1]).any()):
         raise AssertionError("phase 18: a cost trace increases")
     if not (isolated and probe_diverged.tolist() == [False] * (GAP_ROWS - 1) + [True]):
         raise AssertionError("phase 18: a NaN scenario was not flagged, or it moved another row")
+    moved = [k for k, v in gap.items() if k != "stages" and v != 0.0]
+    moved += [f"{stage} at {k}" for stage, by in gap["stages"].items()
+              for k, v in by.items() if v != 0.0]
+    if moved:
+        raise AssertionError(f"phase 18: the answer depends on the batch size: {moved}")
+    gap.update(check_mppi_batching(torch))
 
     args = random_lq(torch, torch.Generator("cuda").manual_seed(5), HORIZON, 37, 6)
     reg_seq, reg_par = torch.tensor([1e-5], device="cuda"), torch.tensor([1e-2], device="cuda")
@@ -1464,8 +1796,8 @@ def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
                          "this script needs a CUDA card and has no CPU fallback")
-    from quadruped_springs_tpu_torch import (bench, closed_loop, env_bench, kernels,
-                                             policy_replay, train_bench)
+    from quadruped_springs_tpu_torch import (bench, env_bench, kernels, policy_replay,
+                                             train_bench)
     from quadruped_springs_tpu_torch.env import randomizers as rnd
     from quadruped_springs_tpu_torch.env.wrappers import LANDING_KD, LANDING_KP
     from quadruped_springs_tpu_torch.models import dynamics as dyn
@@ -1474,6 +1806,7 @@ def main():
     from quadruped_springs_tpu_torch.solver import ilqr
     from quadruped_springs_tpu_torch.solver.mpc import MPCConfig, MPCProblem
 
+    started = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = subprocess.run(
@@ -1493,9 +1826,19 @@ def main():
     # checks[kernel][setting] = {max_abs_err, ms, plain_ms}; the first
     # setting of each kernel is the one its JSON line's times report
     planner_contact = check_contact(torch, dyn, model, LANES, 4000.0, 40.0)
+    bf16 = torch.bfloat16
+    contact_bf16 = check_contact(torch, dyn, model, LANES, 4000.0, 40.0, dtype=bf16)
+    # the full-rate model's contact, as the bf16 knot rounds it: 180,224 N/m
+    contact_bf16_stiff = check_contact(torch, dyn, model, LANES, 180224.0, 100.0,
+                                       dtype=bf16)
     checks = {"actuation": {"planner": check_actuation(torch, act, prob, LANES)},
               "contact": {"planner": planner_contact[False],
-                          "planner_clamp": planner_contact[True]}}
+                          "planner_clamp": planner_contact[True]},
+              "actuation_bf16": {"planner": check_actuation(torch, act, prob, LANES,
+                                                            dtype=bf16)},
+              "contact_bf16": {"planner": contact_bf16[False],
+                               "planner_clamp": contact_bf16[True],
+                               "full_rate_clamp": contact_bf16_stiff[True]}}
     report_checks(3, checks, LANES, "lanes")
 
     reset_counts(act, dyn)
@@ -1519,13 +1862,14 @@ def main():
             raise AssertionError(f"{name} kernel launched {count} times, expected "
                                  f"{substeps} (one per planner substep)")
     check_counts(by_path["mppi_solve"], {"contact_anchored": 0, "actuation_jvp": 0,
-                                         "contact_jvp": 0}, 4)
+                                         "contact_jvp": 0, **dict.fromkeys(BF16_KERNELS, 0)},
+                 4)
     print(f"phase 4: {rec['solves']} full-width solves ran {substeps} planner substeps; "
           f"launches {launches}; mean final cost {mean_cost:.4f} "
           f"(band [{lo:.2f}, {hi:.2f}]); {rec['value']:.2f} solves/s on {kind}",
           flush=True)
-    print(json.dumps({"bench": {k: rec[k] for k in
-                                ("metric", "value", "unit", "mean_final_cost")}}))
+    print(json.dumps({"bench": bench.line(rec)}))
+    by_path["full_rate_solve"] = run_full_rate(torch, bench, act, dyn, kind)
 
     # the environment's shapes and constants: 1024 lanes, the motor and the
     # landing wrapper's gains with per-environment springs, and reset's
@@ -1554,10 +1898,15 @@ def main():
     # one block of the full-width linearization: knots x problems lanes
     block_lanes = BATCH * ilqr.linearization_blocks(BATCH, HORIZON, N_TANGENTS)
     contact_jvp = check_contact_jvp(torch, dyn, block_lanes)
+    contact_jvp_bf16 = check_contact_jvp(torch, dyn, block_lanes, dtype=bf16)
     jvp_checks = {"actuation_jvp": {"ilqr_block": check_actuation_jvp(torch, act, prob,
                                                                     block_lanes)},
                   "contact_jvp": {"ilqr_block": contact_jvp[False],
-                                  "ilqr_block_clamp": contact_jvp[True]}}
+                                  "ilqr_block_clamp": contact_jvp[True]},
+                  "actuation_jvp_bf16": {"ilqr_block": check_actuation_jvp(
+                      torch, act, prob, block_lanes, dtype=bf16)},
+                  "contact_jvp_bf16": {"ilqr_block": contact_jvp_bf16[False],
+                                       "ilqr_block_clamp": contact_jvp_bf16[True]}}
     report_checks(8, jvp_checks, f"{block_lanes} x {N_TANGENTS}", "lanes x tangents")
     checks.update(jvp_checks)
     noop = kernels.library().planner_noop
@@ -1567,31 +1916,30 @@ def main():
           f"back-to-back ctypes launches between two CUDA events) on {kind}", flush=True)
 
     check_linearization(torch, ilqr, MPCConfig, MPCProblem)
-    by_path["ilqr_solve"] = run_ilqr_solve(torch, bench, ilqr, act, dyn, kind)
-    by_path["closed_loop"] = run_closed_loop(torch, closed_loop, act, dyn, kind)
+    by_path["ilqr_solve"], exact_cost = run_ilqr_solve(torch, bench, ilqr, act, dyn, kind)
+    by_path["ilqr_solve_bf16"] = run_ilqr_bf16(torch, bench, ilqr, act, dyn, kind,
+                                               exact_cost)
     width_checks = check_learning_widths(torch, act, dyn, model, landing)
-    by_path.update(run_replay(torch, policy_replay, env_bench.QuadrupedEnv, act, dyn, kind))
+    fidelity_checks = check_fidelity_widths(torch, act, dyn, model)
+    transfer_checks = check_transfer_block(torch, act, dyn, ilqr, prob)
+    by_path.update(run_host_bound_paths(policy_replay, kind))
     by_path["train"] = run_train(torch, train_bench, act, dyn, kind)
     by_path["autopilot_adapters"] = run_adapters(torch, act, dyn, kind)
-    fidelity_checks = check_fidelity_widths(torch, act, dyn, model)
-    by_path["oracle_gate"] = run_oracle_gate(kind)
-    transfer_checks = check_transfer_block(torch, act, dyn, ilqr, prob)
-    by_path["transfer_gate"] = run_transfer_gate(torch, act, dyn, ilqr, kind)
     by_path["sharded_solve"] = run_sharded(torch, act, dyn, ilqr, kind)
     for extra in (fidelity_checks, width_checks, transfer_checks):
         for name, by_setting in extra.items():
             checks[name].update(by_setting)
     profile_kernels(torch, checks)
     print(json.dumps({"env_substep_breakdown": env_breakdown()}))
+    print(f"chip_smoke: every phase in {time.perf_counter() - started:.1f} s on {kind}",
+          flush=True)
 
     # the contact_anchored kernel extends the memoryless contact kernel
     # (the TPU kernel fused_contact) with the feet's anchor stiction
     # and the tangent kernels are the forward-mode derivatives of the two
-    replaces = {"actuation": "scripts/pallas_microbench.py:96",
-                "contact": "scripts/pallas_microbench.py:153",
-                "contact_anchored": "scripts/pallas_microbench.py:153",
-                "actuation_jvp": "scripts/pallas_microbench.py:96",
-                "contact_jvp": "scripts/pallas_microbench.py:153"}
+    # and the bf16 variants are the same four kernels on bfloat16 storage
+    replaces = {name: "scripts/pallas_microbench.py:" + ("96" if name.startswith("actuation")
+                                                          else "153") for name in checks}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCE, "replaces": replaces[name],
          "launches": sum(c[name] for c in by_path.values()),

@@ -1,14 +1,23 @@
-"""Closed-loop (receding-horizon) iLQR MPC on the stiff 1 kHz environment.
+"""Closed-loop (receding-horizon) MPC on the stiff 1 kHz simulator.
 
-Port of the JAX package's ``examples/run_closed_loop_mpc.py`` (its iLQR
-path): every ``--replan-every`` control knots the iLQR problem is solved on
-the relaxed planner model from the robot's current state, warm-started from
-the shifted previous plan; the plan's first action is executed on
-``QuadrupedEnv`` (10 x 1 kHz substeps on the stiff contact model with foot
-anchor stiction), and the plan is shifted. Feedback re-planning absorbs the
-mismatch between the planner's and the executor's contact models.
+Port of the JAX package's ``examples/run_closed_loop_mpc.py``: every
+``--replan-every`` control knots the problem is solved from the robot's
+current state, warm-started from the shifted previous plan; the plan's first
+action is executed, and the plan is shifted. The executor is the JAX loop's
+``execute_knot``: 10 x 1 kHz substeps of PD plus spring torque and
+``dynamics.step`` at ``default_sim_params(0.001)`` (180 kN/m, 100 N s/m,
+the damping clamp on, memoryless friction: no foot anchors) on the nominal
+scenario's model.
+
+The default loop plans with iLQR (H = 20, 4 iterations, 4 alphas) on the
+relaxed 200 Hz planner model; feedback re-planning absorbs the mismatch
+between the planner's and the executor's contact. ``--full-rate`` plans with
+MPPI (H = 25, 4 iterations, K = 32, fused accept) on the execution-rate
+model itself (MPCConfig.full_rate), so planner and executor share the
+contact constants; its draws come from one torch.Generator seeded with 3.
 
     python -m quadruped_springs_tpu_torch.closed_loop                  # on the GPU
+    python -m quadruped_springs_tpu_torch.closed_loop --full-rate
     python -m quadruped_springs_tpu_torch.closed_loop --device cpu --steps 6 \\
         --horizon 8 --iterations 2                                     # tiny CPU check
 
@@ -23,57 +32,95 @@ import json
 
 import torch
 
-from quadruped_springs_tpu_torch.env import randomizers as rnd
-from quadruped_springs_tpu_torch.env.env import EnvConfig, QuadrupedEnv
+from quadruped_springs_tpu_torch.control import interfaces as ci
+from quadruped_springs_tpu_torch.models import dynamics as dyn
+from quadruped_springs_tpu_torch.ops import actuation as act
 from quadruped_springs_tpu_torch.solver.mpc import (
+    LaneParams,
     MPCConfig,
     MPCProblem,
     state_to_vec,
     vec_to_state,
 )
+from quadruped_springs_tpu_torch.solver.mppi import MPPIConfig
 
 _G = 9.81
+EXEC_SUBSTEPS = 10                 # 1 kHz substeps per 100 Hz knot
+FULL_RATE_HORIZON, FULL_RATE_SAMPLES, FULL_RATE_SEED = 25, 32, 3
 
 
 def ballistic_apex(z, vz):
     return z + torch.clamp_min(vz, 0.0) ** 2 / (2 * _G)
 
 
-def run(n_steps: int = 40, replan_every: int = 5, horizon: int = 20,
-        iterations: int = 4, n_alphas: int = 4, device="cuda") -> dict:
-    """Run the loop for n_steps 100 Hz knots from the standing pose on the
-    nominal robot; returns the closed-loop transfer metrics (planned apex on
-    the planner model against the apex executed on the stiff environment)
-    and the number of solves."""
+def executor(prob: MPCProblem) -> tuple[LaneParams, dyn.SimParams]:
+    """The executor's constants: the nominal scenario's one lane (model and
+    springs) and the 1 kHz simulator's contact parameters."""
+    return prob.lane_params(), dyn.default_sim_params(0.001)
+
+
+def execute_knot(prob: MPCProblem, lanes: LaneParams, params: dyn.SimParams,
+                 state: dyn.RobotState, action: torch.Tensor):
+    """One 100 Hz knot on the stiff simulator (10 x 1 kHz substeps) for N
+    lanes: action (N,m). Returns (state, info of the last substep)."""
+    c = prob.cfg
+    q_des = ci.action_to_command(prob.iface, action).contiguous()
+    for _ in range(EXEC_SUBSTEPS):
+        tau, _ = act.actuation_torque(q_des, state.q.contiguous(), state.qd.contiguous(),
+                                      c.motor_kp, c.motor_kd, c.torque_limits,
+                                      lanes.spring_k, lanes.spring_b, c.spring_rest_angles,
+                                      prob.engage_sign)
+        state, info = dyn.step(lanes.model, params, state, tau, c.velocity_limits)
+    return state, info
+
+
+def run(n_steps: int = 40, replan_every: int = 5, horizon: int | None = None,
+        iterations: int = 4, n_alphas: int = 4, device="cuda",
+        full_rate: bool = False) -> dict:
+    """Run the loop for n_steps 100 Hz knots from the planner's default
+    start on the nominal robot; returns the closed-loop transfer metrics
+    (the largest planned apex against the apex the executor reached) and
+    the number of solves. The horizon defaults to 20 knots (25 with
+    full_rate)."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("CUDA requested but torch.cuda.is_available() is False")
-    prob = MPCProblem(MPCConfig(task="JUMPING_IN_PLACE", horizon=horizon,
-                                iterations=iterations, n_alphas=n_alphas), device)
-    env = QuadrupedEnv(EnvConfig(enable_springs=True, motor_control_mode="PD",
-                                 action_space_mode="SYMMETRIC",
-                                 task_env="JUMPING_IN_PLACE",
-                                 observation_space_mode="ARS_BASIC", obs_noise=False),
-                       device=device)
-    # the planner's start state, without a settle, on the nominal scenario
-    state, _ = env.reset(scenario=rnd.nominal_params(prob.cfg, 1),
-                         desired_robot_state=vec_to_state(prob.default_x0()[None]))
+    if full_rate:
+        horizon = FULL_RATE_HORIZON if horizon is None else horizon
+        prob = MPCProblem(MPCConfig.full_rate(task="JUMPING_IN_PLACE", horizon=horizon,
+                                              iterations=iterations), device)
+        mcfg = MPPIConfig(horizon=horizon, iterations=iterations,
+                          n_samples=FULL_RATE_SAMPLES, fused_accept=True)
+        gen = torch.Generator(device).manual_seed(FULL_RATE_SEED)
+    else:
+        horizon = 20 if horizon is None else horizon
+        prob = MPCProblem(MPCConfig(task="JUMPING_IN_PLACE", horizon=horizon,
+                                    iterations=iterations, n_alphas=n_alphas), device)
+    lanes, params = executor(prob)
+    state = vec_to_state(prob.default_x0()[None])
     u_warm = prob.task_warm_start(crouch_knots=6)
     heights, apexes, planned, airborne = [], [], [], []
     for t in range(n_steps):
         if t % replan_every == 0:
-            sol = prob.solve(state_to_vec(state.robot)[0], u_warm)
-            u_warm = sol.us
-            planned.append(ballistic_apex(sol.xs[:, 2], sol.xs[:, 9]).max())
+            x = state_to_vec(state)
+            if full_rate:
+                sol = prob.solve_mppi(x, u_warm[None], gen, mcfg)
+                us, xs = sol.us[0], sol.xs[0]
+            else:
+                sol = prob.solve(x[0], u_warm)
+                us, xs = sol.us, sol.xs
+            u_warm = us
+            planned.append(ballistic_apex(xs[:, 2], xs[:, 9]).max())
         action = u_warm[0]
         u_warm = torch.cat([u_warm[1:], u_warm[-1:]], dim=0)
-        state, *_ = env.step(state, action[None])
-        heights.append(state.robot.pos[0, 2])
-        airborne.append(~state.feet_in_contact[0].any())
-        apexes.append(ballistic_apex(state.robot.pos[0, 2], state.robot.lin_vel[0, 2]))
+        state, info = execute_knot(prob, lanes, params, state, action[None])
+        heights.append(state.pos[0, 2])
+        airborne.append(~info["feet_in_contact"][0].any())
+        apexes.append(ballistic_apex(state.pos[0, 2], state.lin_vel[0, 2]))
     heights, planned = torch.stack(heights), torch.stack(planned)
     return {
         "planner": prob.config.planner_desc,
+        "solver": "mppi" if full_rate else "ilqr",
         "device": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
         "knots": n_steps,
         "solves": len(planned),
@@ -85,7 +132,7 @@ def run(n_steps: int = 40, replan_every: int = 5, horizon: int = 20,
         "airborne_knots": int(torch.stack(airborne).sum()),
         "final_z_m": float(heights[-1]),
         "upright": bool(heights[-1] > 0.15),
-        "finite": bool(torch.isfinite(state_to_vec(state.robot)).all()),
+        "finite": bool(torch.isfinite(state_to_vec(state)).all()),
     }
 
 
@@ -94,10 +141,14 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--steps", type=int, default=40, help="100 Hz control knots")
     ap.add_argument("--replan-every", type=int, default=5)
-    ap.add_argument("--horizon", type=int, default=20)
+    ap.add_argument("--horizon", type=int, default=None,
+                    help="20 knots (25 with --full-rate) by default")
     ap.add_argument("--iterations", type=int, default=4)
+    ap.add_argument("--full-rate", action="store_true",
+                    help="MPPI on the execution-rate model (MPCConfig.full_rate)")
     a = ap.parse_args(argv)
-    out = run(a.steps, a.replan_every, a.horizon, a.iterations, device=a.device)
+    out = run(a.steps, a.replan_every, a.horizon, a.iterations, device=a.device,
+              full_rate=a.full_rate)
     print(json.dumps(out))
     return out
 

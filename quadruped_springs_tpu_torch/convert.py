@@ -107,10 +107,7 @@ def ilqr_config(config) -> ILQRConfig:
 
 
 def mpc_config(config) -> MPCConfig:
-    """A JAX MPCConfig. The bfloat16 linearization is not ported, and the
-    scan unroll factors have no counterpart."""
-    if config.lin_dtype != "f32":
-        raise ValueError(f"lin_dtype {config.lin_dtype!r}: the port linearizes in f32")
+    """A JAX MPCConfig; its scan unroll factors have no counterpart."""
     return _shared_fields(config, MPCConfig)
 
 

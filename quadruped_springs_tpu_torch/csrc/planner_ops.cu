@@ -12,7 +12,16 @@
 //        -Xcompiler -fPIC -o libplanner_ops.so planner_ops.cu
 // No --use_fast_math: sqrtf and '/' stay IEEE so the kernels agree with
 // their PyTorch twins to rounding (FMA contraction is the only difference).
+//
+// The planner's kernels (actuation, contact and their tangents) are
+// templates on the storage type T: float, or __nv_bfloat16 for the iLQR
+// linearization in bfloat16 (MPCConfig.lin_dtype = "bf16", the JAX
+// package's dynamics(..., dtype=jnp.bfloat16) knot). A bf16 launch loads
+// bf16, computes in float registers and stores bf16 (round to nearest even,
+// as torch's .to(torch.bfloat16)), so it moves half the bytes of the f32
+// launch; its plain twin upcasts, runs the f32 twin and rounds.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -21,6 +30,15 @@ namespace {
 constexpr int kMotors = 12;   // 4 legs x (hip, thigh, calf)
 constexpr int kSites = 12;    // 4 feet, 4 knees, 4 trunk corners
 constexpr int kThreads = 256;
+
+__device__ __forceinline__ float load(const float* p) { return *p; }
+__device__ __forceinline__ float load(const __nv_bfloat16* p) {
+  return __bfloat162float(*p);
+}
+__device__ __forceinline__ void store(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
 
 // jnp.clip / torch.clamp semantics: max(x, lo) then min(., hi); a NaN x
 // stays NaN.
@@ -60,22 +78,26 @@ __device__ __forceinline__ void actuation_elem(
   *tau = t + ts;
 }
 
+template <typename T>
 __global__ void actuation_kernel(
-    const float* __restrict__ q_des, const float* __restrict__ q,
-    const float* __restrict__ qd, const float* __restrict__ kp,
-    const float* __restrict__ kd, const float* __restrict__ limits,
-    const float* __restrict__ spring_k, const float* __restrict__ spring_b,
-    const float* __restrict__ rest, const float* __restrict__ sign,
-    float* __restrict__ tau, float* __restrict__ tau_motor, int64_t n) {
+    const T* __restrict__ q_des, const T* __restrict__ q,
+    const T* __restrict__ qd, const T* __restrict__ kp,
+    const T* __restrict__ kd, const T* __restrict__ limits,
+    const T* __restrict__ spring_k, const T* __restrict__ spring_b,
+    const T* __restrict__ rest, const T* __restrict__ sign,
+    T* __restrict__ tau, T* __restrict__ tau_motor, int64_t n) {
   int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= n) return;
   int motor = static_cast<int>(i % kMotors);
   int64_t lane = i / kMotors;
   int joint = motor % 3;
-  actuation_elem(q_des[i], q[i], qd[i], __ldg(kp + motor), __ldg(kd + motor),
-                 __ldg(limits + motor), spring_k[lane * 3 + joint],
-                 spring_b[lane * 3 + joint], __ldg(rest + joint),
-                 __ldg(sign + motor), tau + i, tau_motor + i);
+  float t, tm;
+  actuation_elem(load(q_des + i), load(q + i), load(qd + i), load(kp + motor),
+                 load(kd + motor), load(limits + motor),
+                 load(spring_k + lane * 3 + joint), load(spring_b + lane * 3 + joint),
+                 load(rest + joint), load(sign + motor), &t, &tm);
+  store(tau + i, t);
+  store(tau_motor + i, tm);
 }
 
 // ---------------------------------------------------------------------------
@@ -115,18 +137,25 @@ __device__ __forceinline__ void contact_elem(
   *in_contact = inc;
 }
 
+template <typename T>
 __global__ void contact_kernel(
-    const float* __restrict__ phi, const float* __restrict__ v_w,
-    const float* __restrict__ mu, float kn, float dn, float v_tol,
-    int clamp_damping, float* __restrict__ f_world, float* __restrict__ fn,
+    const T* __restrict__ phi, const T* __restrict__ v_w,
+    const T* __restrict__ mu, float kn, float dn, float v_tol,
+    int clamp_damping, T* __restrict__ f_world, T* __restrict__ fn,
     bool* __restrict__ in_contact, int64_t n) {
   int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= n) return;
   int64_t lane = i / kSites;
-  const float* v = v_w + 3 * i;
-  float* f = f_world + 3 * i;
-  contact_elem(phi[i], v[0], v[1], v[2], mu[lane], kn, dn, v_tol,
-               clamp_damping != 0, f, f + 1, f + 2, fn + i, in_contact + i);
+  const T* v = v_w + 3 * i;
+  T* f = f_world + 3 * i;
+  float fx, fy, fz, fnv;
+  contact_elem(load(phi + i), load(v), load(v + 1), load(v + 2), load(mu + lane),
+               kn, dn, v_tol, clamp_damping != 0, &fx, &fy, &fz, &fnv,
+               in_contact + i);
+  store(f, fx);
+  store(f + 1, fy);
+  store(f + 2, fz);
+  store(fn + i, fnv);
 }
 
 // ---------------------------------------------------------------------------
@@ -275,14 +304,15 @@ __device__ __forceinline__ float actuation_jvp_elem(
   return dm + (-br.k * dq - br.b * dqd);
 }
 
+template <typename T>
 __global__ void actuation_jvp_kernel(
-    const float* __restrict__ q_des, const float* __restrict__ q,
-    const float* __restrict__ qd, const float* __restrict__ kp,
-    const float* __restrict__ kd, const float* __restrict__ limits,
-    const float* __restrict__ spring_k, const float* __restrict__ spring_b,
-    const float* __restrict__ rest, const float* __restrict__ sign,
-    const float* __restrict__ dq_des, const float* __restrict__ dq,
-    const float* __restrict__ dqd, float* __restrict__ dtau, int64_t n,
+    const T* __restrict__ q_des, const T* __restrict__ q,
+    const T* __restrict__ qd, const T* __restrict__ kp,
+    const T* __restrict__ kd, const T* __restrict__ limits,
+    const T* __restrict__ spring_k, const T* __restrict__ spring_b,
+    const T* __restrict__ rest, const T* __restrict__ sign,
+    const T* __restrict__ dq_des, const T* __restrict__ dq,
+    const T* __restrict__ dqd, T* __restrict__ dtau, int64_t n,
     int n_tangents) {
   int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= n) return;
@@ -290,13 +320,14 @@ __global__ void actuation_jvp_kernel(
   int64_t lane = i / kMotors;
   int joint = motor % 3;
   ActuationBranches br = actuation_branches(
-      q_des[i], q[i], qd[i], __ldg(kp + motor), __ldg(kd + motor),
-      __ldg(limits + motor), spring_k[lane * 3 + joint],
-      spring_b[lane * 3 + joint], __ldg(rest + joint), __ldg(sign + motor));
+      load(q_des + i), load(q + i), load(qd + i), load(kp + motor),
+      load(kd + motor), load(limits + motor), load(spring_k + lane * 3 + joint),
+      load(spring_b + lane * 3 + joint), load(rest + joint), load(sign + motor));
 #pragma unroll 4
   for (int t = 0; t < n_tangents; ++t) {
     int64_t j = static_cast<int64_t>(t) * n + i;
-    dtau[j] = actuation_jvp_elem(br, dq_des[j], dq[j], dqd[j]);
+    store(dtau + j,
+          actuation_jvp_elem(br, load(dq_des + j), load(dq + j), load(dqd + j)));
   }
 }
 
@@ -363,24 +394,30 @@ __device__ __forceinline__ void contact_jvp_elem(
   *dfz = dfn;
 }
 
+template <typename T>
 __global__ void contact_jvp_kernel(
-    const float* __restrict__ phi, const float* __restrict__ v_w,
-    const float* __restrict__ mu, float kn, float dn, float v_tol,
-    int clamp_damping, const float* __restrict__ dphi,
-    const float* __restrict__ dv_w, float* __restrict__ df_world, int64_t n,
+    const T* __restrict__ phi, const T* __restrict__ v_w,
+    const T* __restrict__ mu, float kn, float dn, float v_tol,
+    int clamp_damping, const T* __restrict__ dphi,
+    const T* __restrict__ dv_w, T* __restrict__ df_world, int64_t n,
     int n_tangents) {
   int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= n) return;
   int64_t lane = i / kSites;
-  const float* v = v_w + 3 * i;
-  ContactPrimal p = contact_primal(phi[i], v[0], v[1], v[2], mu[lane], kn, dn,
-                                   v_tol, clamp_damping != 0);
+  const T* v = v_w + 3 * i;
+  ContactPrimal p = contact_primal(load(phi + i), load(v), load(v + 1), load(v + 2),
+                                   load(mu + lane), kn, dn, v_tol, clamp_damping != 0);
 #pragma unroll 4
   for (int t = 0; t < n_tangents; ++t) {
     int64_t j = static_cast<int64_t>(t) * n + i;
-    const float* dv = dv_w + 3 * j;
-    float* df = df_world + 3 * j;
-    contact_jvp_elem(p, dphi[j], dv[0], dv[1], dv[2], df, df + 1, df + 2);
+    const T* dv = dv_w + 3 * j;
+    T* df = df_world + 3 * j;
+    float dfx, dfy, dfz;
+    contact_jvp_elem(p, load(dphi + j), load(dv), load(dv + 1), load(dv + 2), &dfx,
+                     &dfy, &dfz);
+    store(df, dfx);
+    store(df + 1, dfy);
+    store(df + 2, dfz);
   }
 }
 
@@ -392,31 +429,98 @@ inline unsigned int blocks_for(int64_t n) {
   return static_cast<unsigned int>((n + kThreads - 1) / kThreads);
 }
 
-}  // namespace
-
-extern "C" int planner_actuation(
-    const float* q_des, const float* q, const float* qd, const float* kp,
-    const float* kd, const float* limits, const float* spring_k,
-    const float* spring_b, const float* rest, const float* sign, float* tau,
-    float* tau_motor, int64_t n_lanes, void* stream) {
+template <typename T>
+int launch_actuation(const T* q_des, const T* q, const T* qd, const T* kp,
+                     const T* kd, const T* limits, const T* spring_k,
+                     const T* spring_b, const T* rest, const T* sign, T* tau,
+                     T* tau_motor, int64_t n_lanes, void* stream) {
   int64_t n = n_lanes * kMotors;
-  actuation_kernel<<<blocks_for(n), kThreads, 0,
-                     static_cast<cudaStream_t>(stream)>>>(
+  actuation_kernel<T><<<blocks_for(n), kThreads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
       q_des, q, qd, kp, kd, limits, spring_k, spring_b, rest, sign, tau,
       tau_motor, n);
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int planner_contact(
-    const float* phi, const float* v_w, const float* mu, float kn, float dn,
-    float v_tol, int clamp_damping, float* f_world, float* fn,
-    bool* in_contact, int64_t n_lanes, void* stream) {
+template <typename T>
+int launch_contact(const T* phi, const T* v_w, const T* mu, float kn, float dn,
+                   float v_tol, int clamp_damping, T* f_world, T* fn,
+                   bool* in_contact, int64_t n_lanes, void* stream) {
   int64_t n = n_lanes * kSites;
-  contact_kernel<<<blocks_for(n), kThreads, 0,
-                   static_cast<cudaStream_t>(stream)>>>(
+  contact_kernel<T><<<blocks_for(n), kThreads, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
       phi, v_w, mu, kn, dn, v_tol, clamp_damping, f_world, fn, in_contact, n);
   return static_cast<int>(cudaGetLastError());
 }
+
+template <typename T>
+int launch_actuation_jvp(const T* q_des, const T* q, const T* qd, const T* kp,
+                         const T* kd, const T* limits, const T* spring_k,
+                         const T* spring_b, const T* rest, const T* sign,
+                         const T* dq_des, const T* dq, const T* dqd, T* dtau,
+                         int64_t n_lanes, int n_tangents, void* stream) {
+  int64_t n = n_lanes * kMotors;
+  actuation_jvp_kernel<T><<<blocks_for(n), kThreads, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
+      q_des, q, qd, kp, kd, limits, spring_k, spring_b, rest, sign, dq_des,
+      dq, dqd, dtau, n, n_tangents);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_contact_jvp(const T* phi, const T* v_w, const T* mu, float kn,
+                       float dn, float v_tol, int clamp_damping, const T* dphi,
+                       const T* dv_w, T* df_world, int64_t n_lanes,
+                       int n_tangents, void* stream) {
+  int64_t n = n_lanes * kSites;
+  contact_jvp_kernel<T><<<blocks_for(n), kThreads, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+      phi, v_w, mu, kn, dn, v_tol, clamp_damping, dphi, dv_w, df_world, n,
+      n_tangents);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// One extern "C" entry per kernel and storage type: <name> takes float
+// arrays, <name>_bf16 __nv_bfloat16 arrays (the contact constants and the
+// in_contact flags keep their types).
+#define PLANNER_ENTRIES(SUFFIX, T)                                             \
+  extern "C" int planner_actuation##SUFFIX(                                    \
+      const T* q_des, const T* q, const T* qd, const T* kp, const T* kd,       \
+      const T* limits, const T* spring_k, const T* spring_b, const T* rest,    \
+      const T* sign, T* tau, T* tau_motor, int64_t n_lanes, void* stream) {    \
+    return launch_actuation<T>(q_des, q, qd, kp, kd, limits, spring_k,        \
+                               spring_b, rest, sign, tau, tau_motor, n_lanes,  \
+                               stream);                                        \
+  }                                                                            \
+  extern "C" int planner_contact##SUFFIX(                                      \
+      const T* phi, const T* v_w, const T* mu, float kn, float dn,             \
+      float v_tol, int clamp_damping, T* f_world, T* fn, bool* in_contact,     \
+      int64_t n_lanes, void* stream) {                                         \
+    return launch_contact<T>(phi, v_w, mu, kn, dn, v_tol, clamp_damping,      \
+                             f_world, fn, in_contact, n_lanes, stream);        \
+  }                                                                            \
+  extern "C" int planner_actuation_jvp##SUFFIX(                                \
+      const T* q_des, const T* q, const T* qd, const T* kp, const T* kd,       \
+      const T* limits, const T* spring_k, const T* spring_b, const T* rest,    \
+      const T* sign, const T* dq_des, const T* dq, const T* dqd, T* dtau,      \
+      int64_t n_lanes, int n_tangents, void* stream) {                         \
+    return launch_actuation_jvp<T>(q_des, q, qd, kp, kd, limits, spring_k,    \
+                                   spring_b, rest, sign, dq_des, dq, dqd,     \
+                                   dtau, n_lanes, n_tangents, stream);         \
+  }                                                                            \
+  extern "C" int planner_contact_jvp##SUFFIX(                                  \
+      const T* phi, const T* v_w, const T* mu, float kn, float dn,             \
+      float v_tol, int clamp_damping, const T* dphi, const T* dv_w,            \
+      T* df_world, int64_t n_lanes, int n_tangents, void* stream) {            \
+    return launch_contact_jvp<T>(phi, v_w, mu, kn, dn, v_tol, clamp_damping,  \
+                                 dphi, dv_w, df_world, n_lanes, n_tangents,    \
+                                 stream);                                      \
+  }
+
+PLANNER_ENTRIES(, float)
+PLANNER_ENTRIES(_bf16, __nv_bfloat16)
 
 extern "C" int planner_contact_anchored(
     const float* phi, const float* v_w, const float* p_w, const float* anchor,
@@ -428,32 +532,6 @@ extern "C" int planner_contact_anchored(
                             static_cast<cudaStream_t>(stream)>>>(
       phi, v_w, p_w, anchor, mu, kn, dn, kt, ct, v_tol, clamp_damping,
       f_world, fn, in_contact, new_anchor, n);
-  return static_cast<int>(cudaGetLastError());
-}
-
-extern "C" int planner_actuation_jvp(
-    const float* q_des, const float* q, const float* qd, const float* kp,
-    const float* kd, const float* limits, const float* spring_k,
-    const float* spring_b, const float* rest, const float* sign,
-    const float* dq_des, const float* dq, const float* dqd, float* dtau,
-    int64_t n_lanes, int n_tangents, void* stream) {
-  int64_t n = n_lanes * kMotors;
-  actuation_jvp_kernel<<<blocks_for(n), kThreads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-      q_des, q, qd, kp, kd, limits, spring_k, spring_b, rest, sign, dq_des,
-      dq, dqd, dtau, n, n_tangents);
-  return static_cast<int>(cudaGetLastError());
-}
-
-extern "C" int planner_contact_jvp(
-    const float* phi, const float* v_w, const float* mu, float kn, float dn,
-    float v_tol, int clamp_damping, const float* dphi, const float* dv_w,
-    float* df_world, int64_t n_lanes, int n_tangents, void* stream) {
-  int64_t n = n_lanes * kSites;
-  contact_jvp_kernel<<<blocks_for(n), kThreads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      phi, v_w, mu, kn, dn, v_tol, clamp_damping, dphi, dv_w, df_world, n,
-      n_tangents);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -56,6 +56,13 @@ _SIGNATURES = {
     # stream; launches an empty kernel (the launch floor of the card)
     "planner_noop": [_P],
 }
+# the planner's four kernels also take bfloat16 arrays, under <name>_bf16
+for _name in ("planner_actuation", "planner_contact", "planner_actuation_jvp",
+              "planner_contact_jvp"):
+    _SIGNATURES[_name + "_bf16"] = _SIGNATURES[_name]
+
+# storage types of the planner's kernels: the entry point's suffix
+STORAGE = {torch.float32: "", torch.bfloat16: "_bf16"}
 
 
 def _nvcc() -> str:
@@ -110,6 +117,15 @@ def check_launch(name: str, err: int) -> None:
     """Raise on a non-zero cudaError_t returned by a launch."""
     if err != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError_t {err}")
+
+
+def entry(name: str, dtype: torch.dtype):
+    """The library's launcher of kernel `name` for arrays of `dtype`
+    (float32, or bfloat16 for the planner's four kernels); raises for any
+    other type."""
+    if dtype not in STORAGE:
+        raise TypeError(f"{name}: no kernel for dtype {dtype}")
+    return getattr(library(), name + STORAGE[dtype])
 
 
 def check_tensor(name: str, t: torch.Tensor, shape: tuple, device: torch.device,

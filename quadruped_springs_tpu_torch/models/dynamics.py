@@ -102,13 +102,9 @@ def _consts(model: Go1Model, like: torch.Tensor):
     return _constants(like.device, like.dtype, model.foot_radius)
 
 
-def _matvec(M, v):
-    return (M @ v[..., None])[..., 0]
-
-
 def _rmatvec(M, v):
     """Mᵀ v."""
-    return (M.transpose(-1, -2) @ v[..., None])[..., 0]
+    return sp.mv(M.transpose(-1, -2), v)
 
 
 # ---------------------------------------------------------------------------
@@ -137,12 +133,12 @@ def leg_fk_base(model: Go1Model, q: torch.Tensor):
     """
     ql = q.reshape(q.shape[0], 4, 3)
     R1 = _rot_x(ql[..., 0])                    # (N,4,3,3)
-    R2 = R1 @ _rot_y(ql[..., 1])
-    R3 = R2 @ _rot_y(ql[..., 2])
+    R2 = sp.mm(R1, _rot_y(ql[..., 1]))
+    R3 = sp.mm(R2, _rot_y(ql[..., 2]))
     o1 = model.hip_origins.expand(q.shape[0], 4, 3)
-    o2 = o1 + _matvec(R1, model.thigh_origins)
-    o3 = o2 + R2 @ model.calf_origin
-    foot = o3 + R3 @ model.foot_origin
+    o2 = o1 + sp.mv(R1, model.thigh_origins)
+    o3 = o2 + sp.mv(R2, model.calf_origin)
+    foot = o3 + sp.mv(R3, model.foot_origin)
     a1 = _consts(model, q)["x_axis"].expand(q.shape[0], 4, 3)
     a2 = R1[..., :, 1]                         # thigh axis: y of the hip frame
     a3 = R2[..., :, 1]                         # calf axis: y of the thigh frame
@@ -174,11 +170,11 @@ def mass_matrix_blocks(model: Go1Model, q: torch.Tensor, fk=None):
     Ic1 = I_b[:, :, 1] + Ic2
     Ic0 = I_b[:, :, 0] + Ic1
     Ic = torch.stack([Ic0, Ic1, Ic2], dim=2)
-    F = _matvec(Ic, s)                         # F[j] = Ic[j] s[j], (N,4,3,6)
+    F = sp.mv(Ic, s)                         # F[j] = Ic[j] s[j], (N,4,3,6)
     B = F.transpose(-1, -2)                    # (N,4,6,3)
-    D = s @ F.transpose(-1, -2)                # D[i,j] = s_i . F_j, valid j >= i
+    D = sp.mm(s, F.transpose(-1, -2))          # D[i,j] = s_i . F_j, valid j >= i
     D = torch.where(_consts(model, q)["triu3"], D, D.transpose(-1, -2))
-    A = model.trunk_inertia6 + Ic0.sum(dim=1)
+    A = model.trunk_inertia6 + sp.sum_fixed(Ic0, 1)
     return A, B, D, fk, s
 
 
@@ -207,17 +203,17 @@ def bias_forces(model: Go1Model, state_rot, u, fk, s):
     a3 = a2 + sp.spatial_cross_motion(v3, s[:, :, 2]) * qd[:, :, 2:3]
     a = torch.stack([a1, a2, a3], dim=2)
 
-    Iv = _matvec(I_legs, v)
-    f = _matvec(I_legs, a) + sp.spatial_cross_force(v, Iv)
+    Iv = sp.mv(I_legs, v)
+    f = sp.mv(I_legs, a) + sp.spatial_cross_force(v, Iv)
     f2 = f[:, :, 2]
     f1 = f[:, :, 1] + f2
     f0 = f[:, :, 0] + f1
     f_acc = torch.stack([f0, f1, f2], dim=2)
-    h_joints = (s * f_acc).sum(-1).reshape(n, 12)
+    h_joints = sp.sum_fixed(s * f_acc).reshape(n, 12)
 
-    Itv = _matvec(model.trunk_inertia6, v0)
-    f_trunk = _matvec(model.trunk_inertia6, a0) + sp.spatial_cross_force(v0, Itv)
-    h_base = f_trunk + f0.sum(dim=1)
+    Itv = sp.mv(model.trunk_inertia6, v0)
+    f_trunk = sp.mv(model.trunk_inertia6, a0) + sp.spatial_cross_force(v0, Itv)
+    h_base = f_trunk + sp.sum_fixed(f0, 1)
     return torch.cat([h_base, h_joints], dim=-1)
 
 
@@ -226,7 +222,7 @@ def _inv3(M):
     over the determinant (the adjugate)."""
     r0, r1, r2 = M[..., 0, :], M[..., 1, :], M[..., 2, :]
     c0 = torch.linalg.cross(r1, r2)
-    det = (r0 * c0).sum(-1)
+    det = sp.sum_fixed(r0 * c0)
     adj = torch.stack([c0, torch.linalg.cross(r2, r0), torch.linalg.cross(r0, r1)],
                       dim=-1)
     return adj / det[..., None, None]
@@ -267,11 +263,11 @@ def solve_star(A, B, D, rhs_base, rhs_joints, eps: float = 1e-9):
     eye6 = torch.eye(6, dtype=A.dtype, device=A.device)
     Dinv = _inv3(D + eps * eye3)                         # (N,4,3,3)
     rj = rhs_joints.reshape(n, 4, 3)
-    BDinv = B @ Dinv                                     # (N,4,6,3)
-    S = A - (BDinv @ B.transpose(-1, -2)).sum(dim=1)     # 6x6 Schur complement
-    t = rhs_base - _matvec(BDinv, rj).sum(dim=1)
+    BDinv = sp.mm(B, Dinv)                               # (N,4,6,3)
+    S = A - sp.sum_fixed(sp.mm(BDinv, B.transpose(-1, -2)), 1)   # 6x6 Schur complement
+    t = rhs_base - sp.sum_fixed(sp.mv(BDinv, rj), 1)
     a0 = _chol6_solve(S + eps * eye6, t)
-    qdd = _matvec(Dinv, rj - _rmatvec(B, a0[:, None]))
+    qdd = sp.mv(Dinv, rj - _rmatvec(B, a0[:, None]))
     return a0, qdd.reshape(n, 12)
 
 
@@ -296,7 +292,7 @@ def site_state_world(model: Go1Model, state: RobotState, fk=None, R=None):
     n = state.q.shape[0]
     pts_b, radii = contact_sites(model, fk)
     Rt = R.transpose(-1, -2)
-    p_w = state.pos[:, None] + pts_b @ Rt
+    p_w = state.pos[:, None] + sp.mm(pts_b, Rt)
     w_b = _rmatvec(R, state.ang_vel)
     v_b = _rmatvec(R, state.lin_vel)
     qd = state.qd.reshape(n, 4, 3)
@@ -304,11 +300,11 @@ def site_state_world(model: Go1Model, state: RobotState, fk=None, R=None):
     # each leg; zero for the trunk corners
     leg_pts = pts_b[:, :8].reshape(n, 2, 4, 3)
     arm = leg_pts[:, :, :, None, :] - fk["o"][:, None]           # (N,2,4,3,3)
-    Jqd = (torch.linalg.cross(fk["axes"][:, None].expand_as(arm), arm)
-           * qd[:, None, :, :, None]).sum(dim=3).reshape(n, 8, 3)
+    Jqd = sp.sum_fixed(torch.linalg.cross(fk["axes"][:, None].expand_as(arm), arm)
+                       * qd[:, None, :, :, None], 3).reshape(n, 8, 3)
     Jqd = torch.cat([Jqd, torch.zeros_like(Jqd[:, :4])], dim=1)
     v_pt_b = v_b[:, None] + torch.linalg.cross(w_b[:, None].expand_as(pts_b), pts_b) + Jqd
-    return p_w, v_pt_b @ Rt, radii, fk
+    return p_w, sp.mm(v_pt_b, Rt), radii, fk
 
 
 def foot_state_world(model: Go1Model, state: RobotState, fk=None):
@@ -323,8 +319,15 @@ def contact_forces_plain(phi, v_w, mu, kn: float, dn: float, v_tol: float,
 
     phi: (N,12) penetration depth. v_w: (N,12,3) world site velocities.
     mu: float or (N,) per lane. Returns f_world (N,12,3), fn (N,12),
-    in_contact (N,12). The plain twin of the `contact` CUDA kernel.
+    in_contact (N,12). The plain twin of the `contact` CUDA kernel;
+    bfloat16 phi, v_w and mu are upcast, run through the f32 law and the
+    forces rounded to bf16, as the kernel's bf16 variant computes.
     """
+    if phi.dtype == torch.bfloat16:
+        f_world, fn, in_contact = contact_forces_plain(
+            phi.float(), v_w.float(), mu.float() if torch.is_tensor(mu) else mu, kn, dn,
+            v_tol, clamp_damping)
+        return f_world.to(phi.dtype), fn.to(phi.dtype), in_contact
     in_contact = phi > 0.0
     elastic = kn * phi
     damping = dn * (-v_w[..., 2])
@@ -333,7 +336,7 @@ def contact_forces_plain(phi, v_w, mu, kn: float, dn: float, v_tol: float,
     fn = torch.where(in_contact, torch.clamp_min(elastic + damping, 0.0),
                      torch.zeros_like(phi))
     vt = v_w[..., :2]
-    n2 = (vt * vt).sum(-1)
+    n2 = sp.sum_fixed(vt * vt)
     vt_norm = torch.sqrt(torch.where(n2 < 1e-12, torch.full_like(n2, 1e-12), n2))
     if torch.is_tensor(mu):
         mu = mu[..., None]
@@ -378,7 +381,7 @@ def _check_contact_primals(phi, v_w, mu):
     n, dev = phi.shape[0], phi.device
     for name, t, shape in (("phi", phi, (n, N_SITES)), ("v_w", v_w, (n, N_SITES, 3)),
                            ("friction", mu, (n,))):
-        kernels.check_tensor(name, t, shape, dev)
+        kernels.check_tensor(name, t, shape, dev, phi.dtype)
     return n, dev
 
 
@@ -393,12 +396,15 @@ def _launch_contact(phi, v_w, mu, kn: float, dn: float, v_tol: float,
     if n == 0:
         return f_world, fn, in_contact
     with torch.cuda.device(dev):
-        err = kernels.library().planner_contact(
+        err = kernels.entry("planner_contact", phi.dtype)(
             phi.data_ptr(), v_w.data_ptr(), mu.data_ptr(), float(kn), float(dn),
             float(v_tol), int(clamp_damping), f_world.data_ptr(), fn.data_ptr(),
             in_contact.data_ptr(), n, kernels.stream_handle(dev))
     kernels.check_launch("planner_contact", err)
-    contact_forces.launches += 1
+    if phi.dtype == torch.float32:
+        contact_forces.launches += 1
+    else:
+        contact_forces.bf16_launches += 1
     return f_world, fn, in_contact
 
 
@@ -408,18 +414,21 @@ def _launch_contact_jvp(phi, v_w, mu, dphi, dv_w, kn: float, dn: float, v_tol: f
     tangents dphi (T,N,12), dv_w (T,N,12,3): df_world (T,N,12,3)."""
     n, dev = _check_contact_primals(phi, v_w, mu)
     n_tangents = dphi.shape[0]
-    kernels.check_tensor("dphi", dphi, (n_tangents, n, N_SITES), dev)
-    kernels.check_tensor("dv_w", dv_w, (n_tangents, n, N_SITES, 3), dev)
+    kernels.check_tensor("dphi", dphi, (n_tangents, n, N_SITES), dev, phi.dtype)
+    kernels.check_tensor("dv_w", dv_w, (n_tangents, n, N_SITES, 3), dev, phi.dtype)
     df_world = torch.empty_like(dv_w)
     if n == 0 or n_tangents == 0:
         return df_world
     with torch.cuda.device(dev):
-        err = kernels.library().planner_contact_jvp(
+        err = kernels.entry("planner_contact_jvp", phi.dtype)(
             phi.data_ptr(), v_w.data_ptr(), mu.data_ptr(), float(kn), float(dn),
             float(v_tol), int(clamp_damping), dphi.data_ptr(), dv_w.data_ptr(),
             df_world.data_ptr(), n, n_tangents, kernels.stream_handle(dev))
     kernels.check_launch("planner_contact_jvp", err)
-    contact_forces.jvp_launches += 1
+    if phi.dtype == torch.float32:
+        contact_forces.jvp_launches += 1
+    else:
+        contact_forces.bf16_jvp_launches += 1
     return df_world
 
 
@@ -508,7 +517,7 @@ def contact_forces(model: Go1Model, params: SimParams, p_w, v_w, radii,
     n = phi.shape[0]
     dev = phi.device
     if not torch.is_tensor(mu):
-        mu = torch.full((n,), float(mu), dtype=torch.float32, device=dev)
+        mu = torch.full((n,), float(mu), dtype=phi.dtype, device=dev)
     if foot_anchor is None:
         return (*_Contact.apply(phi, v_w, mu, float(kn), float(dn),
                                 float(params.slip_vel_tol), bool(params.clamp_damping)),
@@ -536,6 +545,8 @@ def contact_forces(model: Go1Model, params: SimParams, p_w, v_w, radii,
 
 contact_forces.launches = 0            # `contact` kernel
 contact_forces.jvp_launches = 0        # `contact_jvp` kernel
+contact_forces.bf16_launches = 0       # their bf16 storage variants
+contact_forces.bf16_jvp_launches = 0
 contact_forces.anchored_launches = 0   # `contact_anchored` kernel
 
 
@@ -545,12 +556,12 @@ def _generalized_contact_force(model: Go1Model, fk, s, R, f_world):
     Feet (0-3) and knees (4-7) ride on the calf bodies, so all three joints
     of their leg receive s_iᵀ f; trunk corners (8-11) give a base wrench only.
     """
-    f_b = f_world @ R                                    # world -> base
+    f_b = sp.mm(f_world, R)                              # world -> base
     pts, _ = contact_sites(model, fk)
     f_spatial = torch.cat([torch.linalg.cross(pts, f_b), f_b], dim=-1)  # (N,12,6)
     f_legs = f_spatial[:, :4] + f_spatial[:, 4:8]
-    tau_joints = _matvec(s, f_legs).reshape(f_world.shape[0], 12)
-    return f_spatial.sum(dim=1), tau_joints
+    tau_joints = sp.mv(s, f_legs).reshape(f_world.shape[0], 12)
+    return sp.sum_fixed(f_spatial, 1), tau_joints
 
 
 # ---------------------------------------------------------------------------
@@ -589,7 +600,7 @@ def _forward(model, params, state, tau, R, ext_force_world=None, foot_anchor=Non
         # base welded in the air: a0 ≡ 0 and the legs decouple
         a0 = torch.zeros_like(rhs_base)
         eye3 = torch.eye(3, dtype=D.dtype, device=D.device)
-        qdd = _matvec(_inv3(D + 1e-9 * eye3), rhs_joints.reshape(n, 4, 3))
+        qdd = sp.mv(_inv3(D + 1e-9 * eye3), rhs_joints.reshape(n, 4, 3))
         qdd = qdd.reshape(n, 12)
     else:
         a0, qdd = solve_star(A, B, D, rhs_base, rhs_joints)
@@ -639,12 +650,12 @@ def step(model: Go1Model, params: SimParams, state: RobotState, tau,
         w_b = torch.zeros_like(w_b)
         v_b = torch.zeros_like(v_b)
     quat = sp.quat_integrate(state.quat, w_b, dt)
-    lin_vel = _matvec(R, v_b)
+    lin_vel = sp.mv(R, v_b)
     new_state = RobotState(
         pos=state.pos + dt * lin_vel,
         quat=quat,
         lin_vel=lin_vel,
-        ang_vel=_matvec(R, w_b),
+        ang_vel=sp.mv(R, w_b),
         q=state.q + dt * qd,
         qd=qd,
     )
@@ -680,7 +691,7 @@ def mass_matrix(model: Go1Model, q: torch.Tensor) -> torch.Tensor:
 def kinetic_energy(model: Go1Model, state: RobotState) -> torch.Tensor:
     """½ uᵀ M(q) u per lane, (N,)."""
     _, u = _generalized_velocity(state)
-    return 0.5 * (u * _matvec(mass_matrix(model, state.q), u)).sum(-1)
+    return 0.5 * sp.sum_fixed(u * sp.mv(mass_matrix(model, state.q), u))
 
 
 def potential_energy(model: Go1Model, state: RobotState) -> torch.Tensor:
@@ -691,11 +702,12 @@ def potential_energy(model: Go1Model, state: RobotState) -> torch.Tensor:
     mcx = model.trunk_inertia6[:, :3, 3:]
     c_trunk = torch.stack([mcx[:, 2, 1], mcx[:, 0, 2], mcx[:, 1, 0]],
                           dim=-1) / model.trunk_mass[:, None]
-    coms_b = fk["o"] + _matvec(fk["R"], model.leg_coms)           # (N,4,3,3)
-    coms_w = state.pos[:, None, None] + coms_b @ R.transpose(-1, -2)[:, None]
-    trunk_w = state.pos + _matvec(R, c_trunk)
-    pe = -model.trunk_mass * (trunk_w * model.gravity).sum(-1)
-    return pe - (model.leg_masses * _matvec(coms_w, model.gravity)).sum(dim=(1, 2))
+    coms_b = fk["o"] + sp.mv(fk["R"], model.leg_coms)           # (N,4,3,3)
+    coms_w = state.pos[:, None, None] + sp.mm(coms_b, R.transpose(-1, -2)[:, None])
+    trunk_w = state.pos + sp.mv(R, c_trunk)
+    pe = -model.trunk_mass * sp.sum_fixed(trunk_w * model.gravity)
+    legs = model.leg_masses * sp.mv(coms_w, model.gravity)
+    return pe - sp.sum_fixed(sp.sum_fixed(legs, 2), 1)
 
 
 def inverse_dynamics(model: Go1Model, state: RobotState, a0: torch.Tensor,
@@ -705,4 +717,4 @@ def inverse_dynamics(model: Go1Model, state: RobotState, a0: torch.Tensor,
     R, u = _generalized_velocity(state)
     A, B, D, fk, s = mass_matrix_blocks(model, state.q)
     h = bias_forces(model, R, u, fk, s)
-    return _matvec(_dense_mass_matrix(A, B, D), torch.cat([a0, qdd], dim=-1)) + h
+    return sp.mv(_dense_mass_matrix(A, B, D), torch.cat([a0, qdd], dim=-1)) + h

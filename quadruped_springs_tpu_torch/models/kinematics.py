@@ -14,6 +14,7 @@ import functools
 
 import torch
 
+from quadruped_springs_tpu_torch.models import spatial as sp
 from quadruped_springs_tpu_torch.models.go1_params import (
     CALF_LINK_LENGTH,
     HIP_LINK_LENGTH,
@@ -74,7 +75,7 @@ def foot_pos_and_vel(q, qd):
     q_legs = q.reshape(q.shape[:-1] + (4, 3))
     qd_legs = qd.reshape(qd.shape[:-1] + (4, 3))
     pos = foot_position(q_legs)
-    vel = (foot_jacobian(q_legs) @ qd_legs[..., None])[..., 0]
+    vel = sp.mv(foot_jacobian(q_legs), qd_legs)
     return pos.reshape(q.shape), vel.reshape(q.shape)
 
 

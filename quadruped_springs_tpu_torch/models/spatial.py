@@ -5,6 +5,17 @@ environment use). Same conventions: quaternions xyzw, spatial vectors [angular; 
 rotation matrices map body to world coordinates. Every function broadcasts
 over leading dimensions and keeps the JAX version's operation order, so f32
 results agree to rounding.
+
+Small products and sums go through ``mm``, ``mv`` and ``sum_fixed``:
+elementwise multiplies and adds in a fixed order. A batched gemm or a
+library reduction picks its kernel, and with it its order of summation, by
+the number of problems in the batch, so one lane's result would depend in
+the last bits on how many lanes share the batch. An elementwise op computes
+every element alone, so a sum of elementwise adds in an order fixed by the
+code is the same whatever the batch. The order is pairwise (halves added
+while the length is even and above 4, then a chain), which takes about
+log2(k) launches where a chain takes k - 1: eager PyTorch pays the host's
+time per launch, and a 37-term chain would be 36 launches.
 """
 
 from __future__ import annotations
@@ -14,8 +25,37 @@ import math
 import torch
 
 
+def sum_fixed(x, dim: int = -1):
+    """x summed over `dim` in a fixed order, elementwise adds only (see the
+    module docstring): while the length n is even and above 4 the two halves
+    are added; an odd length above 4 adds its last term to the sum of the
+    rest; 4 or fewer terms are a chain in index order. `dim` is dropped."""
+    x = x.movedim(dim, 0)
+    n = x.shape[0]
+    if n <= 4:
+        out = x[0]
+        for k in range(1, n):
+            out = out + x[k]
+        return out
+    if n % 2:
+        return sum_fixed(x[:n - 1], 0) + x[n - 1]
+    return sum_fixed(x[:n // 2] + x[n // 2:], 0)
+
+
+def mm(A, B):
+    """A @ B for small (..., i, k) and (..., k, j), broadcast over leading
+    dimensions: the products A[..., i, k] B[..., k, j] in one elementwise
+    multiply, summed over k by sum_fixed."""
+    return sum_fixed(A[..., :, :, None] * B[..., None, :, :], -2)
+
+
+def mv(M, v):
+    """M @ v for small (..., i, k) and (..., k), as mm does it."""
+    return sum_fixed(M * v[..., None, :], -1)
+
+
 def quat_normalize(q):
-    return q / torch.linalg.vector_norm(q, dim=-1, keepdim=True)
+    return q / torch.sqrt(sum_fixed(q * q))[..., None]
 
 
 def quat_conj(q):
@@ -63,7 +103,7 @@ def quat_to_mat(q):
 def quat_integrate(q, omega_body, dt: float):
     """q_{t+1} = q_t ⊗ exp(dt·ω_b/2), with the small-angle series below
     |ω|² < 1e-14 (its input sanitised so the unused branch stays finite)."""
-    n2 = torch.sum(omega_body * omega_body, dim=-1, keepdim=True)
+    n2 = sum_fixed(omega_body * omega_body)[..., None]
     small = n2 < 1e-14
     angle = torch.sqrt(torch.where(small, torch.ones_like(n2), n2))
     half = 0.5 * dt * angle
@@ -107,7 +147,7 @@ def pitch_unwrapped_yxz(q, switched):
 
 def safe_norm(v, dim: int = -1, eps: float = 1e-12):
     """Euclidean norm with |v|² floored at eps (sqrt(eps) at v = 0)."""
-    n2 = torch.sum(v * v, dim=dim)
+    n2 = sum_fixed(v * v, dim)
     return torch.sqrt(torch.where(n2 < eps, torch.full_like(n2, eps), n2))
 
 
@@ -124,7 +164,7 @@ def spatial_inertia(mass, com, inertia_at_com):
     [[I_com + m c× c×ᵀ, m c×], [m c×ᵀ, m 1]]."""
     c = skew(com)
     mcx = mass[..., None, None] * c
-    top_left = inertia_at_com + mcx @ c.transpose(-1, -2)
+    top_left = inertia_at_com + mm(mcx, c.transpose(-1, -2))
     eye = torch.eye(3, dtype=c.dtype, device=c.device).expand(c.shape)
     m_eye = mass[..., None, None] * eye
     top = torch.cat([top_left, mcx], dim=-1)
@@ -135,10 +175,10 @@ def spatial_inertia(mass, com, inertia_at_com):
 def transform_spatial_inertia(I6, R, p):
     """Express a local spatial inertia in a frame where the local frame sits
     at rotation R, origin p: X I6 Xᵀ with X = [[R, p× R], [0, R]]."""
-    top = torch.cat([R, skew(p) @ R], dim=-1)
+    top = torch.cat([R, mm(skew(p), R)], dim=-1)
     bot = torch.cat([torch.zeros_like(R), R], dim=-1)
     X = torch.cat([top, bot], dim=-2)
-    return X @ I6 @ X.transpose(-1, -2)
+    return mm(mm(X, I6), X.transpose(-1, -2))
 
 
 def spatial_cross_motion(v, m):

@@ -10,7 +10,10 @@ linearization pushes 43 tangents through every substep); on CPU tensors
 PyTorch differentiates the plain versions. Reverse mode raises. On the card
 only the total torque carries a tangent: the motor's share (read by sensors
 and rewards, differentiated by nothing) is marked non-differentiable, so the
-memory-bound tangent kernel does not write it.
+memory-bound tangent kernel does not write it. bfloat16 tensors (the
+bf16 linearization knot) launch the kernels' bf16 storage variants, whose
+plain version is ``actuation_plain``: the f32 twin on the upcast inputs,
+rounded to bf16.
 """
 
 from __future__ import annotations
@@ -64,9 +67,24 @@ def spring_energy(q, stiffness3, rest_angles3, engage_sign):
     return torch.where(engaged, 0.5 * k12 * (q - r12) ** 2, torch.zeros_like(q))
 
 
+def actuation_plain(q_des, q, qd, kp, kd, torque_limits, spring_k, spring_b,
+                    rest_angles3, engage_sign):
+    """The plain version of the `actuation` kernel: (pd_torque + spring_torque,
+    pd_torque). bfloat16 arguments are upcast, run through the f32 twin and
+    the results rounded to bf16, as the kernel's bf16 variant computes in f32
+    registers between a bf16 load and a bf16 store."""
+    args = (q_des, q, qd, kp, kd, torque_limits, spring_k, spring_b, rest_angles3,
+            engage_sign)
+    if q.dtype == torch.bfloat16:
+        return tuple(t.to(q.dtype) for t in actuation_plain(*(a.float() for a in args)))
+    tau_m = pd_torque(q_des, q, qd, kp, kd, torque_limits)
+    return tau_m + spring_torque(q, qd, spring_k, spring_b, rest_angles3,
+                                 engage_sign), tau_m
+
+
 def _check_actuation_primals(q_des, q, qd, kp, kd, torque_limits, spring_k, spring_b,
                              rest_angles3, engage_sign):
-    n, dev = q.shape[0], q.device
+    n, dev, dtype = q.shape[0], q.device, q.dtype
     for name, t, shape in (
             ("q_des", q_des, (n, 12)), ("q", q, (n, 12)), ("qd", qd, (n, 12)),
             ("kp", kp, (12,)), ("kd", kd, (12,)),
@@ -74,7 +92,7 @@ def _check_actuation_primals(q_des, q, qd, kp, kd, torque_limits, spring_k, spri
             ("spring_k", spring_k, (n, 3)), ("spring_b", spring_b, (n, 3)),
             ("rest_angles3", rest_angles3, (3,)),
             ("engage_sign", engage_sign, (12,))):
-        kernels.check_tensor(name, t, shape, dev)
+        kernels.check_tensor(name, t, shape, dev, dtype)
     return n, dev
 
 
@@ -88,11 +106,14 @@ def _launch_actuation(*primals):
     if n == 0:
         return tau, tau_m
     with torch.cuda.device(dev):
-        err = kernels.library().planner_actuation(
+        err = kernels.entry("planner_actuation", q.dtype)(
             *(t.data_ptr() for t in primals), tau.data_ptr(), tau_m.data_ptr(), n,
             kernels.stream_handle(dev))
     kernels.check_launch("planner_actuation", err)
-    actuation_torque.launches += 1
+    if q.dtype == torch.float32:
+        actuation_torque.launches += 1
+    else:
+        actuation_torque.bf16_launches += 1
     return tau, tau_m
 
 
@@ -103,17 +124,21 @@ def _launch_actuation_jvp(*args):
     primals, tangents = args[:10], args[10:]
     n, dev = _check_actuation_primals(*primals)
     n_tangents = tangents[1].shape[0]
+    dtype = primals[1].dtype
     for name, t in zip(("dq_des", "dq", "dqd"), tangents):
-        kernels.check_tensor(name, t, (n_tangents, n, 12), dev)
+        kernels.check_tensor(name, t, (n_tangents, n, 12), dev, dtype)
     dtau = torch.empty_like(tangents[1])
     if n == 0 or n_tangents == 0:
         return dtau
     with torch.cuda.device(dev):
-        err = kernels.library().planner_actuation_jvp(
+        err = kernels.entry("planner_actuation_jvp", dtype)(
             *(t.data_ptr() for t in args), dtau.data_ptr(), n, n_tangents,
             kernels.stream_handle(dev))
     kernels.check_launch("planner_actuation_jvp", err)
-    actuation_torque.jvp_launches += 1
+    if dtype == torch.float32:
+        actuation_torque.jvp_launches += 1
+    else:
+        actuation_torque.bf16_jvp_launches += 1
     return dtau
 
 
@@ -178,19 +203,21 @@ def actuation_torque(q_des, q, qd, kp, kd, torque_limits, spring_k, spring_b,
 
     q_des, q, qd: (N,12). kp, kd, torque_limits, engage_sign: (12,).
     spring_k, spring_b: (N,3) per lane (zeros without springs). rest_angles3:
-    (3,). CUDA tensors launch the `actuation` kernel (and, under forward-mode
-    differentiation, `actuation_jvp` for tau_total's tangent; tau_motor then
-    carries none); CPU tensors take pd_torque + spring_torque.
+    (3,). All float32, or all bfloat16. CUDA tensors launch the `actuation`
+    kernel (and, under forward-mode differentiation, `actuation_jvp` for
+    tau_total's tangent; tau_motor then carries none), of the arguments'
+    storage type; CPU tensors take actuation_plain.
     """
     if q.device.type == "cpu":
-        tau_m = pd_torque(q_des, q, qd, kp, kd, torque_limits)
-        return tau_m + spring_torque(q, qd, spring_k, spring_b, rest_angles3,
-                                     engage_sign), tau_m
+        return actuation_plain(q_des, q, qd, kp, kd, torque_limits, spring_k, spring_b,
+                               rest_angles3, engage_sign)
     if q.device.type != "cuda":
         raise ValueError(f"actuation_torque: no kernel for device {q.device}")
     return _Actuation.apply(q_des, q, qd, kp, kd, torque_limits, spring_k, spring_b,
                             rest_angles3, engage_sign)
 
 
-actuation_torque.launches = 0       # `actuation` kernel
-actuation_torque.jvp_launches = 0   # `actuation_jvp` kernel
+actuation_torque.launches = 0            # `actuation` kernel
+actuation_torque.jvp_launches = 0        # `actuation_jvp` kernel
+actuation_torque.bf16_launches = 0       # their bf16 storage variants
+actuation_torque.bf16_jvp_launches = 0

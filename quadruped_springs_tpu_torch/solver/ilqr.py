@@ -26,7 +26,11 @@ Stages of one iteration:
   * forward pass: a parallel line search, all n_alphas step sizes of all
     problems rolled out as one batch, the best accepted per problem.
 Accept, reject and the regularization update are masked selects per
-problem; nothing in an iteration reads a device value on the host.
+problem; nothing in an iteration reads a device value on the host. The
+small products, sums and the Cholesky solve of the sequential sweep, the
+line search and the costs are elementwise ops summed in a fixed order
+(``models/spatial.py``), so a problem's solution does not depend on how
+many problems share its batch.
 """
 
 from __future__ import annotations
@@ -39,10 +43,14 @@ from typing import Callable
 import torch
 from torch.func import grad, jvp, vmap
 
+from quadruped_springs_tpu_torch.models import spatial as sp
+
 # Upper bound on tangent lanes (basis tangents x primal lanes) of one
-# linearization block. The widest intermediates of the Go1 dynamics are
-# (lanes,4,3,6,6) float32, 1.7 KB per lane, and a few dozen are alive at
-# once, so 2^18 tangent lanes keep a block's working set at a few GB.
+# linearization block. The widest intermediates of the Go1 dynamics are the
+# products of spatial.mm on (lanes,4,3,6,6) blocks, (lanes,4,3,6,6,6) float32,
+# 10 KB per lane, so 2^18 tangent lanes keep a block's working set at a few
+# GB (a full-width exact solve peaks at 9.13 GiB on an NVIDIA H100 80GB
+# HBM3 at 700 W).
 LIN_TANGENT_LANES = 1 << 18
 
 V_CLAMP = 1e7      # f32 safety clamp on the value function's derivatives
@@ -87,8 +95,36 @@ def _t(M):
     return M.transpose(-1, -2)
 
 
-def _mv(M, v):
-    return (M @ v[..., None])[..., 0]
+def _chol_solve(M, rhs):
+    """Solve M X = rhs for symmetric (P,m,m) M and (P,m,r) rhs by an
+    unrolled Cholesky factorization of M's lower triangle, in elementwise
+    ops (a batched library factorization picks its kernel by batch size).
+    Returns (X, ok): ok (P,) is False where a pivot is not positive or the
+    factor is not finite, as torch.linalg.cholesky_ex's info would say."""
+    m = M.shape[-1]
+    ok = torch.ones(M.shape[:-2], dtype=torch.bool, device=M.device)
+    cols = []                                  # cols[j] = L[j:, j], (P, m-j)
+    S = M
+    for j in range(m):
+        d2 = S[:, 0, 0]
+        d = torch.sqrt(d2)
+        col = torch.cat([d[:, None], S[:, 1:, 0] / d[:, None]], dim=-1)
+        ok = ok & (d2 > 0) & torch.isfinite(col).all(dim=-1)
+        cols.append(col)
+        if j < m - 1:
+            S = S[:, 1:, 1:] - col[:, 1:, None] * col[:, None, 1:]
+    y, ys = rhs, []
+    for j in range(m):                         # forward: L y = rhs
+        yj = y[:, 0] / cols[j][:, 0, None]
+        ys.append(yj)
+        y = y[:, 1:] - cols[j][:, 1:, None] * yj[:, None]
+    xs = [None] * m
+    for i in reversed(range(m)):               # back: Lᵀ x = y
+        acc = ys[i]
+        for k in range(i + 1, m):
+            acc = acc - cols[i][:, k - i, None] * xs[k]
+        xs[i] = acc / cols[i][:, 0, None]
+    return torch.stack(xs, dim=1), ok
 
 
 def _solve(A, rhs):
@@ -101,12 +137,10 @@ def _solve(A, rhs):
 def _gershgorin_min(M):
     """Gershgorin lower bound on the smallest eigenvalue of (...,m,m) M.
 
-    The row sums run over a contiguous copy: Q_uu's strides follow the
-    batch size, and a reduction sums in an order set by the strides, so
-    without it one problem's bound (and so its solve) would depend in the
-    last bits on how many problems share the batch."""
+    The row sums run in a fixed order (spatial.sum_fixed): a library
+    reduction sums in an order set by the strides and the batch size."""
     diag = torch.diagonal(M, dim1=-2, dim2=-1)
-    offdiag = M.abs().contiguous().sum(-1) - diag.abs()
+    offdiag = sp.sum_fixed(M.abs()) - diag.abs()
     return (diag - offdiag).min(dim=-1).values
 
 
@@ -129,11 +163,11 @@ def lqt_elements(A, B, lx, lu, lxx, luu, lux, VxT, VxxT, reg):
 
     Rinv_N = _solve(R, lux)                          # (P,H,m,n)
     Rinv_r = _solve(R, lu[..., None])[..., 0]        # (P,H,m)
-    At = A - B @ Rinv_N                              # Ã = A − B R⁻¹ N
-    ct = -_mv(B, Rinv_r)                             # c̃ = −B R⁻¹ r
-    Qt = lxx - _t(lux) @ Rinv_N                      # Q̃ = Q − NᵀR⁻¹N
-    qt = lx - _mv(_t(lux), Rinv_r)                   # q̃ = q − NᵀR⁻¹r
-    Ct = B @ _solve(R, _t(B))                        # C = B R⁻¹ Bᵀ
+    At = A - sp.mm(B, Rinv_N)                        # Ã = A − B R⁻¹ N
+    ct = -sp.mv(B, Rinv_r)                           # c̃ = −B R⁻¹ r
+    Qt = lxx - sp.mm(_t(lux), Rinv_N)                # Q̃ = Q − NᵀR⁻¹N
+    qt = lx - sp.mv(_t(lux), Rinv_r)                 # q̃ = q − NᵀR⁻¹r
+    Ct = sp.mm(B, _solve(R, _t(B)))                  # C = B R⁻¹ Bᵀ
 
     z_nn = torch.zeros_like(A[:, :1])
     z_n = torch.zeros_like(lx[:, :1])
@@ -156,13 +190,13 @@ def lqt_combine(e_later, e_earlier):
     Ai, bi, Ci, etai, Ji = e_earlier
     Aj, bj, Cj, etaj, Jj = e_later
     eye_n = torch.eye(Ai.shape[-1], dtype=Ai.dtype, device=Ai.device).expand_as(Ai)
-    AjX = Aj @ _solve(eye_n + Ci @ Jj, eye_n)            # A_j (I + C_i J_j)⁻¹
-    AiT_Y = _t(Ai) @ _solve(eye_n + Jj @ Ci, eye_n)      # A_iᵀ (I + J_j C_i)⁻¹
-    A_new = AjX @ Ai
-    b_new = _mv(AjX, bi + _mv(Ci, etaj)) + bj
-    C_new = AjX @ Ci @ _t(Aj) + Cj
-    eta_new = _mv(AiT_Y, etaj - _mv(Jj, bi)) + etai
-    J_new = AiT_Y @ Jj @ Ai + Ji
+    AjX = sp.mm(Aj, _solve(eye_n + sp.mm(Ci, Jj), eye_n))      # A_j (I + C_i J_j)⁻¹
+    AiT_Y = sp.mm(_t(Ai), _solve(eye_n + sp.mm(Jj, Ci), eye_n))  # A_iᵀ (I + J_j C_i)⁻¹
+    A_new = sp.mm(AjX, Ai)
+    b_new = sp.mv(AjX, bi + sp.mv(Ci, etaj)) + bj
+    C_new = sp.mm(sp.mm(AjX, Ci), _t(Aj)) + Cj
+    eta_new = sp.mv(AiT_Y, etaj - sp.mv(Jj, bi)) + etai
+    J_new = sp.mm(sp.mm(AiT_Y, Jj), Ai) + Ji
     return (A_new, b_new, C_new, eta_new, J_new)
 
 
@@ -170,10 +204,10 @@ def lqt_gains(S1, s1, A, B, R, lu, lux):
     """Per-knot gains from the NEXT knot's value function (S_{k+1}, s_{k+1})
     in the original (u, A) coordinates: Qu = lu + Bᵀs', Qux = lux + BᵀS'A,
     Quu = R + BᵀS'B. All knots at once."""
-    BtS = _t(B) @ S1
-    Quu = R + BtS @ B
-    rhs_k = _mv(_t(B), s1) + lu
-    rhs_K = BtS @ A + lux
+    BtS = sp.mm(_t(B), S1)
+    Quu = R + sp.mm(BtS, B)
+    rhs_k = sp.mv(_t(B), s1) + lu
+    rhs_K = sp.mm(BtS, A) + lux
     sol = _solve(Quu, torch.cat([rhs_k[..., None], rhs_K], dim=-1))
     return -sol[..., 0], -sol[..., 1:]
 
@@ -226,16 +260,16 @@ def riccati_sequential(A, B, lx, lu, lxx, luu, lux, Vx, Vxx, reg, config: ILQRCo
     for t in reversed(range(H)):
         A_t, B_t = A[:, t], B[:, t]
         At_T, Bt_T = _t(A_t), _t(B_t)
-        Qx = lx[:, t] + _mv(At_T, Vx)
-        Qu = lu[:, t] + _mv(Bt_T, Vx)
-        BtV = Bt_T @ Vxx
-        Qxx = lxx[:, t] + At_T @ Vxx @ A_t
-        Quu = luu[:, t] + BtV @ B_t
-        Qux = lux[:, t] + BtV @ A_t
+        Qx = lx[:, t] + sp.mv(At_T, Vx)
+        Qu = lu[:, t] + sp.mv(Bt_T, Vx)
+        BtV = sp.mm(Bt_T, Vxx)
+        Qxx = lxx[:, t] + sp.mm(sp.mm(At_T, Vxx), A_t)
+        Quu = luu[:, t] + sp.mm(BtV, B_t)
+        Qux = lux[:, t] + sp.mm(BtV, A_t)
         if config.reg_mode == "tassa":
-            BtVr = Bt_T @ (Vxx + reg[:, None, None] * eye_n)
-            Quu_r = luu[:, t] + BtVr @ B_t
-            Qux_r = lux[:, t] + BtVr @ A_t
+            BtVr = sp.mm(Bt_T, Vxx + reg[:, None, None] * eye_n)
+            Quu_r = luu[:, t] + sp.mm(BtVr, B_t)
+            Qux_r = lux[:, t] + sp.mm(BtVr, A_t)
         else:
             Quu_r, Qux_r = Quu, Qux
         if config.pd_shift == "eig":
@@ -244,18 +278,18 @@ def riccati_sequential(A, B, lx, lu, lxx, luu, lux, Vx, Vxx, reg, config: ILQRCo
             lam_min = _gershgorin_min(Quu_r)
         mu_t = reg + torch.clamp_min(-lam_min, 0.0) + 1e-6
         Quu_reg = Quu_r + mu_t[:, None, None] * eye_m
-        # cholesky_ex neither raises nor synchronises on a non-PD matrix
-        L, info = torch.linalg.cholesky_ex(Quu_reg, check_errors=False)
-        ok = ok & (info == 0) & torch.isfinite(L).all(dim=(1, 2))
-        sol = torch.cholesky_solve(torch.cat([Qu[..., None], Qux_r], dim=-1), L)
+        # neither raises nor synchronises on a non-PD matrix
+        sol, pd = _chol_solve(Quu_reg, torch.cat([Qu[..., None], Qux_r], dim=-1))
+        ok = ok & pd
         k, K = -sol[..., 0], -sol[..., 1:]
         Kt = _t(K)
-        Vx = Qx + _mv(Kt @ Quu, k) + _mv(Kt, Qu) + _mv(_t(Qux), k)
-        Vxx = Qxx + Kt @ Quu @ K + Kt @ Qux + _t(Qux) @ K
+        KtQuu = sp.mm(Kt, Quu)
+        Vx = Qx + sp.mv(KtQuu, k) + sp.mv(Kt, Qu) + sp.mv(_t(Qux), k)
+        Vxx = Qxx + sp.mm(KtQuu, K) + sp.mm(Kt, Qux) + sp.mm(_t(Qux), K)
         Vxx = 0.5 * (Vxx + _t(Vxx))
         Vx = torch.clamp(Vx, -V_CLAMP, V_CLAMP)
         Vxx = torch.clamp(Vxx, -V_CLAMP, V_CLAMP)
-        dV = dV + (k * Qu).sum(-1) + 0.5 * (k * _mv(Quu, k)).sum(-1)
+        dV = dV + sp.sum_fixed(k * Qu) + 0.5 * sp.sum_fixed(k * sp.mv(Quu, k))
         ks[t], Ks[t] = k, K
     return torch.stack(ks, dim=1), torch.stack(Ks, dim=1), dV, ok
 
@@ -312,11 +346,15 @@ def linearization_blocks(batch: int, horizon: int, n_tangents: int) -> int:
 def solve_batched(dynamics: Callable, stage_cost: Callable, terminal_cost: Callable,
                   x0s: torch.Tensor, u_inits: torch.Tensor,
                   config: ILQRConfig = ILQRConfig(),
-                  stage_times: dict | None = None) -> ILQRSolution:
+                  stage_times: dict | None = None,
+                  dynamics_lin: Callable | None = None) -> ILQRSolution:
     """Minimize Σ_t l(x_t, u_t, t) + lf(x_H) s.t. x_{t+1} = f(x_t, u_t) for B
     problems: x0s (B,n), u_inits (B,H,m) warm starts. A dict passed as
     `stage_times` receives the seconds spent per stage ("rollout",
-    "linearize", "cost_derivatives", "backward", "line_search")."""
+    "linearize", "cost_derivatives", "backward", "line_search").
+    `dynamics_lin`, batched like `dynamics`, is used for the A/B Jacobians
+    alone (e.g. a bfloat16 knot); rollouts, costs and the Riccati sweep use
+    `dynamics`."""
     Bsz, H, m = u_inits.shape
     n = x0s.shape[1]
     dev, dtype = x0s.device, x0s.dtype
@@ -328,11 +366,13 @@ def solve_batched(dynamics: Callable, stage_cost: Callable, terminal_cost: Calla
     knots_per_block = linearization_blocks(Bsz, H, n + m)
 
     def total_cost(xs, us):
-        return stage_cost(xs[..., :-1, :], us, ts).sum(-1) + terminal_cost(xs[..., -1, :])
+        return (sp.sum_fixed(stage_cost(xs[..., :-1, :], us, ts))
+                + terminal_cost(xs[..., -1, :]))
 
     def linearize(Xs, Us):
         Z = torch.cat([Xs[:, :-1], Us], dim=-1)               # (B,H,n+m)
-        f = lambda z: dynamics(z[..., :n], z[..., n:])
+        dyn_jac = dynamics if dynamics_lin is None else dynamics_lin
+        f = lambda z: dyn_jac(z[..., :n], z[..., n:])
         cols = [_basis_jvp(f, Z[:, h:h + knots_per_block])[1]
                 for h in range(0, H, knots_per_block)]        # (n+m,B,knots,n) each
         J = torch.cat(cols, dim=2).permute(1, 2, 3, 0)        # (B,H,n,n+m)
@@ -363,7 +403,7 @@ def solve_batched(dynamics: Callable, stage_cost: Callable, terminal_cost: Calla
         X = x0s[:, None].expand(Bsz, config.n_alphas, n)
         xs, us = [X], []
         for t in range(H):
-            fb = torch.einsum("bmn,ban->bam", Ks[:, t], X - Xs[:, None, t])
+            fb = sp.mv(Ks[:, None, t], X - Xs[:, None, t])
             U = clip_u(Us[:, None, t] + alphas[None, :, None] * ks[:, None, t] + fb)
             X = dynamics(X, U)
             xs.append(X)

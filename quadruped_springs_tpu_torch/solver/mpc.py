@@ -2,9 +2,10 @@
 MPPI solvers.
 
 Port of ``quadruped_springs_tpu.solver.mpc``. Of the JAX MPCConfig, the
-bfloat16 linearization (``lin_dtype``) is not ported yet and the scan
-unroll factors (``ilqr_unroll``, ``substep_unroll``) have no counterpart in
-eager PyTorch.
+scan unroll factors (``ilqr_unroll``, ``substep_unroll``) have no
+counterpart in eager PyTorch. ``lin_dtype="bf16"`` linearizes on a knot
+computed in bfloat16 (``MPCProblem.dynamics`` with lanes built for that
+type), as the JAX package's ``dynamics(..., dtype=jnp.bfloat16)`` does.
 
 State vector layout (n=37): [pos(3), quat(4), lin_vel(3), ang_vel(3),
 q(12), qd(12)].
@@ -52,6 +53,10 @@ class MPCConfig:
     # (ILQRConfig.relin_every).
     backward: str = "sequential"
     relin_every: int = 1
+    # dtype of the A/B Jacobian sweep only ("f32" or "bf16"): rollouts,
+    # costs and the Riccati sweep stay f32 (ilqr.solve_batched's
+    # dynamics_lin).
+    lin_dtype: str = "f32"
     # Planner integration: 2 substeps per 100 Hz knot (200 Hz) on a relaxed
     # contact (4 kN/m, 40 N s/m) by default; MPCConfig.full_rate() plans on
     # the 1 kHz execution model instead. The JAX module gives the reasons.
@@ -95,6 +100,20 @@ class LaneParams:
     spring_b: torch.Tensor   # (N,3)
 
 
+LIN_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
+
+
+def cast_floats(obj, dtype: torch.dtype):
+    """A tensor, or a dataclass with its floating tensors (and those of the
+    dataclasses it holds) cast to dtype; anything else as it is."""
+    if torch.is_tensor(obj):
+        return obj.to(dtype) if obj.is_floating_point() else obj
+    if dataclasses.is_dataclass(obj):
+        return dataclasses.replace(obj, **{f.name: cast_floats(getattr(obj, f.name), dtype)
+                                           for f in dataclasses.fields(obj) if f.init})
+    return obj
+
+
 class MPCProblem:
     """Static problem definition on one device; exposes dynamics/cost/solve."""
 
@@ -122,10 +141,27 @@ class MPCProblem:
             relin_every=config.relin_every)
         self.engage_sign = torch.as_tensor(act.SPRING_ENGAGE_SIGN, dtype=torch.float32,
                                            device=self.device)
+        if config.lin_dtype not in LIN_DTYPES:
+            raise ValueError(f"lin_dtype {config.lin_dtype!r}: expected one of "
+                             f"{sorted(LIN_DTYPES)}")
+        self._knot_constants = {}
+
+    def knot_constants(self, dtype: torch.dtype) -> dict:
+        """The robot constants a knot reads, in dtype, made once per type."""
+        if dtype not in self._knot_constants:
+            cfg, c = self.cfg, lambda t: cast_floats(t, dtype)
+            self._knot_constants[dtype] = {
+                "iface": c(self.iface), "kp": c(cfg.motor_kp), "kd": c(cfg.motor_kd),
+                "torque_limits": c(cfg.torque_limits), "rest": c(cfg.spring_rest_angles),
+                "velocity_limits": c(cfg.velocity_limits), "sign": c(self.engage_sign)}
+        return self._knot_constants[dtype]
 
     def lane_params(self, scenario: rnd.ScenarioParams | None = None,
-                    repeats: int = 1) -> LaneParams:
-        """Expand B scenarios (nominal: one) to B·repeats lanes."""
+                    repeats: int = 1, dtype: torch.dtype = torch.float32) -> LaneParams:
+        """Expand B scenarios (nominal: one) to B·repeats lanes. With a dtype
+        other than float32 every constant is cast to it, the contact
+        stiffness and damping rounded to it, as the JAX package's knot casts
+        its SimParams."""
         if scenario is None:
             scenario = rnd.nominal_params(self.cfg)
         model = rnd.model_from_params(scenario).repeat_lanes(repeats)
@@ -135,34 +171,46 @@ class MPCProblem:
             k, b = torch.zeros_like(k), torch.zeros_like(b)
         params = dataclasses.replace(self.sim_params,
                                      friction=per_lane(scenario.friction))
-        return LaneParams(model=model, params=params, spring_k=k, spring_b=b)
+        lanes = LaneParams(model=model, params=params, spring_k=k, spring_b=b)
+        if dtype == torch.float32:
+            return lanes
+        rounded = lambda v: float(torch.tensor(v, dtype=dtype))
+        lanes = cast_floats(lanes, dtype)
+        return dataclasses.replace(lanes, params=dataclasses.replace(
+            lanes.params, contact_stiffness=rounded(params.contact_stiffness),
+            contact_damping=rounded(params.contact_damping)))
 
     # -- dynamics: one 100 Hz control knot = solver_substeps planner substeps --
     def dynamics(self, x: torch.Tensor, u: torch.Tensor,
                  lanes: LaneParams) -> torch.Tensor:
         """One planner knot for N lanes: x (N,37), u (N,m) -> (N,37), with
-        the lanes' constants from lane_params."""
-        cfg = self.cfg
-        q_des = ci.action_to_command(self.iface, u).contiguous()
-        s = vec_to_state(x)
+        the lanes' constants from lane_params. The knot computes in the
+        lanes' type: with lanes built for bfloat16, x and u are cast to it,
+        every state and intermediate is bf16 (the kernels launch their bf16
+        variants), and the result is cast back to x's type."""
+        dtype = lanes.spring_k.dtype
+        c = self.knot_constants(dtype)
+        q_des = ci.action_to_command(c["iface"], u.to(dtype)).contiguous()
+        s = vec_to_state(x.to(dtype))
         for _ in range(self.config.solver_substeps):
             tau, _ = act.actuation_torque(
-                q_des, s.q.contiguous(), s.qd.contiguous(), cfg.motor_kp, cfg.motor_kd,
-                cfg.torque_limits, lanes.spring_k, lanes.spring_b,
-                cfg.spring_rest_angles, self.engage_sign)
-            s, _ = dyn.step(lanes.model, lanes.params, s, tau, cfg.velocity_limits)
-        return state_to_vec(s)
+                q_des, s.q.contiguous(), s.qd.contiguous(), c["kp"], c["kd"],
+                c["torque_limits"], lanes.spring_k, lanes.spring_b, c["rest"], c["sign"])
+            s, _ = dyn.step(lanes.model, lanes.params, s, tau, c["velocity_limits"])
+        return state_to_vec(s).to(x.dtype)
 
-    def lane_dynamics(self, scenario: rnd.ScenarioParams):
+    def lane_dynamics(self, scenario: rnd.ScenarioParams,
+                      dtype: torch.dtype = torch.float32):
         """The solvers' dynamics for B problems, one scenario each:
-        f(x (B,R,n), u (B,R,m)) -> (B,R,n) for R lanes per problem. The
-        lanes' constants are built once per R and reused by every knot."""
+        f(x (B,R,n), u (B,R,m)) -> (B,R,n) for R lanes per problem, the knot
+        computed in dtype. The lanes' constants are built once per R and
+        reused by every knot."""
         lanes = {}
 
         def dyn_fn(x, u):
             B, R = x.shape[:2]
             if R not in lanes:
-                lanes[R] = self.lane_params(scenario, R)
+                lanes[R] = self.lane_params(scenario, R, dtype)
             out = self.dynamics(x.reshape(B * R, -1), u.reshape(B * R, -1), lanes[R])
             return out.reshape(B, R, -1)
 
@@ -173,12 +221,16 @@ class MPCProblem:
                     scenarios: rnd.ScenarioParams | None = None,
                     stage_times: dict | None = None) -> ilqr.ILQRSolution:
         """iLQR solve of B problems: x0s (B,37), u_inits (B,H,m), one
-        scenario per problem (nominal when None). See ilqr.solve_batched."""
+        scenario per problem (nominal when None). With lin_dtype "bf16" the
+        Jacobians come from the bf16 knot. See ilqr.solve_batched."""
         if scenarios is None:
             scenarios = rnd.nominal_params(self.cfg, x0s.shape[0])
+        lin_dtype = LIN_DTYPES[self.config.lin_dtype]
+        dyn_lin = (None if lin_dtype == torch.float32
+                   else self.lane_dynamics(scenarios, lin_dtype))
         return ilqr.solve_batched(self.lane_dynamics(scenarios), self.stage_cost,
                                   self.terminal_cost, x0s, u_inits, self.ilqr_config,
-                                  stage_times)
+                                  stage_times, dynamics_lin=dyn_lin)
 
     def solve(self, x0: torch.Tensor, u_init: torch.Tensor,
               scenario: rnd.ScenarioParams | None = None) -> ilqr.ILQRSolution:

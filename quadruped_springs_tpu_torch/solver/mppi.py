@@ -5,7 +5,10 @@ one problem and is vmapped, ``solve`` takes B problems at once: x0 (B,n),
 u_init (B,H,m). The K candidates of every problem roll out together as
 B·K lanes; ``dynamics(x, u)`` receives x (B,R,n) and u (B,R,m) for R
 sequences per problem (R = K for the samples, 1 or 2 for the exact
-re-evaluations) and returns (B,R,n). The time loop is a Python loop.
+re-evaluations) and returns (B,R,n). The time loop is a Python loop. The
+sums over the horizon and over the samples are elementwise adds in a fixed
+order (``models/spatial.py``), so a problem's solution does not depend on
+how many problems share its batch.
 
 The bfloat16 sample path of the JAX solver (``sample_dtype``) is not
 ported: it cost solution quality.
@@ -17,6 +20,8 @@ import dataclasses
 from typing import Callable
 
 import torch
+
+from quadruped_springs_tpu_torch.models import spatial as sp
 
 
 @dataclasses.dataclass(frozen=True)
@@ -93,7 +98,7 @@ def solve(dynamics: Callable, stage_cost: Callable, terminal_cost: Callable,
             x = dynamics(x, us[:, :, t])
             xs.append(x)
         xs = torch.stack(xs, dim=2)
-        cost = stage_cost(xs[:, :, :-1], us, ts).sum(-1) + terminal_cost(xs[:, :, -1])
+        cost = sp.sum_fixed(stage_cost(xs[:, :, :-1], us, ts)) + terminal_cost(xs[:, :, -1])
         return xs, cost
 
     def perturbation(i):
@@ -109,8 +114,8 @@ def solve(dynamics: Callable, stage_cost: Callable, terminal_cost: Callable,
         beta = costs.min(dim=-1, keepdim=True).values
         w = torch.exp(-(costs - beta) / config.temperature)
         w = torch.where(costs <= kth, w, torch.zeros_like(w))
-        w = w / torch.clamp_min(w.sum(-1, keepdim=True), 1e-12)
-        return clip_u(torch.einsum("bk,bkhm->bhm", w, cand))
+        w = w / torch.clamp_min(sp.sum_fixed(w), 1e-12)[:, None]
+        return clip_u(sp.sum_fixed(w[:, :, None, None] * cand, 1))
 
     us0 = clip_u(u_init)
     sigmas = config.sigma * config.sigma_decay ** torch.arange(

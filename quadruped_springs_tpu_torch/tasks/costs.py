@@ -59,7 +59,7 @@ def _upright(x):
 
 
 def _posture(cfg: Go1Config, x):
-    return torch.sum((_q(x) - cfg.init_joint_angles) ** 2, dim=-1)
+    return sp.sum_fixed((_q(x) - cfg.init_joint_angles) ** 2)
 
 
 def _body_pitch_rate(x):
@@ -84,7 +84,7 @@ def make_cost(task: str, cfg: Go1Config, action_dim: int, horizon: int,
     w_qd = 2e-4         # joint-velocity damping
 
     def base_stage(x, u, t):
-        return w_u * torch.sum(u * u, dim=-1) + w_qd * torch.sum(_qd(x) ** 2, dim=-1)
+        return w_u * sp.sum_fixed(u * u) + w_qd * sp.sum_fixed(_qd(x) ** 2)
 
     if task.startswith("JUMPING_IN_PLACE") or task in ("JIP_PPO",):
         w_h, w_x, w_pitch, w_up = 60.0, 8.0, 4.0, 10.0
@@ -183,13 +183,13 @@ def make_cost(task: str, cfg: Go1Config, action_dim: int, horizon: int,
                                 ang_vel=_omega(flat), q=_q(flat), qd=_qd(flat))
             p_w, _, radii, _ = dyn.site_state_world(model, st)
             gap = p_w[:, 4:, 2] - radii[4:] - clear_margin
-            return torch.sum(torch.clamp_max(gap, 0.0) ** 2, dim=-1).reshape(x.shape[:-1])
+            return sp.sum_fixed(torch.clamp_max(gap, 0.0) ** 2).reshape(x.shape[:-1])
 
         def stage(x, u, t):
             return (base_stage(x, u, t)
                     + w_up * 0.25 * _upright(x)
                     + w_z * 0.1 * (_pos(x)[..., 2] - 0.30) ** 2
-                    + w_w * torch.sum(_omega(x) ** 2, dim=-1)
+                    + w_w * sp.sum_fixed(_omega(x) ** 2)
                     + w_q * 0.1 * _posture(cfg, x)
                     + w_clear * bumper_violation(x))
 
@@ -197,8 +197,8 @@ def make_cost(task: str, cfg: Go1Config, action_dim: int, horizon: int,
             return (w_up * _upright(x)
                     + w_z * (_pos(x)[..., 2] - 0.30) ** 2
                     + w_q * _posture(cfg, x)
-                    + w_w * torch.sum(_omega(x) ** 2, dim=-1)
-                    + 0.5 * torch.sum(_vel(x) ** 2, dim=-1)
+                    + w_w * sp.sum_fixed(_omega(x) ** 2)
+                    + 0.5 * sp.sum_fixed(_vel(x) ** 2)
                     + w_clear * bumper_violation(x))
 
         return stage, terminal

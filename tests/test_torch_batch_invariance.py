@@ -1,0 +1,106 @@
+"""A problem's answer does not depend on how many problems share its batch.
+
+The planner knot, its 43 basis tangents (the iLQR linearization), a short
+BACKFLIP solve_batch and a short MPPI solve of the bench's problem are run
+on the first rows of a batch of ROWS problems, alone and in the whole batch,
+and must agree bitwise: the small products, sums and the Cholesky solve on
+these paths are elementwise ops summed in a fixed order (models/spatial.py),
+so nothing sums in an order the batch size picks. chip_smoke.py phase 18
+holds the same on the card at 1,024, 8 and 2 rows. Tolerance: none
+(torch.equal).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from quadruped_springs_tpu_torch.env import randomizers as rnd
+from quadruped_springs_tpu_torch.env.env import take
+from quadruped_springs_tpu_torch.solver import ilqr
+from quadruped_springs_tpu_torch.solver.mppi import MPPIConfig
+from quadruped_springs_tpu_torch.solver.mpc import MPCConfig, MPCProblem
+
+ROWS = 8
+HORIZON, ITERATIONS, ALPHAS = 4, 2, 4
+
+
+@pytest.fixture(scope="module")
+def problems():
+    prob = MPCProblem(MPCConfig(task="BACKFLIP", horizon=HORIZON, iterations=ITERATIONS,
+                                n_alphas=ALPHAS), "cpu")
+    rng = np.random.default_rng(0)
+    scen = rnd.sample_scenario(prob.cfg, "TEST_RANDOMIZER",
+                               torch.Generator("cpu").manual_seed(0), n=ROWS)
+    x0 = prob.default_x0() + torch.as_tensor(
+        1e-3 * rng.standard_normal((ROWS, 37)), dtype=torch.float32)
+    u0 = torch.clamp(prob.task_warm_start() + torch.as_tensor(
+        0.1 * rng.standard_normal((ROWS, HORIZON, prob.action_dim)), dtype=torch.float32),
+        -1.0, 1.0)
+
+    def rows(k):
+        return x0[:k], u0[:k], take(scen, torch.arange(k))
+
+    return prob, rows
+
+
+def _knot(prob, x0, u0, scen, lanes):
+    x = x0[:, None].expand(-1, lanes, -1).contiguous()
+    u = u0[:, None, 0].expand(-1, lanes, -1).contiguous()
+    return prob.lane_dynamics(scen)(x, u)
+
+
+@pytest.mark.parametrize("k", [1, 2])
+@pytest.mark.parametrize("lanes", [1, ALPHAS])
+def test_knot_is_batch_invariant(problems, k, lanes):
+    prob, rows = problems
+    whole = _knot(prob, *rows(ROWS), lanes)
+    assert torch.equal(_knot(prob, *rows(k), lanes), whole[:k])
+
+
+@pytest.mark.parametrize("k", [1, 2])
+def test_knot_tangents_are_batch_invariant(problems, k):
+    prob, rows = problems
+
+    def tangents(x0, u0, scen):
+        f = prob.lane_dynamics(scen)
+        z = torch.cat([x0, u0[:, 0]], dim=-1)[:, None]
+        return ilqr._basis_jvp(lambda z: f(z[..., :37], z[..., 37:]), z)[1]
+
+    whole = tangents(*rows(ROWS))
+    assert whole.shape == (37 + prob.action_dim, ROWS, 1, 37)
+    assert torch.equal(tangents(*rows(k)), whole[:, :k])
+
+
+@pytest.mark.parametrize("k", [1, 2])
+def test_solve_batch_is_batch_invariant(problems, k):
+    prob, rows = problems
+    whole = prob.solve_batch(*rows(ROWS))
+    part = prob.solve_batch(*rows(k))
+    assert bool(torch.isfinite(whole.cost).all())
+    for field in ("cost", "cost_trace", "us", "xs", "reg"):
+        assert torch.equal(getattr(part, field), getattr(whole, field)[:k]), field
+
+
+@pytest.mark.parametrize("k", [1, 2])
+def test_solve_mppi_is_batch_invariant(k):
+    """The headline's MPPI (JUMPING_IN_PLACE on the relaxed model, fused
+    accept) with its standard-normal draws given, the rows' draws the same
+    at every batch size."""
+    prob = MPCProblem(MPCConfig(task="JUMPING_IN_PLACE", horizon=HORIZON,
+                                iterations=ITERATIONS), "cpu")
+    cfg = MPPIConfig(horizon=HORIZON, iterations=ITERATIONS, n_samples=8, fused_accept=True)
+    scen = rnd.sample_scenario(prob.cfg, "TEST_RANDOMIZER",
+                               torch.Generator("cpu").manual_seed(1), n=ROWS)
+    x0 = prob.default_x0().expand(ROWS, -1)
+    u0 = prob.task_warm_start().expand(ROWS, -1, -1)
+    noise = torch.randn((ITERATIONS, ROWS, cfg.n_samples, HORIZON, prob.action_dim),
+                        generator=torch.Generator("cpu").manual_seed(2))
+
+    def solve(k):
+        return prob.solve_mppi(x0[:k], u0[:k], config=cfg, scenario=take(scen, torch.arange(k)),
+                               noise=noise[:, :k])
+
+    whole, part = solve(ROWS), solve(k)
+    assert bool(torch.isfinite(whole.cost).all())
+    for field in ("cost", "cost_trace", "us", "xs"):
+        assert torch.equal(getattr(part, field), getattr(whole, field)[:k]), field

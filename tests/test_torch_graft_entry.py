@@ -6,10 +6,21 @@ iterations, 6 line-search candidates).
 The solve is badly conditioned in float32 (tests/test_torch_ilqr_go1.py::
 test_solve_batch_matches_jax: a 1e-5 relative change of A moves the first
 accepted cost by 5e-4 relative, and later iterations may accept another
-alpha), so the two packages' controls part after the first iterations and
-their final costs are held to that test's 15%. What is exact is held
-exactly: each package's cost is the cost of its controls under the other
-package's model, to ROLLOUT_RTOL.
+alpha), so the two packages' controls part after the first iteration, and
+from then on a solve's final cost is chaotic in the last bits of its start.
+Measured on the CPU, with the start moved by float32(1 + 1e-7 N(0,1)) per
+seed (numpy, seeds 1-11): JAX's own final cost ranges over -24.13 to -34.45
+(-24.67 from the entry's start; 6 of the 11 moved starts land more than 15%
+from it), the port's over -24.12 to -35.50 (-29.26 from the entry's start).
+One start's final costs are two draws from that spread, so they are held
+over the entry's start and the 11 moved ones: the mean final costs to that
+test's 15%, both ways (measured -27.66 against -28.45). The first
+iteration, before the packages part, is held at the entry's start to that
+test's 2e-3 relative (measured 8.9e-5), and both cost traces must not
+increase. What is exact is held exactly: each package's cost is the cost of
+its controls under the other package's model, to ROLLOUT_RTOL; and the
+port's batched solve of all starts gives the entry's answer bitwise in its
+first row.
 """
 
 import jax
@@ -24,6 +35,8 @@ from quadruped_springs_tpu_torch import graft_entry
 from quadruped_springs_tpu_torch.solver import mpc as tmpc
 
 COST_RTOL = 0.15        # tests/test_torch_ilqr_go1.py::test_solve_batch_matches_jax
+FIRST_RTOL = 2e-3       # the same test's bound on the first iteration's cost
+MOVED_STARTS = 11
 # a 25-knot rollout of the same controls by both packages: 7.4e-5 and 5.5e-5
 # measured, the stiff contact carrying each knot's rounding into the next
 ROLLOUT_RTOL = 2e-4
@@ -48,14 +61,36 @@ def _torch_rollout_cost(tprob, x0, us):
     return (total + tprob.terminal_cost(x))[0]
 
 
+def _moved_starts(x0):
+    """The entry's start, then MOVED_STARTS starts moved by float32(1 + 1e-7
+    N(0,1)), one numpy seed each (1, 2, ...)."""
+    return [x0] + [(x0 * (1 + 1e-7 * np.random.default_rng(seed).standard_normal(x0.shape))
+                    ).astype(np.float32) for seed in range(1, MOVED_STARTS + 1)]
+
+
 @pytest.fixture(scope="module")
 def solves():
     jfn, jargs = jentry.entry()
-    jus, jcost = jax.jit(jfn)(*jargs)
+    jsolve = jax.jit(jfn)
+    jus, jcost = jsolve(*jargs)
     fn, args = graft_entry.entry("cpu")
     us, cost = fn(*args)
+    # the cost traces of the same solves, through the entries' own problems
+    jtrace = jax.jit(jentry._problem(horizon=25, iterations=5, n_alphas=6).solve)(
+        *jargs).cost_trace
+    tprob = graft_entry._problem(horizon=25, iterations=5, n_alphas=6, device="cpu")
+    trace = tprob.solve(*args).cost_trace
+    # the same solves from the moved starts: JAX's entry one start at a time,
+    # the port's all starts as one batch
+    starts = _moved_starts(np.asarray(jargs[0]))
+    jcosts = [float(jsolve(jnp.asarray(x), jargs[1])[1]) for x in starts]
+    batch = tprob.solve_batch(torch.from_numpy(np.stack(starts)),
+                              args[1].expand(len(starts), -1, -1))
     return {"jargs": [np.asarray(a) for a in jargs], "jus": np.asarray(jus),
-            "jcost": float(jcost), "args": args, "us": us, "cost": float(cost)}
+            "jcost": float(jcost), "args": args, "us": us, "cost": float(cost),
+            "jtrace": np.asarray(jtrace), "trace": trace.numpy(),
+            "jcosts": np.asarray(jcosts), "batch_us": batch.us,
+            "costs": batch.cost.numpy()}
 
 
 def test_entry_matches_jax(solves):
@@ -64,7 +99,14 @@ def test_entry_matches_jax(solves):
     us, jus = solves["us"], solves["jus"]
     assert us.shape == jus.shape == (25, 6) and bool(torch.isfinite(us).all())
     assert float(us.abs().max()) <= 1.0
-    np.testing.assert_allclose(solves["cost"], solves["jcost"], rtol=COST_RTOL)
+    trace, jtrace = solves["trace"], solves["jtrace"]
+    assert trace[-1] == solves["cost"] and jtrace[-1] == np.float32(solves["jcost"])
+    np.testing.assert_allclose(trace[0], jtrace[0], rtol=FIRST_RTOL)
+    assert (np.diff(trace) <= 0).all() and (np.diff(jtrace) <= 0).all()
+    costs, jcosts = solves["costs"], solves["jcosts"]
+    assert costs[0] == solves["cost"] and torch.equal(solves["batch_us"][0], us)
+    assert jcosts[0] == solves["jcost"] and np.isfinite(costs).all()
+    np.testing.assert_allclose(costs.mean(), jcosts.mean(), rtol=COST_RTOL)
 
 
 def test_entry_costs_are_those_of_its_controls_under_the_other_model(solves):

@@ -254,7 +254,7 @@ def test_kernel_functions_forward_mode_plumbing(monkeypatch):
 
 def test_bench_ilqr_and_closed_loop_tiny_on_cpu(capsys):
     rec = bench.main(["--device", "cpu", "--batch", "2", "--horizon", "4", "--iterations",
-                      "2", "--runs", "1", "--ilqr", "--relin-every", "2"])
+                      "2", "--runs", "1", "--ilqr", "--exact", "--relin-every", "2"])
     line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert "iLQR H=4, 2 iters, exact-f32, relin/2" in line["metric"]
     assert "on cpu" in line["metric"] and line["value"] > 0

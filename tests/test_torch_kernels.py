@@ -119,6 +119,53 @@ def test_actuation_jvp_kernel_matches_jvp_of_twin(cuda):
     _assert_close(primal[0], f(*args[:3])[0])
 
 
+def _assert_close_bf16(got, want):
+    """A bf16 variant against its plain version (both f32 arithmetic rounded
+    to bf16 once): the f32 bound plus one bf16 ulp of |want|."""
+    got, want = got.float(), want.float()
+    ulp = torch.ldexp(torch.ones_like(want), torch.frexp(want.abs())[1] - 8)
+    assert torch.all((got - want).abs() <= REL_TOL * (1 + want.abs()) + ulp)
+
+
+def test_bf16_variants_match_their_plain_versions(cuda):
+    """The four planner kernels on bfloat16 storage (the bf16 linearization
+    knot) against their plain versions on the same bf16 inputs: the f32
+    twin on the upcast inputs, rounded. Each launch counts on the bf16
+    counter and leaves the f32 one alone."""
+    bf16 = torch.bfloat16
+    args = [a.to(bf16) for a in _actuation_args(cuda)]
+    counts = (act.actuation_torque.launches, act.actuation_torque.bf16_launches)
+    tau, tau_m = act.actuation_torque(*args)
+    want, want_m = act.actuation_plain(*args)
+    assert tau.dtype == bf16
+    _assert_close_bf16(tau, want)
+    _assert_close_bf16(tau_m, want_m)
+    gen = torch.Generator(cuda).manual_seed(5)
+    tangents = [torch.randn(T_DIRS, N, 12, generator=gen, device=cuda).to(bf16)
+                for _ in range(3)]
+    dtau = act._launch_actuation_jvp(*args, *tangents)
+    f = lambda a, b, c: act.actuation_plain(a, b, c, *args[3:])[0]
+    for t in range(T_DIRS):
+        _assert_close_bf16(dtau[t], torch.func.jvp(f, tuple(args[:3]),
+                                                   tuple(d[t] for d in tangents))[1])
+    assert (act.actuation_torque.launches, act.actuation_torque.bf16_launches) == (
+        counts[0], counts[1] + 1)
+    phi, v_w, mu, dphi, dv = (t.to(bf16) for t in _contact_jvp_inputs(cuda))
+    for clamp in (False, True):
+        consts = (4000.0, 40.0, 0.02, clamp)
+        got = dyn._launch_contact(phi, v_w, mu, *consts)
+        want = dyn.contact_forces_plain(phi, v_w, mu, *consts)
+        for g, w in zip(got[:2], want[:2]):
+            _assert_close_bf16(g, w)
+        assert torch.equal(got[2], want[2])
+        df = dyn._launch_contact_jvp(phi, v_w, mu, dphi, dv, *consts)
+        fc = lambda p, v: dyn.contact_forces_plain(p, v, mu, *consts)[0]
+        for t in range(T_DIRS):
+            _assert_close_bf16(df[t], torch.func.jvp(fc, (phi, v_w), (dphi[t], dv[t]))[1])
+    torch.cuda.synchronize()
+    assert dyn.contact_forces.bf16_launches >= 2 and dyn.contact_forces.bf16_jvp_launches >= 2
+
+
 def _contact_jvp_inputs(dev):
     """Seeded sites within ±1 cm of the ground, then hand-placed lanes:
     0 out of contact; 1-2 damping clipped at ∓elastic when the clamp is on;
