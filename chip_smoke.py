@@ -6,7 +6,8 @@
 Phases (any failure raises, so the script exits non-zero):
   1. require a CUDA card (no CPU fallback); print its name and power limit;
   2. build the hand-written kernels of quadruped_springs_tpu_torch/csrc from
-     the checkout and print the build time;
+     the checkout (one nvcc per .cu, all at once) and print the build time
+     and env_substeps_kernel's registers and spills (nvcc -Xptxas -v);
   3. hold each kernel against its plain PyTorch twin on the card at the
      planner's shape (32,768 lanes), on seeded inputs plus hand-placed edge
      cases, to |kernel - twin| <= 1e-5·(1 + |twin|) (FMA contraction is the
@@ -33,15 +34,24 @@ Phases (any failure raises, so the script exits non-zero):
      springs, under the motor gains and the landing wrapper's (kp 60,
      kd 1.5); the memoryless `contact` of reset's contact priming at 1024
      x 12 sites with the execution model's 180 kN/m and 100 N s/m, clamp on
-     and off;
+     and off; then the fused `env_substeps` (a control step's physics in one
+     launch) against its plain version env_substeps_plain: 1,024 settled
+     environments x 10 substeps with every 8th lane in flight, on the
+     friction cone's boundary (anchors 5 cm off) and pushed at the trunk,
+     the command interpolated over the substeps; the same in TORQUE mode
+     and on the rack; 64 of them under the landing gains; each within
+     REL_TOL·(1+|plain|) + ENV_SPREAD x the plain version's own spread under
+     a one-ulp change of its start; rows 0-7 bitwise equal at 1,024, 8 and
+     2 environments;
   6. drive the environment rollout bench (quadruped_springs_tpu_torch.
      env_bench: 1024 environments, settle 600 substeps, one warm-up and
      ENV_SEGMENTS timed segments of T control steps x 10 substeps holding the init
      action): every environment stands after reset (height in (0.25, 0.36),
      four feet in contact, no other site) and stays upright and finite,
      no foot drifts more than CREEP_BOUND in world xy over a timed segment,
-     `actuation` and `contact_anchored` launch once per substep, and
-     env.step makes no host sync;
+     `env_substeps` launches once for the settle and once per control step
+     (`actuation` and `contact_anchored` never), and env.step makes no host
+     sync;
   7. the examples/run_episode.py flow through LandingWrapper on 64
      GROUND_RANDOMIZER environments (default 2500-substep settle, crouch
      30 steps, then extend for up to 120): every environment jumps higher
@@ -91,22 +101,25 @@ Phases (any failure raises, so the script exits non-zero):
      pair (every nominal lane must pass; the TEST_RANDOMIZER lanes with
      observation noise are counted), forward_ars, the two-stage flip policy
      through the flattened autopilot, the continuous-jumping policy over 410
-     steps; the environment's three kernels launch exactly as often as the
-     resets and env steps of each replay say;
+     steps; `env_substeps` launches once per settle and per env step of
+     each replay, `contact` once per reset, `actuation` and
+     `contact_anchored` never;
  14. two ARSTrainer.train_steps and two PPOTrainer.train_steps (one untimed
      warm-up, one timed) at the widths of the JAX package's training runs
      (quadruped_springs_tpu_torch.train_bench): every metric finite; every
      PPO step changed the actor; every ARS step rolled live steps and changed
      W unless its top returns were all equal (the update is then 0 by the
      algorithm); the observation statistics grew by the live steps; launches
-     exact; the host syncs of each step printed (the last of each must make
-     none);
+     exact (one env_substeps per settle and per control step); the host
+     syncs of each step printed (the last of each must make none);
  15. one ContinuousAutopilotEnv.step and one flattened backflip episode
      with torch.cuda.set_sync_debug_mode("error"): no read on the host;
  16. first `actuation`, `contact` and `contact_anchored` against their twins
      launched on 1 and 2 lanes (12 and 24 threads) with fidelity_env's
      constants (motor gains with springs and without, 180 kN/m, the clamp on
-     and off); then the oracle-trace gate: the six committed traces
+     and off), and `env_substeps` at one lane against its plain version (a
+     control step; the oracle replay's 2,500-substep settle); then the
+     oracle-trace gate: the six committed traces
      tests/data/oracle_*.qsts through the port's
      utils/verification.verify_against_trace at their real size (the
      fidelity env, the 2,500-substep settle, 170 control steps), one lane
@@ -145,11 +158,9 @@ Phase 11 also holds both loops to the transfer band of the JAX gate
 (executed apex > 0.45 m, upright, within LOOP_BAND of the largest planned
 apex; the JAX package's own loops meet 10% on the CPU).
 Cuts of depth, against the first form of this script: phase 4 times 1
-solve (was 3) and phase 6 runs 1 segment (was 3), to make room for phases
-8-11 and then for phase 18's second look at 8 of its scenarios; phase 7
-settles its environments for EPISODE_SETTLE substeps (the env's default is
-2,500), to make room for phase 4's full-rate row, phase 10's bf16 row and
-phase 11's full-rate loop. The host-bound runs of phases 11, 13, 16 and 17
+solve (was 3). Phase 6's 3 segments and phase 7's 2,500-substep settle,
+cut while the environment ran ~500 launches a substep, are back since its
+physics is one env_substeps launch a control step. The host-bound runs of phases 11, 13, 16 and 17
 (the two loops, the six replays, the six oracle traces, the transfer gate)
 go at once in HOST_PROCESSES spawned processes on the one card, after the
 kernel checks of phases 13, 16 and 17, and phase 18's six small solves one
@@ -182,16 +193,17 @@ LANES = BATCH * SAMPLES
 REL_TOL = 1e-5
 CANCEL_TOL = 1e-6                # ~8 ulp of f32, relative to cancelling terms
 SOURCE = "quadruped_springs_tpu_torch/csrc/planner_ops.cu"
-ENVS, ENV_STEPS, ENV_SEGMENTS, ENV_SETTLE = 1024, 100, 1, 600
+ENV_SOURCE = "quadruped_springs_tpu_torch/csrc/env_step.cu"
+ENVS, ENV_STEPS, ENV_SEGMENTS, ENV_SETTLE = 1024, 100, 3, 600
 # The anchor springs hold a static stance with ~1 mm of spring travel
 # (quadruped_springs_tpu/models/dynamics.py:71-78); a stance held by them
 # moves far less than that in a second, while the memoryless friction it
 # replaced crept ~4 cm/s. 1 mm per 1 s segment separates the two 40-fold.
 CREEP_BOUND = 1e-3
 EPISODE_ENVS, EPISODE_LEN = 64, 3.0   # episode cut to 3 s (the jump ends by ~1 s)
-# the settle before the episodes, cut from the env's 2,500 substeps to
-# env_bench's 600 (every environment stands after it, phase 6)
-EPISODE_SETTLE = 600
+# the settle before the episodes: the env's default 2,500 substeps (one
+# env_substeps launch)
+EPISODE_SETTLE = 2500
 N_TANGENTS = 43                  # n + m basis tangents of the linearization
 ILQR_ALPHAS, ILQR_TIMED_RUNS = 8, 1
 JAC_STATES = 64
@@ -241,7 +253,28 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA's data sheet
 F32_FLOPS_PER_S = 67e12          # float32 outside the tensor cores
 # float32 operations per (lane, motor or site[, tangent]), from the kernels' source
 FLOPS_PER_ELEM = {"actuation": 10, "contact": 20, "contact_anchored": 30,
-                  "actuation_jvp": 6, "contact_jvp": 25}
+                  "actuation_jvp": 6, "contact_jvp": 25,
+                  # per (environment, substep), counted by hand from
+                  # csrc/go1_dynamics.cuh and env_lane.cuh: ~2,350 per leg (its
+                  # kinematics, inertias, bias force, three sites' contact, 3x3
+                  # block and share of the base's Schur system) and ~650 for
+                  # the base (the trunk's bias, the 6x6 solve, the Euler update)
+                  "env_substeps": 10_000}
+# env_substeps against its plain version: within ENV_SPREAD times the plain
+# version's own spread, plus REL_TOL of 1 + |plain|. The spread, per
+# environment and output field, is the larger of the plain version's change
+# under a one-ulp change of its start (every joint angle one float32 ulp up)
+# and its distance to itself run in float64. Stiff contact carries a
+# rounding from substep to substep, so over a control step the kernel (soa's
+# order of operations, FMA) and the plain version (ref's order) part as far
+# as two starts one ulp apart do; where the motion is smooth (a leg swinging
+# in flight) a start moved by one ulp moves the end by about one ulp, while
+# two float32 implementations part by their roundings at every substep, which
+# the plain version's distance to its float64 self measures. The kernel's
+# body built for the CPU parts from the plain version by up to 2.4 one-ulp
+# spreads (tests/test_torch_env_substeps.py's cases).
+ENV_SPREAD = 10.0
+ENV_GAP_ROWS, ENV_GAP_BLOCK = 8, 2
 
 
 def cuda_time_ms(torch, fn, reps=30, inner=1):
@@ -519,6 +552,190 @@ def check_anchored_contact(torch, dyn, model, n, lanes=None):
     return results
 
 
+def env_substeps_args(env, state, q_des, substeps, kp=None, kd=None, ext=None,
+                      torque_mode=False, on_rack=False):
+    """env_substeps's arguments for the environments of `state` (an EnvState
+    of `env`), as QuadrupedEnv.physics passes them."""
+    from quadruped_springs_tpu_torch.env import randomizers as rnd
+
+    params = env._scenario_sim_params(state.scenario)
+    if on_rack:
+        params = dataclasses.replace(params, on_rack=True)
+    k, b = env._springs(state.scenario)
+    cfg = env.cfg
+    return (state.robot, state.foot_anchor.contiguous(), q_des,
+            rnd.model_from_params(state.scenario), params,
+            cfg.motor_kp if kp is None else kp, cfg.motor_kd if kd is None else kd,
+            cfg.torque_limits, cfg.velocity_limits, k, b, cfg.spring_rest_angles,
+            env.engage_sign, substeps, ext, torque_mode)
+
+
+def substeps_rows(out):
+    """A SubstepsOut's fields, each (N, k) in float64."""
+    r = out.robot
+    parts = {"pos": r.pos, "quat": r.quat, "lin_vel": r.lin_vel, "ang_vel": r.ang_vel,
+             "q": r.q, "qd": r.qd, "anchor": out.anchor, "tau": out.tau, "tau_m": out.tau_m,
+             "tau_m_sum": out.tau_m_sum, "foot_forces": out.foot_forces,
+             "feet_in_contact": out.feet_in_contact, "invalid_contact": out.invalid_contact}
+    return {k: v.reshape(v.shape[0], -1).double() for k, v in parts.items()}
+
+
+def _float64_args(torch, args):
+    """env_substeps's arguments with every float32 tensor in float64 (the
+    model's too): the plain version runs in either."""
+    up = lambda t: t.double() if torch.is_tensor(t) and t.dtype == torch.float32 else t
+    robot, model, params = args[0], args[3], args[4]
+    return (dataclasses.replace(robot, **{f.name: up(getattr(robot, f.name))
+                                          for f in dataclasses.fields(robot)}),
+            up(args[1]), up(args[2]),
+            dataclasses.replace(model, **{f.name: up(getattr(model, f.name))
+                                          for f in dataclasses.fields(model)}),
+            dataclasses.replace(params, friction=up(params.friction)),
+            *(up(t) for t in args[5:13]), args[13], up(args[14]), args[15])
+
+
+def check_env_substeps(torch, ss, args, reps=30):
+    """The `env_substeps` kernel against env_substeps_plain on the same
+    arguments, within REL_TOL·(1 + |plain|) + ENV_SPREAD x the plain
+    version's own spread, per environment and output field: the larger of
+    its change under a one-ulp change of its start and its distance to
+    itself in float64 (a boolean output may flip only where the spread flips
+    it). Times the kernel through its wrapper (CUDA events, median of
+    `reps`) and the plain version (its two float32 calls, the faster)."""
+    robot = args[0]
+    got = substeps_rows(ss.env_substeps(*args))
+    torch.cuda.synchronize()
+    moved = list(args)
+    moved[0] = dataclasses.replace(robot, q=torch.nextafter(robot.q, robot.q + 1.0))
+    timed = []
+
+    def plain(a):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        rows = substeps_rows(ss.env_substeps_plain(*a))
+        end.record()
+        end.synchronize()
+        timed.append(start.elapsed_time(end))
+        return rows
+
+    want, again = plain(args), plain(moved)
+    exact = substeps_rows(ss.env_substeps_plain(*_float64_args(torch, args)))
+    err, used = 0.0, 0.0
+    for k, w in want.items():
+        d = (got[k] - w).abs()
+        spread = torch.maximum((again[k] - w).abs(), (exact[k] - w).abs()).amax(
+            dim=1, keepdim=True)
+        slack = d - REL_TOL * (1.0 + w.abs())
+        bad = slack > ENV_SPREAD * spread
+        if bool(bad.any()):
+            i, j = (int(x) for x in bad.nonzero()[0])
+            raise AssertionError(
+                f"env_substeps {k}: |kernel - plain| {float(d[i, j])} at environment {i}, "
+                f"column {j} (plain {float(w[i, j])}, kernel {float(got[k][i, j])}; max "
+                f"{float(d.max())}) exceeds {REL_TOL}·(1+|plain|) + {ENV_SPREAD} x the plain "
+                f"version's spread {float(spread[i, 0])} (one ulp "
+                f"{float((again[k] - w).abs()[i].max())}, float64 "
+                f"{float((exact[k] - w).abs()[i].max())})")
+        if k not in ("feet_in_contact", "invalid_contact"):
+            err = max(err, float(d.max()))
+        over = slack.clamp_min(0.0) / spread.clamp_min(1e-30)
+        used = max(used, float(torch.where(slack > 0, over, torch.zeros_like(over)).max()))
+    one = lambda: ss.env_substeps(*args)
+    out = one()
+    n, substeps, ext = robot.q.shape[0], args[13], args[14]
+    friction = args[4].friction
+    inputs = [robot.pos, robot.quat, robot.lin_vel, robot.ang_vel, robot.q, robot.qd,
+              *args[1:3], *args[5:13], ss.pack_model(args[3]),
+              *(t for t in (friction, ext) if torch.is_tensor(t))]
+    r = out.robot
+    outputs = [r.pos, r.quat, r.lin_vel, r.ang_vel, r.q, r.qd, out.anchor, out.tau, out.tau_m,
+               out.tau_m_sum, out.foot_forces, out.feet_in_contact, out.invalid_contact]
+    return {"max_abs_err": err, "spread_used": used,
+            "ms": cuda_time_ms(torch, one, reps=reps), "profile": (one, "env_substeps_kernel"),
+            "plain_ms": min(timed), **roofline("env_substeps", n * substeps, inputs, outputs)}
+
+
+def check_env_substeps_batching(torch, ss, env, state, q_des, ext):
+    """Rows 0-ENV_GAP_ROWS-1 of one env_substeps launch at N environments,
+    at ENV_GAP_ROWS and in blocks of ENV_GAP_BLOCK: bitwise equal. Returns
+    max |d| per batching (0: bitwise)."""
+    from quadruped_springs_tpu_torch.env.env import take
+
+    def rows(a, b):
+        idx = torch.arange(a, b, device="cuda")
+        return substeps_rows(ss.env_substeps(*env_substeps_args(
+            env, take(state, idx), q_des[idx].contiguous(), q_des.shape[1],
+            ext=ext[idx].contiguous())))
+
+    n = state.robot.q.shape[0]
+    full, whole = rows(0, n), rows(0, ENV_GAP_ROWS)
+    blocks = [rows(i, i + ENV_GAP_BLOCK) for i in range(0, ENV_GAP_ROWS, ENV_GAP_BLOCK)]
+    gap = {}
+    for name, sol in ((str(n), full), (f"{ENV_GAP_ROWS // ENV_GAP_BLOCK} x {ENV_GAP_BLOCK}",
+                                       None)):
+        gap[name] = max(float(((torch.cat([b[k] for b in blocks]) if sol is None
+                                else sol[k][:ENV_GAP_ROWS]) - whole[k]).abs().max())
+                        for k in whole)
+    return gap
+
+
+def check_env_substeps_shapes(torch, ss, env_bench, landing, kind):
+    """Phase 5, last: env_substeps against its plain version at the
+    environment's shapes: 1,024 settled environments x 10 substeps with
+    lanes moved into each regime (every 8th from lane 1 in flight, from
+    lane 2 its anchors 5 cm off so the feet slide on the friction cone, from
+    lane 3 pushed at the trunk) and the command interpolated from the last
+    action to a random one; the same in TORQUE mode (random torques held)
+    and on the rack; 64 of them under the landing gains; then rows 0-7
+    bitwise at 1,024, 8 and 2 environments."""
+    from quadruped_springs_tpu_torch.control import interfaces as ci
+    from quadruped_springs_tpu_torch.env.env import take
+
+    env = env_bench.QuadrupedEnv(env_bench.bench_config(ENV_SETTLE), device="cuda")
+    gen = torch.Generator("cuda").manual_seed(21)
+    state, _ = env.reset(gen, ENVS)
+    robot, anchor = state.robot, state.foot_anchor.clone()
+    pos, lin_vel = robot.pos.clone(), robot.lin_vel.clone()
+    pos[1::8, 2] += 0.15
+    lin_vel[1::8, 2] = 1.0
+    anchor[2::8] += 0.05
+    state = dataclasses.replace(state, foot_anchor=anchor, robot=dataclasses.replace(
+        robot, pos=pos, lin_vel=lin_vel))
+    action = 2.0 * torch.rand((ENVS, env.action_dim), generator=gen, device="cuda") - 1.0
+    prev = state.last_action
+    command = lambda a: ci.action_to_command(env.iface, a).contiguous()
+    q_des = torch.stack([command(prev + ((i + 1.0) / 10) * (action - prev))
+                         for i in range(10)], dim=1)
+    ext = torch.zeros(ENVS, 3, device="cuda")
+    ext[3::8] = torch.tensor([30.0, -20.0, 10.0], device="cuda")
+    torques = 16.0 * torch.rand((ENVS, 12), generator=gen, device="cuda") - 8.0
+    held = command(action)
+    few = take(state, torch.arange(64, device="cuda"))
+    landing_q = command(env.get_landing_action().expand(64, -1))
+    checks = {
+        "env": check_env_substeps(torch, ss, env_substeps_args(env, state, q_des, 10, ext=ext)),
+        "env_torque": check_env_substeps(torch, ss, env_substeps_args(
+            env, state, torques, 10, torque_mode=True)),
+        "env_on_rack": check_env_substeps(torch, ss, env_substeps_args(
+            env, state, held, 10, on_rack=True)),
+        "env_landing_64": check_env_substeps(torch, ss, env_substeps_args(
+            env, few, landing_q, 10, *landing))}
+    gap = check_env_substeps_batching(torch, ss, env, state, q_des, ext)
+    for setting, r in checks.items():
+        print(f"phase 5: env_substeps ({setting}) at {64 if '64' in setting else ENVS} "
+              f"environments x 10 substeps: max_abs_err {r['max_abs_err']:.3e} (bound "
+              f"{REL_TOL}·(1+|plain|) + {ENV_SPREAD} x the plain version's spread; "
+              f"{r['spread_used']:.2f} spreads used), kernel {r['ms']:.4f} ms through its "
+              f"wrapper, plain {r['plain_ms']:.2f} ms; bound {r['bound_ms'] * 1e3:.2f} µs "
+              f"({r['bytes']} bytes, by {r['bound_by']}) on {kind}", flush=True)
+    print(f"phase 5: env_substeps rows 0-{ENV_GAP_ROWS - 1} of {ENVS} environments against "
+          f"the same rows launched as {ENV_GAP_ROWS} and in blocks of {ENV_GAP_BLOCK}: max |d| "
+          f"{gap} (0: bitwise equal)", flush=True)
+    if any(v != 0.0 for v in gap.values()):
+        raise AssertionError(f"phase 5: env_substeps rows depend on the batch: {gap}")
+    return checks, gap
+
+
 def check_learning_widths(torch, act, dyn, model, landing_gains):
     """Phase 13, first: the environment's three kernels against their twins at
     every lane count the learning stack launches them at (LEARNING_WIDTHS),
@@ -736,6 +953,7 @@ def run_full_rate(torch, bench, act, dyn, kind):
     per_solve = (ITERATIONS + 1) * FULL_RATE_HORIZON * 10
     substeps = rec["solves"] * per_solve
     check_counts(counts, {"actuation": substeps, "contact": substeps, "contact_anchored": 0,
+                          "env_substeps": 0,
                           "actuation_jvp": 0, "contact_jvp": 0,
                           **dict.fromkeys(BF16_KERNELS, 0)}, 4)
     mean_cost = rec["mean_final_cost"]
@@ -787,7 +1005,7 @@ def run_ilqr_solve(torch, bench, ilqr, act, dyn, kind):
     primal = S * (HORIZON + rec["solves"] * (HORIZON + ITERATIONS * (blocks + HORIZON)))
     tangent = rec["solves"] * S * ITERATIONS * blocks
     check_counts(counts, {"actuation": primal, "contact": primal, "actuation_jvp": tangent,
-                          "contact_jvp": tangent, "contact_anchored": 0,
+                          "contact_jvp": tangent, "contact_anchored": 0, "env_substeps": 0,
                           **dict.fromkeys(BF16_KERNELS, 0)}, 10)
     # the same full-width problem, its rollout and one whole iteration, under
     # the sync debug mode (no stage clock: reading its events is the one sync
@@ -828,7 +1046,7 @@ def run_ilqr_bf16(torch, bench, ilqr, act, dyn, kind, exact_cost):
     primal = S * (HORIZON + rec["solves"] * (HORIZON + ITERATIONS * HORIZON))
     lin = rec["solves"] * S * blocks * -(-ITERATIONS // relin)
     check_counts(counts, {"actuation": primal, "contact": primal, "actuation_jvp": 0,
-                          "contact_jvp": 0, "contact_anchored": 0,
+                          "contact_jvp": 0, "contact_anchored": 0, "env_substeps": 0,
                           **dict.fromkeys(BF16_KERNELS, lin)}, 10)
     gap = (rec["mean_final_cost"] - exact_cost) / abs(exact_cost)
     print(f"phase 10: {rec['solves']} full-width iLQR solves, bf16 linearization "
@@ -883,7 +1101,7 @@ def check_closed_loop(res, kind, full_rate):
         per_solve, tangent = 2 * (H + its * (1 + H)), out["solves"] * 2 * its
     primal = out["solves"] * per_solve + closed_loop.EXEC_SUBSTEPS * LOOP_KNOTS
     check_counts(counts, {"actuation": primal, "contact": primal, "actuation_jvp": tangent,
-                          "contact_jvp": tangent, "contact_anchored": 0,
+                          "contact_jvp": tangent, "contact_anchored": 0, "env_substeps": 0,
                           **dict.fromkeys(BF16_KERNELS, 0)}, 11)
     print(f"phase 11: {name} closed loop ({out['planner']}) of {LOOP_KNOTS} knots, "
           f"{out['solves']} solves (H={H}, {its} iterations) in {wall:.2f} s on {kind}: "
@@ -947,7 +1165,8 @@ def run_host_bound_paths(policy_replay, kind):
 
 
 # kernel name -> (wrapper, its launch counter)
-COUNTERS = {"actuation": ("act", "launches"), "contact": ("dyn", "launches"),
+COUNTERS = {"env_substeps": ("ss", "launches"),
+            "actuation": ("act", "launches"), "contact": ("dyn", "launches"),
             "contact_anchored": ("dyn", "anchored_launches"),
             "actuation_jvp": ("act", "jvp_launches"), "contact_jvp": ("dyn", "jvp_launches"),
             "actuation_bf16": ("act", "bf16_launches"), "contact_bf16": ("dyn", "bf16_launches"),
@@ -957,6 +1176,10 @@ BF16_KERNELS = ("actuation_bf16", "contact_bf16", "actuation_jvp_bf16", "contact
 
 
 def _counter_owner(act, dyn, which):
+    if which == "ss":
+        from quadruped_springs_tpu_torch.env import substeps
+
+        return substeps.env_substeps
     return act.actuation_torque if which == "act" else dyn.contact_forces
 
 
@@ -1007,9 +1230,9 @@ def run_env_bench(torch, env_bench, act, dyn, rnd, spatial, kind):
                         settle=ENV_SETTLE, device="cuda", on_segment=on_segment)
     torch.cuda.synchronize()
     counts = read_counts(act, dyn)
-    substeps = ENV_SETTLE + (1 + ENV_SEGMENTS) * ENV_STEPS * 10
-    check_counts(counts, {"actuation": substeps, "contact_anchored": substeps,
-                          "contact": 1}, 6)
+    # one env_substeps for the settle, one per control step
+    check_counts(counts, {"env_substeps": 1 + (1 + ENV_SEGMENTS) * ENV_STEPS,
+                          "actuation": 0, "contact_anchored": 0, "contact": 1}, 6)
     r = rec["reset_state"]
     z = r.robot.pos[:, 2]
     if not (bool(((z > 0.25) & (z < 0.36)).all()) and bool(r.feet_in_contact.all())
@@ -1089,9 +1312,8 @@ def run_landing_episode(torch, act, dyn, kind):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = read_counts(act, dyn)
-    substeps = env.config.settling_steps + 10 * steps[0]
-    check_counts(counts, {"actuation": substeps, "contact_anchored": substeps,
-                          "contact": 1}, 7)
+    check_counts(counts, {"env_substeps": 1 + steps[0], "actuation": 0,
+                          "contact_anchored": 0, "contact": 1}, 7)
     switched = state.task.switched_controller
     if not (bool((max_h > 0.2).all()) and bool(switched.all())):
         raise AssertionError(f"phase 7: max relative height {float(max_h.min()):.3f} m "
@@ -1106,11 +1328,11 @@ def run_landing_episode(torch, act, dyn, kind):
 
 
 class EnvCalls:
-    """Counts QuadrupedEnv.reset and .step calls (and the settle substeps the
-    resets ran) while it is active, by wrapping the class's methods."""
+    """Counts QuadrupedEnv.reset and .step calls (and the resets that
+    settled) while it is active, by wrapping the class's methods."""
 
     def __init__(self, env_cls):
-        self.cls, self.resets, self.steps, self.settle = env_cls, 0, 0, 0
+        self.cls, self.resets, self.steps, self.settles = env_cls, 0, 0, 0
 
     def __enter__(self):
         self._reset, self._step = self.cls.reset, self.cls.step
@@ -1118,8 +1340,8 @@ class EnvCalls:
 
         def reset(env, *a, **k):
             calls.resets += 1
-            if k.get("desired_robot_state") is None:
-                calls.settle += env.config.settling_steps
+            if k.get("desired_robot_state") is None and env.config.settling_steps:
+                calls.settles += 1
             return calls._reset(env, *a, **k)
 
         def step(env, *a, **k):
@@ -1132,10 +1354,12 @@ class EnvCalls:
     def __exit__(self, *exc):
         self.cls.reset, self.cls.step = self._reset, self._step
 
-    def launches(self, action_repeat=10):
-        substeps = self.settle + action_repeat * self.steps
-        return {"actuation": substeps, "contact_anchored": substeps, "contact": self.resets,
-                "actuation_jvp": 0, "contact_jvp": 0}
+    def launches(self):
+        """One env_substeps per settle and per control step, one contact per
+        reset (the contact priming), no per-substep kernel."""
+        return {"env_substeps": self.settles + self.steps, "actuation": 0,
+                "contact_anchored": 0, "contact": self.resets, "actuation_jvp": 0,
+                "contact_jvp": 0}
 
 
 def check_replays(results, policy_replay, kind):
@@ -1189,21 +1413,21 @@ def run_train(torch, train_bench, act, dyn, kind):
     counts = read_counts(act, dyn)
     ars, ppo = rec["ars"], rec["ppo"]
     a_cfg, p_cfg = train_bench.ARS_CONFIG, train_bench.PPO_CONFIG
-    settle, all_steps = 600, train_bench.WARMUP_STEPS + TRAIN_STEPS
-    ars_sub, ppo_sub = settle + 10 * a_cfg.episode_steps, 10 * p_cfg.segment_len
+    all_steps = train_bench.WARMUP_STEPS + TRAIN_STEPS
+    # env_substeps launches: an ARS step settles its reset bank once and rolls
+    # episode_steps control steps; a PPO step rolls segment_len
+    ars_env, ppo_env = 1 + a_cfg.episode_steps, p_cfg.segment_len
+    none = {"actuation": 0, "contact_anchored": 0}
     # `launches` are the timed steps'; the whole phase's follow below
-    check_counts(ars["launches"], {"actuation": TRAIN_STEPS * ars_sub,
-                                   "contact_anchored": TRAIN_STEPS * ars_sub,
-                                   "contact": TRAIN_STEPS}, 14)
-    check_counts(ppo["launches"], {"actuation": TRAIN_STEPS * ppo_sub,
-                                   "contact_anchored": TRAIN_STEPS * ppo_sub,
-                                   "contact": 0}, 14)
-    check_counts(ppo["init_launches"], {"actuation": settle, "contact_anchored": settle,
-                                        "contact": 1}, 14)
-    # the bench's last segment, rolled alone to time it, adds one segment's substeps
-    total = all_steps * (ars_sub + ppo_sub) + settle + ppo_sub
-    check_counts(counts, {"actuation": total, "contact_anchored": total,
-                          "contact": all_steps + 1, "actuation_jvp": 0, "contact_jvp": 0}, 14)
+    check_counts(ars["launches"], {"env_substeps": TRAIN_STEPS * ars_env,
+                                   "contact": TRAIN_STEPS, **none}, 14)
+    check_counts(ppo["launches"], {"env_substeps": TRAIN_STEPS * ppo_env, "contact": 0,
+                                   **none}, 14)
+    check_counts(ppo["init_launches"], {"env_substeps": 1, "contact": 1, **none}, 14)
+    # the bench's last segment, rolled alone to time it, adds one segment
+    total = all_steps * (ars_env + ppo_env) + 1 + ppo_env
+    check_counts(counts, {"env_substeps": total, "contact": all_steps + 1,
+                          "actuation_jvp": 0, "contact_jvp": 0, **none}, 14)
     for algo in (ars, ppo):
         for m in algo["metrics"]:
             bad = {k: v for k, v in m.items() if v != v or abs(v) == float("inf")}
@@ -1293,9 +1517,10 @@ def run_adapters(torch, act, dyn, kind):
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
     counts = read_counts(act, dyn)
-    substeps = 2 * 100 + 10 * (3 + ADAPTER_KNOTS)
-    check_counts(counts, {"actuation": substeps, "contact_anchored": substeps, "contact": 2,
-                          "actuation_jvp": 0, "contact_jvp": 0}, 15)
+    # two settles, then 3 + ADAPTER_KNOTS control steps
+    check_counts(counts, {"env_substeps": 2 + 3 + ADAPTER_KNOTS, "actuation": 0,
+                          "contact_anchored": 0, "contact": 2, "actuation_jvp": 0,
+                          "contact_jvp": 0}, 15)
     if not (bool(info["policy_in_control"].all()) and traj["phase"].shape ==
             (ADAPTER_KNOTS, ADAPTER_LANES) and bool(torch.isfinite(traj["z"]).all())):
         raise AssertionError("phase 15: the adapters' outputs are off")
@@ -1343,6 +1568,39 @@ def check_fidelity_widths(torch, act, dyn, model):
     return checks
 
 
+def check_fidelity_substeps(torch, ss, kind):
+    """Before phase 16: env_substeps against its plain version at the
+    fidelity gates' width, one lane: a control step (10 substeps) from the
+    settled fidelity env under a random command, and the oracle replay's
+    settle (2,500 substeps from the initial pose, the command held)."""
+    from quadruped_springs_tpu_torch.control import interfaces as ci
+    from quadruped_springs_tpu_torch.env import randomizers as rnd
+    from quadruped_springs_tpu_torch.utils.verification import fidelity_env
+
+    env = fidelity_env("JUMPING_IN_PLACE", True, device="cuda")
+    gen = torch.Generator("cuda").manual_seed(22)
+    state, _ = env.reset(gen, 1)
+    action = 2.0 * torch.rand((1, env.action_dim), generator=gen, device="cuda") - 1.0
+    command = lambda a: ci.action_to_command(env.iface, a).contiguous()
+    q_des = torch.stack([command(state.last_action + ((i + 1.0) / 10)
+                                 * (action - state.last_action)) for i in range(10)], dim=1)
+    robot = env._init_robot_state(1)
+    start = dataclasses.replace(state, robot=robot, foot_anchor=env._feet_anchor(
+        rnd.model_from_params(state.scenario), robot))
+    settle = env.config.settling_steps
+    checks = {"fidelity_1x10": check_env_substeps(torch, ss, env_substeps_args(
+        env, state, q_des, 10)),
+              f"fidelity_1x{settle}_settle": check_env_substeps(
+        torch, ss, env_substeps_args(env, start, env._settle_q_des.expand(1, 12).contiguous(),
+                                     settle), reps=5)}
+    for setting, r in checks.items():
+        print(f"phase 16: env_substeps ({setting}): max_abs_err {r['max_abs_err']:.3e} "
+              f"({r['spread_used']:.2f} spreads used), kernel {r['ms']:.4f} ms through its "
+              f"wrapper, plain {r['plain_ms']:.2f} ms; bound {r['bound_ms'] * 1e3:.3f} µs "
+              f"on {kind}", flush=True)
+    return checks
+
+
 def _oracle_trace_worker(job):
     """Phase 16, in a process of its own: one committed oracle trace through
     the port's verify_against_trace on the card. Returns the report, the
@@ -1363,7 +1621,10 @@ def _oracle_trace_worker(job):
     torch.cuda.synchronize()
     return {"report": report, "launches": read_counts(act, dyn),
             "seconds": time.perf_counter() - t0,
-            "substeps": env.config.settling_steps + env.config.action_repeat * report["steps"]}
+            "substeps": env.config.settling_steps + env.config.action_repeat * report["steps"],
+            "want": {"env_substeps": 1 + report["steps"], "actuation": 0,
+                     "contact_anchored": 0, "contact": 1, "actuation_jvp": 0,
+                     "contact_jvp": 0}}
 
 
 def check_oracle_gate(results, kind):
@@ -1375,8 +1636,7 @@ def check_oracle_gate(results, kind):
     failed = []
     for (task, springs), res in zip(ORACLE_TRACES, results):
         r, sub = res["report"], res["substeps"]
-        check_counts(res["launches"], {"actuation": sub, "contact_anchored": sub, "contact": 1,
-                                       "actuation_jvp": 0, "contact_jvp": 0}, 16)
+        check_counts(res["launches"], res["want"], 16)
         for k, v in res["launches"].items():
             total[k] += v
         ok = (r["steps"] >= 170 and r["pass"] and r["static_flight_max_dev_frac"] < 0.02
@@ -1453,14 +1713,14 @@ def _transfer_gate_worker(_):
     rows = V.record_golden_trace(env, actions, torch.Generator("cuda").manual_seed(2))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    S, settle = prob.config.solver_substeps, env.config.settling_steps
+    S = prob.config.solver_substeps
     mppi_sub = S * HORIZON * (2 + 2 * ITERATIONS)     # first, 2 per iteration, last
     blocks = -(-HORIZON // ilqr.linearization_blocks(1, HORIZON, N_TANGENTS))
     ilqr_sub = S * (HORIZON + ITERATIONS * (blocks + HORIZON))
-    env_sub = 2 * settle + 10 * HORIZON
-    want = {"actuation": env_sub + mppi_sub + ilqr_sub, "contact_anchored": env_sub,
-            "contact": 2 + mppi_sub + ilqr_sub, "actuation_jvp": S * ITERATIONS * blocks,
-            "contact_jvp": S * ITERATIONS * blocks}
+    # the env: two settles (the plans' start, the replay's), HORIZON steps
+    want = {"env_substeps": 2 + HORIZON, "actuation": mppi_sub + ilqr_sub,
+            "contact_anchored": 0, "contact": 2 + mppi_sub + ilqr_sub,
+            "actuation_jvp": S * ITERATIONS * blocks, "contact_jvp": S * ITERATIONS * blocks}
     out = {}
     for lane, (name, sol) in enumerate(plans.items()):
         xs = sol.xs[0] if name == "mppi" else sol.xs
@@ -1695,6 +1955,7 @@ def run_sharded(torch, act, dyn, ilqr, kind):
     blocks = -(-HORIZON // ilqr.linearization_blocks(SHARDED_BATCH, HORIZON, N_TANGENTS))
     primal = S * (HORIZON + ITERATIONS * (blocks + HORIZON))
     check_counts(counts, {"actuation": primal, "contact": primal, "contact_anchored": 0,
+                          "env_substeps": 0,
                           "actuation_jvp": S * ITERATIONS * blocks,
                           "contact_jvp": S * ITERATIONS * blocks}, 18)
     finite = sanitize.finite_mask((us, costs))
@@ -1799,6 +2060,7 @@ def main():
     from quadruped_springs_tpu_torch import (bench, env_bench, kernels, policy_replay,
                                              train_bench)
     from quadruped_springs_tpu_torch.env import randomizers as rnd
+    from quadruped_springs_tpu_torch.env import substeps as ss
     from quadruped_springs_tpu_torch.env.wrappers import LANDING_KD, LANDING_KP
     from quadruped_springs_tpu_torch.models import dynamics as dyn
     from quadruped_springs_tpu_torch.models import spatial
@@ -1820,6 +2082,11 @@ def main():
     kernels.library()
     print(f"phase 2: built and loaded {kernels.build().name} in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
+    log = kernels.build_log().splitlines()
+    for i, line in enumerate(log):
+        if "Compiling entry function" in line and "env_substeps_kernel" in line:
+            print("phase 2: env_substeps_kernel (nvcc -Xptxas -v): "
+                  + " | ".join(x.strip() for x in log[i + 2:i + 4]), flush=True)
 
     prob = MPCProblem(MPCConfig(horizon=HORIZON, iterations=ITERATIONS), "cuda")
     model = prob.lane_params().model
@@ -1861,7 +2128,8 @@ def main():
         if count != substeps:
             raise AssertionError(f"{name} kernel launched {count} times, expected "
                                  f"{substeps} (one per planner substep)")
-    check_counts(by_path["mppi_solve"], {"contact_anchored": 0, "actuation_jvp": 0,
+    check_counts(by_path["mppi_solve"], {"contact_anchored": 0, "env_substeps": 0,
+                                         "actuation_jvp": 0,
                                          "contact_jvp": 0, **dict.fromkeys(BF16_KERNELS, 0)},
                  4)
     print(f"phase 4: {rec['solves']} full-width solves ran {substeps} planner substeps; "
@@ -1888,6 +2156,8 @@ def main():
     report_checks(5, env_checks, ENVS, "environments")
     for name, by_setting in env_checks.items():
         checks.setdefault(name, {}).update(by_setting)
+    checks["env_substeps"], env_gap = check_env_substeps_shapes(torch, ss, env_bench, landing,
+                                                                kind)
 
     by_path["env_rollout"], step_syncs, env_breakdown = run_env_bench(
         torch, env_bench, act, dyn, rnd, spatial, kind)
@@ -1921,6 +2191,7 @@ def main():
                                                exact_cost)
     width_checks = check_learning_widths(torch, act, dyn, model, landing)
     fidelity_checks = check_fidelity_widths(torch, act, dyn, model)
+    fidelity_checks["env_substeps"] = check_fidelity_substeps(torch, ss, kind)
     transfer_checks = check_transfer_block(torch, act, dyn, ilqr, prob)
     by_path.update(run_host_bound_paths(policy_replay, kind))
     by_path["train"] = run_train(torch, train_bench, act, dyn, kind)
@@ -1930,25 +2201,31 @@ def main():
         for name, by_setting in extra.items():
             checks[name].update(by_setting)
     profile_kernels(torch, checks)
-    print(json.dumps({"env_substep_breakdown": env_breakdown()}))
+    print(json.dumps({"env_control_step_breakdown": env_breakdown()}))
     print(f"chip_smoke: every phase in {time.perf_counter() - started:.1f} s on {kind}",
           flush=True)
 
     # the contact_anchored kernel extends the memoryless contact kernel
     # (the TPU kernel fused_contact) with the feet's anchor stiction
     # and the tangent kernels are the forward-mode derivatives of the two
-    # and the bf16 variants are the same four kernels on bfloat16 storage
+    # and the bf16 variants are the same four kernels on bfloat16 storage;
+    # env_substeps fuses both (actuation, anchored contact) into the env's
+    # dynamics, as XLA fused them on the TPU
     replaces = {name: "scripts/pallas_microbench.py:" + ("96" if name.startswith("actuation")
                                                           else "153") for name in checks}
+    replaces["env_substeps"] = "scripts/pallas_microbench.py:96,153"
     print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": SOURCE, "replaces": replaces[name],
+        {"name": name, "route": "cuda",
+         "source": ENV_SOURCE if name == "env_substeps" else SOURCE,
+         "replaces": replaces[name],
          "launches": sum(c[name] for c in by_path.values()),
          "launches_by_path": {p: c[name] for p, c in by_path.items()},
          "max_abs_err": max(r["max_abs_err"] for r in by_setting.values()),
          **{k: next(iter(by_setting.values()))[k]
             for k in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by")},
          # no single PyTorch call computes any of these functions
-         "library_ms": None, "launch_floor_ms": floor_ms, "checks": by_setting}
+         "library_ms": None, "launch_floor_ms": floor_ms, "checks": by_setting,
+         **({"batch_gap": env_gap} if name == "env_substeps" else {})}
         for name, by_setting in checks.items()]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -12,7 +12,6 @@ import dataclasses
 import torch
 
 from quadruped_springs_tpu_torch.env import randomizers as rnd
-from quadruped_springs_tpu_torch.models import dynamics as dyn
 from quadruped_springs_tpu_torch.models import kinematics as kin
 from quadruped_springs_tpu_torch.models.go1_params import (
     NUM_LEGS,
@@ -55,20 +54,18 @@ def pose_from_pitch(phi_des, q: torch.Tensor) -> torch.Tensor:
 def settle_robot_by_pd(env, generator: torch.Generator, n: int = 1, steps: int = 1500,
                        kp=None, kd=None):
     """Joint-PD settle of N robots to the init pose whatever the env's motor
-    mode, after a reset; returns the settled EnvState. On the card each
-    substep goes through the `actuation` and `contact_anchored` kernels."""
+    mode, after a reset; returns the settled EnvState. On the card the
+    `steps` substeps are one launch of the `env_substeps` kernel."""
     state, _ = env.reset(generator, n)
     cfg = env.cfg
     kp = cfg.motor_kp if kp is None else kp
     kd = cfg.motor_kd if kd is None else kd
+    if steps == 0:
+        return state
     model = rnd.model_from_params(state.scenario)
     params = env._scenario_sim_params(state.scenario)
-    springs = env._springs(state.scenario)
     q_des = cfg.init_joint_angles.expand(state.robot.q.shape).contiguous()
-    robot, anchor = state.robot, state.foot_anchor
-    for _ in range(steps):
-        tau, _ = env._pd_torques(springs, robot, q_des, kp, kd)
-        robot, info = dyn.step(model, params, robot, tau, cfg.velocity_limits,
-                               foot_anchor=anchor)
-        anchor = info["new_anchor"]
+    out = env.physics(state.robot, state.foot_anchor, q_des, model, params,
+                      env._springs(state.scenario), kp, kd, steps)
+    robot, anchor = out.robot, out.anchor
     return dataclasses.replace(state, robot=robot, foot_anchor=anchor)

@@ -2,14 +2,15 @@
 // environment's 1 kHz substep, and the tangent kernels of the planner's
 // linearization.
 //
-// Each op is a __device__ per-element function plus a thin __global__
-// wrapper and an extern "C" launcher, so a later fused rollout kernel can
-// call the per-element functions from registers. Launchers take raw device
+// Each op is a per-element device function (elems.cuh, shared with the
+// fused env_substeps kernel of env_step.cu) plus a thin __global__ wrapper
+// and an extern "C" launcher. Launchers take raw device
 // pointers and a cudaStream_t, launch on that stream, never synchronise and
 // never allocate; they return cudaGetLastError() for the Python wrapper to
-// check. Build (see quadruped_springs_tpu_torch/kernels.py):
-//   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-//        -Xcompiler -fPIC -o libplanner_ops.so planner_ops.cu
+// check. quadruped_springs_tpu_torch/kernels.py compiles every .cu of this
+// directory to an object, all at once, and links them into one library:
+//   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xptxas -v \
+//        -Xcompiler -fPIC -c -o planner_ops.o planner_ops.cu
 // No --use_fast_math: sqrtf and '/' stay IEEE so the kernels agree with
 // their PyTorch twins to rounding (FMA contraction is the only difference).
 //
@@ -24,6 +25,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "elems.cuh"
 
 namespace {
 
@@ -40,12 +43,11 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
 }
 
-// jnp.clip / torch.clamp semantics: max(x, lo) then min(., hi); a NaN x
-// stays NaN.
-__device__ __forceinline__ float clip(float x, float lo, float hi) {
-  x = x < lo ? lo : x;
-  return x > hi ? hi : x;
-}
+// the per-element laws live in elems.cuh, shared with env_step.cu
+using qs::actuation_elem;
+using qs::anchored_foot_elem;
+using qs::clip;
+using qs::contact_elem;
 
 // ---------------------------------------------------------------------------
 // Kernel 1: PD motor torque + one-sided PEA spring torque.
@@ -67,17 +69,6 @@ __device__ __forceinline__ float clip(float x, float lo, float hi) {
 // read through the read-only cache. The real fix for launch-bound is the
 // fused rollout kernel that inlines actuation_elem.
 // ---------------------------------------------------------------------------
-__device__ __forceinline__ void actuation_elem(
-    float q_des, float q, float qd, float kp, float kd, float limit,
-    float k, float b, float rest, float sign, float* tau, float* tau_motor) {
-  float t = -kp * (q - q_des) - kd * qd;
-  t = clip(t, -limit, limit);
-  float dq = q - rest;
-  float ts = (sign * dq >= 0.0f) ? (-k * dq - b * qd) : 0.0f;
-  *tau_motor = t;
-  *tau = t + ts;
-}
-
 template <typename T>
 __global__ void actuation_kernel(
     const T* __restrict__ q_des, const T* __restrict__ q,
@@ -117,26 +108,6 @@ __global__ void actuation_kernel(
 // (lane, site); v_w and f_world are (N,12,3) row-major, so a warp's 12-byte
 // records form one contiguous 384-byte span.
 // ---------------------------------------------------------------------------
-__device__ __forceinline__ void contact_elem(
-    float phi, float vx, float vy, float vz, float mu, float kn, float dn,
-    float v_tol, bool clamp_damping, float* fx, float* fy, float* fz,
-    float* fn_out, bool* in_contact) {
-  bool inc = phi > 0.0f;
-  float elastic = kn * phi;
-  float damping = dn * (-vz);
-  if (clamp_damping) damping = clip(damping, -elastic, elastic);
-  float fn = elastic + damping;
-  fn = inc ? (fn < 0.0f ? 0.0f : fn) : 0.0f;
-  float vt2 = vx * vx + vy * vy;
-  float vt = sqrtf(vt2 < 1e-12f ? 1e-12f : vt2);
-  float scale = mu * fn / (vt < v_tol ? v_tol : vt);
-  *fx = -scale * vx;
-  *fy = -scale * vy;
-  *fz = fn;
-  *fn_out = fn;
-  *in_contact = inc;
-}
-
 template <typename T>
 __global__ void contact_kernel(
     const T* __restrict__ phi, const T* __restrict__ v_w,
@@ -187,46 +158,6 @@ __global__ void contact_kernel(
 // arithmetic intensity; the fused env-step kernel inlines the per-element
 // functions instead.
 // ---------------------------------------------------------------------------
-__device__ __forceinline__ void anchored_foot_elem(
-    float phi, float vx, float vy, float vz, float px, float py, float ax,
-    float ay, float mu, float kn, float dn, float kt, float ct,
-    bool clamp_damping, float* fx, float* fy, float* fz, float* fn_out,
-    bool* in_contact, float* ax_out, float* ay_out) {
-  bool inc = phi > 0.0f;
-  float elastic = kn * phi;
-  float damping = dn * (-vz);
-  if (clamp_damping) damping = clip(damping, -elastic, elastic);
-  float fn = elastic + damping;
-  fn = inc ? (fn < 0.0f ? 0.0f : fn) : 0.0f;
-  float tx = -kt * (px - ax) - ct * vx;
-  float ty = -kt * (py - ay) - ct * vy;
-  float t2 = tx * tx + ty * ty;
-  float tnorm = sqrtf(t2 < 1e-12f ? 1e-12f : t2);
-  float fmax = mu * fn;
-  float s = fmax / tnorm;           // the floor on t2 keeps tnorm >= 1e-6
-  s = s > 1.0f ? 1.0f : s;
-  float ffx = tx * s;
-  float ffy = ty * s;
-  float nax = ax, nay = ay;
-  if (s < 1.0f) {                   // on the cone: the anchor slides
-    nax = px + ffx / kt;
-    nay = py + ffy / kt;
-  }
-  if (!inc) {                       // out of contact: re-anchor in place
-    nax = px;
-    nay = py;
-    ffx = 0.0f;
-    ffy = 0.0f;
-  }
-  *fx = ffx;
-  *fy = ffy;
-  *fz = fn;
-  *fn_out = fn;
-  *in_contact = inc;
-  *ax_out = nax;
-  *ay_out = nay;
-}
-
 __global__ void contact_anchored_kernel(
     const float* __restrict__ phi, const float* __restrict__ v_w,
     const float* __restrict__ p_w, const float* __restrict__ anchor,

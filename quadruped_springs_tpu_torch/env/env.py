@@ -17,11 +17,12 @@ end-of-episode bonus -> observation. Reset: scenario -> settle
 desired robot state is injected) -> one contact evaluation to prime the
 contact info -> task, filter and observation.
 
-On CUDA tensors every substep launches the `actuation` and the
-`contact_anchored` kernels once; reset's contact priming launches the
-memoryless `contact` kernel once. Randomness comes only from the
-``torch.Generator`` passed in, on the env's device. Nothing in reset or
-step reads a device value on the host.
+On CUDA tensors a control step's physics (all action_repeat substeps) is
+one launch of the fused `env_substeps` kernel (``env/substeps.py``), and so
+is reset's settle; reset's contact priming launches the memoryless
+`contact` kernel once. Randomness comes only from the ``torch.Generator``
+passed in, on the env's device. Nothing in reset or step reads a device
+value on the host.
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ import torch
 
 from quadruped_springs_tpu_torch.control import interfaces as ci
 from quadruped_springs_tpu_torch.env import randomizers as rnd
+from quadruped_springs_tpu_torch.env import substeps as ss
 from quadruped_springs_tpu_torch.models import dynamics as dyn
 from quadruped_springs_tpu_torch.models import spatial as sp
 from quadruped_springs_tpu_torch.models.go1_params import go1_config
@@ -150,7 +152,6 @@ class QuadrupedEnv:
         # synchronise the stream)
         self.engage_sign = torch.as_tensor(act.SPRING_ENGAGE_SIGN, dtype=torch.float32,
                                            device=dev)
-        self._zero_gains = torch.zeros(12, dtype=torch.float32, device=dev)
         self._identity_quat = torch.tensor([0.0, 0.0, 0.0, 1.0], device=dev)
         self._init_action = ci.init_action(self.iface)
         # settling drives joint-space PD toward the init pose: the achievable
@@ -185,13 +186,16 @@ class QuadrupedEnv:
             k, b = torch.zeros_like(k), torch.zeros_like(b)
         return k, b
 
-    def _pd_torques(self, springs, robot, q_des, kp, kd):
-        """PD motor torque plus spring torque, (tau_total, tau_motor), through
-        the `actuation` kernel on CUDA tensors."""
+    def physics(self, robot, anchor, q_des, model, params, springs, kp, kd, substeps,
+                ext_force_world=None, torque_mode=False) -> ss.SubstepsOut:
+        """`substeps` substeps of the 1 kHz physics from (robot, anchor):
+        q_des (N,substeps,12) or (N,12) held. One `env_substeps` launch on
+        CUDA tensors."""
         cfg = self.cfg
-        return act.actuation_torque(q_des, robot.q.contiguous(), robot.qd.contiguous(),
-                                    kp, kd, cfg.torque_limits, springs[0], springs[1],
-                                    cfg.spring_rest_angles, self.engage_sign)
+        return ss.env_substeps(robot, anchor, q_des, model, params, kp, kd,
+                               cfg.torque_limits, cfg.velocity_limits, springs[0],
+                               springs[1], cfg.spring_rest_angles, self.engage_sign,
+                               substeps, ext_force_world, torque_mode)
 
     def _feet_anchor(self, model, robot):
         p_w, _, _ = dyn.foot_state_world(model, robot)
@@ -250,15 +254,12 @@ class QuadrupedEnv:
             robot = self._init_robot_state(n)
             # the stiction anchors start under the feet
             anchor = self._feet_anchor(model, robot)
-            springs = self._springs(scenario)
-            q_des = self._settle_q_des.expand(n, 12).contiguous()
-            cfg = self.cfg
             # settling does not advance the sim counter
-            for _ in range(self.config.settling_steps):
-                tau, _ = self._pd_torques(springs, robot, q_des, cfg.motor_kp, cfg.motor_kd)
-                robot, info = dyn.step(model, params, robot, tau, cfg.velocity_limits,
-                                       foot_anchor=anchor)
-                anchor = info["new_anchor"]
+            if self.config.settling_steps:
+                out = self.physics(robot, anchor, self._settle_q_des.expand(n, 12).contiguous(),
+                                   model, params, self._springs(scenario), self.cfg.motor_kp,
+                                   self.cfg.motor_kd, self.config.settling_steps)
+                robot, anchor = out.robot, out.anchor
         else:
             robot = desired_robot_state
             anchor = self._feet_anchor(model, robot)
@@ -331,35 +332,25 @@ class QuadrupedEnv:
             return (ci.action_to_command(self.iface, a) if cfgc.is_rl_gym_interface
                     else a).contiguous()
 
-        q_des = command(curr)
-        robot, anchor = state.robot, state.foot_anchor
-        tau_m_sum = None
-        for i in range(cfgc.action_repeat):
-            if cfgc.enable_action_interpolation:
-                frac = (i + 1.0) / cfgc.action_repeat
-                q_des = command(prev + frac * (curr - prev))
-            if cfgc.is_rl_gym_interface or cfgc.motor_control_mode != "TORQUE":
-                tau, tau_m = self._pd_torques(springs, robot, q_des, kp, kd)
-            else:
-                # raw torques; the springs come from the actuation kernel
-                # with zero PD gains, whose motor torque is then exactly 0
-                tau_m = act.torque_command(q_des, cfg.torque_limits)
-                tau_s, _ = self._pd_torques(springs, robot, q_des, self._zero_gains,
-                                            self._zero_gains)
-                tau = tau_m + tau_s
-            robot, info = dyn.step(model, params, robot, tau, cfg.velocity_limits,
-                                   ext_force_world=ext_force_world,
-                                   foot_anchor=anchor.contiguous())
-            anchor = info["new_anchor"]
-            tau_m_sum = tau_m if tau_m_sum is None else tau_m_sum + tau_m
+        repeat = cfgc.action_repeat
+        if cfgc.enable_action_interpolation:
+            # one command per substep, (N, repeat, 12)
+            q_des = torch.stack([command(prev + ((i + 1.0) / repeat) * (curr - prev))
+                                 for i in range(repeat)], dim=1)
+        else:
+            q_des = command(curr)
+        # the non-RL TORQUE interface commands raw torques (plus the springs)
+        torque_mode = not cfgc.is_rl_gym_interface and cfgc.motor_control_mode == "TORQUE"
+        out = self.physics(state.robot, state.foot_anchor.contiguous(), q_des, model, params,
+                           springs, kp, kd, repeat, ext_force_world, torque_mode)
 
         state = dataclasses.replace(
-            state, robot=robot, foot_anchor=anchor, filter_state=filt_state,
+            state, robot=out.robot, foot_anchor=out.anchor, filter_state=filt_state,
             # the action actually applied (the raw one without the filter)
             last_action=action, last_filtered_action=curr,
-            observed_torques=tau_m, spring_torques=tau - tau_m,
-            feet_in_contact=info["feet_in_contact"], feet_forces=info["foot_forces"],
-            invalid_contact=info["invalid_contact"],
+            observed_torques=out.tau_m, spring_torques=out.tau - out.tau_m,
+            feet_in_contact=out.feet_in_contact, feet_forces=out.foot_forces,
+            invalid_contact=out.invalid_contact,
             sim_step_counter=state.sim_step_counter + cfgc.action_repeat,
             env_step_counter=state.env_step_counter + 1)
 
@@ -383,7 +374,7 @@ class QuadrupedEnv:
             "switched_controller": task_state.switched_controller,
             # the control step's mean motor torque (the physics-fidelity
             # gate's quantity)
-            "mean_motor_torque": tau_m_sum / cfgc.action_repeat,
+            "mean_motor_torque": out.tau_m_sum / repeat,
         }
         return state, obs, reward, done, info
 

@@ -13,9 +13,11 @@ the device), sim-steps/s and the real-time factor.
         --settle 20 --steps 2 --segments 1                          # tiny CPU check
 
 A CUDA device that is not available is an error, not a fallback.
-``profile_steps`` breaks one substep down on the card (``chip_smoke.py``
+``profile_steps`` breaks a control step down on the card (``chip_smoke.py``
 prints it): kernel launches, device busy time and its share of the
-untraced wall time, and the kernel classes that take the device time.
+untraced wall time, per control step and per substep, and the kernel
+classes that take the device time: the fused ``env_substeps`` (the
+physics) and what is left (the task, sensors, observation and model build).
 """
 
 from __future__ import annotations
@@ -90,24 +92,27 @@ def run(batch: int = 1024, steps: int = 100, segments: int = 3, settle: int = 60
     }
 
 
-_KERNEL_CLASSES = (("contact_anchored", "contact_anchored_kernel"),
+_KERNEL_CLASSES = (("env_substeps", "env_substeps_kernel"),
+                   ("contact_anchored", "contact_anchored_kernel"),
                    ("actuation", "actuation_kernel"), ("contact", "contact_kernel"),
                    ("gemm/gemv", "gemm"), ("gemm/gemv", "gemv"), ("cat/stack", "Cat"),
                    ("copy", "copy"), ("reduce", "reduce"), ("elementwise", "elementwise"))
 
 
 def profile_steps(env, state, actions, gen, steps: int) -> dict:
-    """Per-substep launches, device busy time and wall time over `steps`
-    control steps (kernel times from torch.profiler, wall time untraced)."""
+    """Launches, device busy time and wall time per control step and per
+    substep over `steps` control steps (kernel times from torch.profiler,
+    wall time untraced), and per control step the kernel classes' device
+    time and launches."""
     from torch.profiler import ProfilerActivity, profile
 
-    substeps = steps * env.config.action_repeat
+    repeat = env.config.action_repeat
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(steps):
         state = env.step(state, actions, gen)[0]
     torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3 / substeps
+    wall_ms = (time.perf_counter() - t0) * 1e3 / steps
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(steps):
             state = env.step(state, actions, gen)[0]
@@ -122,12 +127,16 @@ def profile_steps(env, state, actions, gen, steps: int) -> dict:
         busy_us += us
         cls = next((c for c, pat in _KERNEL_CLASSES if pat in e.key), "other")
         ms, n = classes.get(cls, (0.0, 0))
-        classes[cls] = (ms + us / 1e3 / substeps, n + e.count / substeps)
-    busy_ms = busy_us / 1e3 / substeps
-    return {"launches_per_substep": launches / substeps,
-            "device_busy_ms_per_substep": busy_ms, "wall_ms_per_substep": wall_ms,
+        classes[cls] = (ms + us / 1e3 / steps, n + e.count / steps)
+    busy_ms = busy_us / 1e3 / steps
+    return {"launches_per_control_step": launches / steps,
+            "device_busy_ms_per_control_step": busy_ms,
+            "wall_ms_per_control_step": wall_ms,
+            "launches_per_substep": launches / steps / repeat,
+            "device_busy_ms_per_substep": busy_ms / repeat,
+            "wall_ms_per_substep": wall_ms / repeat,
             "device_busy_share": busy_ms / wall_ms,
-            "kernel_classes_ms_and_launches_per_substep": dict(
+            "kernel_classes_ms_and_launches_per_control_step": dict(
                 sorted(classes.items(), key=lambda kv: -kv[1][0]))}
 
 

@@ -1,12 +1,16 @@
-"""Build and load the hand-written CUDA kernels of ``csrc/planner_ops.cu``.
+"""Build and load the hand-written CUDA kernels of ``csrc/``.
 
-The library is compiled by ``nvcc`` for Hopper (``sm_90a``) at first use
-into ``_build/`` beside this file, named by a hash of the source so an
-edited source is never served by a stale build, and bound through a plain
-C interface with ctypes. The last section holds what the
-``torch.autograd.Function``s around a kernel and its tangent kernel share.
-Nothing here runs at import time: a machine without nvcc or a card imports
-the package and uses the kernels' plain PyTorch twins on CPU tensors.
+Every ``.cu`` file under ``csrc/`` is compiled by ``nvcc`` for Hopper
+(``sm_90a``) to an object, all at once in parallel, and the objects are
+linked into one library in ``_build/`` beside this file. The library is
+named by a hash of every ``.cu`` and ``.cuh`` source, so an edited source or
+header is never served by a stale build; ``-Xptxas -v`` (each kernel's
+registers, shared memory and spills) goes into a log beside it
+(``build_log()``). The library is bound through a plain C interface with
+ctypes. The last section holds what the ``torch.autograd.Function``s around
+a kernel and its tangent kernel share. Nothing here runs at import time: a
+machine without nvcc or a card imports the package and uses the kernels'
+plain PyTorch twins on CPU tensors.
 
 No ``--use_fast_math``: the twins' ``sqrtf`` and divisions are IEEE, and
 the kernels must agree with them to rounding.
@@ -26,12 +30,16 @@ from pathlib import Path
 import torch
 
 _HERE = Path(__file__).resolve().parent
-SOURCE = _HERE / "csrc" / "planner_ops.cu"
+CSRC = _HERE / "csrc"
 BUILD_DIR = _HERE / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xptxas", "-v", "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
+_I64 = ctypes.c_int64
+ENV_SUBSTEPS_ARGTYPES = ([_P, ctypes.c_int] + [_P] * 8 + [_I64, _I64] + [_P] * 10
+                         + [_I64, _P, _I64] + [_P] * 13
+                         + [_I64] + [ctypes.c_int] * 4 + [_P])
 _SIGNATURES = {
     # q_des, q, qd, kp, kd, limits, spring_k, spring_b, rest, sign,
     # tau, tau_motor, n_lanes, stream
@@ -55,6 +63,12 @@ _SIGNATURES = {
                             ctypes.c_int64, ctypes.c_int, _P],
     # stream; launches an empty kernel (the launch floor of the card)
     "planner_noop": [_P],
+    # consts (host float array), n_consts, pos, quat, lin_vel, ang_vel, q, qd,
+    # anchor, q_des, q_des_env, q_des_step, kp, kd, torque_limits,
+    # velocity_limits, rest, sign, spring_k, spring_b, friction, model,
+    # model_stride, ext_force, ext_stride, the 13 outputs, n, substeps,
+    # on_rack, clamp_damping, torque_mode, stream (csrc/env_lane.cuh)
+    "env_substeps": ENV_SUBSTEPS_ARGTYPES,
 }
 # the planner's four kernels also take bfloat16 arrays, under <name>_bf16
 for _name in ("planner_actuation", "planner_contact", "planner_actuation_jvp",
@@ -63,6 +77,11 @@ for _name in ("planner_actuation", "planner_contact", "planner_actuation_jvp",
 
 # storage types of the planner's kernels: the entry point's suffix
 STORAGE = {torch.float32: "", torch.bfloat16: "_bf16"}
+
+
+def sources() -> list[Path]:
+    """Every CUDA source and header of csrc/, in a fixed order."""
+    return sorted(p for p in CSRC.iterdir() if p.suffix in (".cu", ".cuh"))
 
 
 def _nvcc() -> str:
@@ -75,31 +94,53 @@ def _nvcc() -> str:
     found = shutil.which("nvcc")
     if found is None:
         raise RuntimeError("nvcc not found (set CUDA_HOME); the CUDA kernels of "
-                           f"{SOURCE.name} cannot be built")
+                           f"{CSRC} cannot be built")
     return found
 
 
+def _library_path() -> Path:
+    digest = hashlib.sha256()
+    for p in sources():
+        digest.update(p.name.encode() + b"\0" + p.read_bytes() + b"\0")
+    return BUILD_DIR / f"libcsrc_{digest.hexdigest()[:16]}.so"
+
+
 def build() -> Path:
-    """Compile the kernel library if no build of this source exists; return
-    its path. The finished file is moved into place atomically, so
-    concurrent processes never load a half-written library."""
-    digest = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
-    lib = BUILD_DIR / f"libplanner_ops_{digest}.so"
+    """Compile the kernel library if no build of these sources exists;
+    return its path. Each .cu compiles to an object in its own nvcc, all
+    started together; one more links them. The finished file is moved into
+    place atomically, so concurrent processes never load a half-written
+    library."""
+    lib = _library_path()
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)],
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        units = [p for p in sources() if p.suffix == ".cu"]
+        objects = [Path(tmp) / (p.stem + ".o") for p in units]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(p)],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                  text=True) for p, o in zip(units, objects)]
+        logs = [(p, proc.communicate()[0], proc.returncode) for p, proc in zip(units, procs)]
+        for p, log, rc in logs:
+            if rc != 0:
+                raise RuntimeError(f"nvcc failed on {p}:\n{log}")
+        out = Path(tmp) / "lib.so"
+        proc = subprocess.run([nvcc, "-shared", "-o", str(out), *map(str, objects)],
                               capture_output=True, text=True)
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {SOURCE}:\n{proc.stderr}")
-        os.replace(tmp, lib)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
+            raise RuntimeError(f"nvcc failed to link {lib.name}:\n{proc.stderr}")
+        lib.with_suffix(".log").write_text("".join(
+            f"== {p.name}\n{log}" for p, log, _ in logs))
+        os.replace(out, lib)
     return lib
+
+
+def build_log() -> str:
+    """nvcc's output of the build (-Xptxas -v: registers, shared memory and
+    spills of every kernel), building first if needed."""
+    return build().with_suffix(".log").read_text()
 
 
 @functools.lru_cache(maxsize=None)

@@ -489,6 +489,18 @@ class _Contact(torch.autograd.Function):
         kernels.no_backward("contact_forces")
 
 
+def _contact_forces_plain(params: SimParams, p_w, v_w, radii, foot_anchor=None):
+    """contact_forces through the plain twins, on any device."""
+    phi = radii - p_w[..., 2]
+    mu, kn, dn = params.friction, params.contact_stiffness, params.contact_damping
+    if foot_anchor is None:
+        return (*contact_forces_plain(phi, v_w, mu, kn, dn, params.slip_vel_tol,
+                                      params.clamp_damping), None)
+    return contact_forces_anchored_plain(
+        phi, v_w, p_w[:, :4, :2], foot_anchor, mu, kn, dn, params.tangential_stiffness,
+        params.tangential_damping, params.slip_vel_tol, params.clamp_damping)
+
+
 def contact_forces(model: Go1Model, params: SimParams, p_w, v_w, radii,
                    foot_anchor=None):
     """Compliant contact at the 12 sites.
@@ -502,16 +514,10 @@ def contact_forces(model: Go1Model, params: SimParams, p_w, v_w, radii,
     mode (on the card through the `contact_jvp` kernel); reverse mode
     through the kernel raises.
     """
+    if p_w.device.type == "cpu":
+        return _contact_forces_plain(params, p_w, v_w, radii, foot_anchor)
     phi = radii - p_w[..., 2]
     mu, kn, dn = params.friction, params.contact_stiffness, params.contact_damping
-    if phi.device.type == "cpu":
-        if foot_anchor is None:
-            return (*contact_forces_plain(phi, v_w, mu, kn, dn, params.slip_vel_tol,
-                                          params.clamp_damping), None)
-        return contact_forces_anchored_plain(
-            phi, v_w, p_w[:, :4, :2], foot_anchor, mu, kn, dn,
-            params.tangential_stiffness, params.tangential_damping,
-            params.slip_vel_tol, params.clamp_damping)
     if phi.device.type != "cuda":
         raise ValueError(f"contact_forces: no kernel for device {phi.device}")
     n = phi.shape[0]
@@ -568,7 +574,8 @@ def _generalized_contact_force(model: Go1Model, fk, s, R, f_world):
 # Step
 # ---------------------------------------------------------------------------
 
-def _forward(model, params, state, tau, R, ext_force_world=None, foot_anchor=None):
+def _forward(model, params, state, tau, R, ext_force_world=None, foot_anchor=None,
+             plain=False):
     """forward_dynamics with the base rotation given; also returns w_b, v_b."""
     w_b = _rmatvec(R, state.ang_vel)
     v_b = _rmatvec(R, state.lin_vel)
@@ -578,8 +585,12 @@ def _forward(model, params, state, tau, R, ext_force_world=None, foot_anchor=Non
     h = bias_forces(model, R, u, fk, s)
 
     p_w, v_w, radii, _ = site_state_world(model, state, fk, R)
-    f_world, fn, in_contact, new_anchor = contact_forces(model, params, p_w, v_w, radii,
-                                                        foot_anchor)
+    if plain:   # the plain version of a fused kernel that contains this law
+        f_world, fn, in_contact, new_anchor = _contact_forces_plain(params, p_w, v_w, radii,
+                                                                    foot_anchor)
+    else:
+        f_world, fn, in_contact, new_anchor = contact_forces(model, params, p_w, v_w, radii,
+                                                            foot_anchor)
     f_base_c, tau_c = _generalized_contact_force(model, fk, s, R, f_world)
 
     # joint-limit penalty torques
@@ -634,14 +645,15 @@ def forward_dynamics(model: Go1Model, params: SimParams, state: RobotState,
 
 
 def step(model: Go1Model, params: SimParams, state: RobotState, tau,
-         velocity_limits, ext_force_world=None, foot_anchor=None):
+         velocity_limits, ext_force_world=None, foot_anchor=None, plain: bool = False):
     """Semi-implicit Euler step at params.dt, joint velocities clamped to
     ±velocity_limits. With foot_anchor (N,4,2) the feet use anchor stiction
-    and info["new_anchor"] carries the updated anchors. Returns
+    and info["new_anchor"] carries the updated anchors. `plain`: the contact
+    law's plain twin on any device (env_substeps_plain). Returns
     (new_state, info)."""
     R = sp.quat_to_mat(state.quat)
     a0, qdd, info, w_b, v_b = _forward(model, params, state, tau, R,
-                                       ext_force_world, foot_anchor)
+                                       ext_force_world, foot_anchor, plain)
     dt = params.dt
     w_b = w_b + dt * a0[:, :3]
     v_b = v_b + dt * a0[:, 3:]

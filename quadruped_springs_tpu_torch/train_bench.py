@@ -12,7 +12,8 @@ first step of a process makes the device constants, a host copy each), then
 the timed ones. Prints one JSON record: learner steps/s and env steps/s of
 each trainer, the time of one PPO segment rollout alone (what is left of a
 step is GAE and the minibatch updates), the launches of the environment's
-three kernels, the largest change of a policy weight in each step, and the
+kernels (the fused env_substeps and the per-substep ones it replaced), the
+largest change of a policy weight in each step, and the
 host synchronisations each step made (torch's sync debug mode counts them
 on the card).
 
@@ -30,6 +31,7 @@ import warnings
 
 import torch
 
+from quadruped_springs_tpu_torch.env import substeps as ss
 from quadruped_springs_tpu_torch.env.env import EnvConfig, QuadrupedEnv
 from quadruped_springs_tpu_torch.env_bench import device_name
 from quadruped_springs_tpu_torch.models import dynamics as dyn
@@ -51,8 +53,11 @@ def env_config(task: str, max_ep_len: float, settle: int = 600) -> EnvConfig:
 
 
 def kernel_launches() -> dict:
-    """The running launch counts of the environment's three kernels."""
-    return {"actuation": act.actuation_torque.launches,
+    """The running launch counts of the environment's kernels: the fused
+    `env_substeps` (the physics of a settle or a control step) and the
+    per-substep kernels it replaced on the environment's paths."""
+    return {"env_substeps": ss.env_substeps.launches,
+            "actuation": act.actuation_torque.launches,
             "contact_anchored": dyn.contact_forces.anchored_launches,
             "contact": dyn.contact_forces.launches}
 

@@ -1,7 +1,8 @@
 """The hand-written CUDA kernels of quadruped_springs_tpu_torch/csrc against
 their plain PyTorch twins on the card (the tangent kernels against
-torch.func.jvp of the twins), the env step's launch count and the planner's
-linearization through the kernels. Marked `gpu`: without a CUDA card they
+torch.func.jvp of the twins), the env step's launch count (the fused
+`env_substeps`, held to its plain version in tests/test_torch_env_substeps.py)
+and the planner's linearization through the kernels. Marked `gpu`: without a CUDA card they
 skip. On a card (torch only, no jax needed):
 
     python -m pytest --noconftest -m gpu tests/test_torch_kernels.py
@@ -312,9 +313,12 @@ def test_anchored_contact_kernel_matches_twin(cuda, clamp):
 
 def test_env_step_launches_the_kernels_once_per_substep(cuda):
     """A short reset and two control steps of 64 environments on the card:
-    `actuation` and `contact_anchored` launch once per substep, `contact`
-    once per reset (the contact priming), the robots stay finite, and a
-    further step makes no host synchronisation."""
+    the fused `env_substeps` kernel launches once per control step and once
+    for reset's settle, and the per-substep `actuation` and
+    `contact_anchored` no more; `contact` once per reset (the contact
+    priming); the robots stay finite, and a further step makes no host
+    synchronisation."""
+    from quadruped_springs_tpu_torch.env import substeps as ss
     from quadruped_springs_tpu_torch.env.env import EnvConfig, QuadrupedEnv
 
     env = QuadrupedEnv(EnvConfig(enable_springs=True, task_env="JUMPING_IN_PLACE",
@@ -322,14 +326,15 @@ def test_env_step_launches_the_kernels_once_per_substep(cuda):
                        device=cuda)
     gen = torch.Generator(cuda).manual_seed(0)
     counts = (act.actuation_torque.launches, dyn.contact_forces.anchored_launches,
-              dyn.contact_forces.launches)
+              dyn.contact_forces.launches, ss.env_substeps.launches)
     state, _ = env.reset(gen, 64)
     for _ in range(2):
         state, obs, *_ = env.step(state, env.get_init_action().expand(64, -1), gen)
     torch.cuda.synchronize()
-    assert act.actuation_torque.launches - counts[0] == 20 + 2 * 10
-    assert dyn.contact_forces.anchored_launches - counts[1] == 20 + 2 * 10
+    assert act.actuation_torque.launches - counts[0] == 0
+    assert dyn.contact_forces.anchored_launches - counts[1] == 0
     assert dyn.contact_forces.launches - counts[2] == 1
+    assert ss.env_substeps.launches - counts[3] == 1 + 2
     assert torch.isfinite(obs).all() and torch.isfinite(state.robot.pos).all()
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -362,3 +367,132 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         dyn.contact_forces(build_model(device=cuda), params, p_w, torch.zeros_like(p_w),
                            torch.zeros(12, device=cuda), anchor)
+
+
+# --- env_substeps: the environment's control step in one launch ---------------
+
+def _env_substeps_args(dev, n, case="pd"):
+    """env_substeps's arguments for n settled environments with lanes moved
+    into each regime: every 8th from lane 1 in flight, from lane 2 its
+    anchors 5 cm off (the feet slide on the friction cone), from lane 3
+    pushed at the trunk; "pd": the command interpolated from the last action
+    to a random one over 10 substeps; "torque": random torques held;
+    "on_rack": the command held, the base welded."""
+    import dataclasses
+
+    from quadruped_springs_tpu_torch.control import interfaces as ci
+    from quadruped_springs_tpu_torch.env import randomizers as rnd
+    from quadruped_springs_tpu_torch.env.env import EnvConfig, QuadrupedEnv
+
+    env = QuadrupedEnv(EnvConfig(enable_springs=True, task_env="JUMPING_IN_PLACE",
+                                 observation_space_mode="ARS_BASIC", settling_steps=300),
+                       device=dev)
+    gen = torch.Generator(dev).manual_seed(4)
+    state, _ = env.reset(gen, n)
+    pos, lin_vel = state.robot.pos.clone(), state.robot.lin_vel.clone()
+    pos[1::8, 2] += 0.15
+    lin_vel[1::8, 2] = 1.0
+    anchor = state.foot_anchor.clone()
+    anchor[2::8] += 0.05
+    robot = dataclasses.replace(state.robot, pos=pos, lin_vel=lin_vel)
+    action = 2.0 * torch.rand((n, env.action_dim), generator=gen, device=dev) - 1.0
+    command = lambda a: ci.action_to_command(env.iface, a).contiguous()
+    if case == "pd":
+        prev = state.last_action
+        q_des = torch.stack([command(prev + ((i + 1.0) / 10) * (action - prev))
+                             for i in range(10)], dim=1)
+    elif case == "torque":
+        q_des = 16.0 * torch.rand((n, 12), generator=gen, device=dev) - 8.0
+    else:
+        q_des = command(action)
+    ext = torch.zeros(n, 3, device=dev)
+    ext[3::8] = torch.tensor([30.0, -20.0, 10.0], device=dev)
+    params = env._scenario_sim_params(state.scenario)
+    params = dataclasses.replace(params, on_rack=case == "on_rack")
+    k, b = env._springs(state.scenario)
+    cfg = env.cfg
+    return (robot, anchor, q_des, rnd.model_from_params(state.scenario), params, cfg.motor_kp,
+            cfg.motor_kd, cfg.torque_limits, cfg.velocity_limits, k, b,
+            cfg.spring_rest_angles, env.engage_sign, 10, ext, case == "torque")
+
+
+def _substeps_rows(out):
+    """Every output of env_substeps as (N, k) float64."""
+    r = out.robot
+    parts = (r.pos, r.quat, r.lin_vel, r.ang_vel, r.q, r.qd, out.anchor, out.tau, out.tau_m,
+             out.tau_m_sum, out.foot_forces, out.feet_in_contact, out.invalid_contact)
+    return [t.reshape(t.shape[0], -1).double() for t in parts]
+
+
+def _float64(args):
+    """The arguments with every float32 tensor in float64 (the model's too)."""
+    import dataclasses
+
+    up = lambda t: t.double() if torch.is_tensor(t) and t.dtype == torch.float32 else t
+    robot, anchor, q_des, model, params, *rest = args
+    return [dataclasses.replace(robot, **{f.name: up(getattr(robot, f.name))
+                                          for f in dataclasses.fields(robot)}),
+            up(anchor), up(q_des),
+            dataclasses.replace(model, **{f.name: up(getattr(model, f.name))
+                                          for f in dataclasses.fields(model)}),
+            dataclasses.replace(params, friction=up(params.friction)), *map(up, rest)]
+
+
+# env_substeps against its plain version: within ENV_SPREAD times the plain
+# version's own spread per environment and output field (the larger of its
+# change under a one-ulp change of its start and its distance to itself in
+# float64), plus REL_TOL of 1 + |plain|, as chip_smoke.py holds it (on an
+# NVIDIA H100 80GB HBM3 the kernel used up to 6.73 such spreads there, at
+# 1,024 environments)
+ENV_SPREAD = 10.0
+
+
+@pytest.mark.parametrize("case", ["pd", "torque", "on_rack"])
+def test_env_substeps_kernel_matches_plain(cuda, case):
+    import dataclasses
+
+    from quadruped_springs_tpu_torch.env import substeps as ss
+
+    args = _env_substeps_args(cuda, 256, case)
+    before = ss.env_substeps.launches
+    got = _substeps_rows(ss.env_substeps(*args))
+    torch.cuda.synchronize()
+    assert ss.env_substeps.launches == before + 1
+    want = _substeps_rows(ss.env_substeps_plain(*args))
+    robot = args[0]
+    moved = list(args)
+    moved[0] = dataclasses.replace(robot, q=torch.nextafter(robot.q, robot.q + 1.0))
+    moved = _substeps_rows(ss.env_substeps_plain(*moved))
+    exact = _substeps_rows(ss.env_substeps_plain(*_float64(args)))
+    for g, w, m, e in zip(got, want, moved, exact):
+        spread = torch.maximum((m - w).abs(), (e - w).abs()).amax(dim=1, keepdim=True)
+        assert torch.all((g - w).abs() <= REL_TOL * (1 + w.abs()) + ENV_SPREAD * spread)
+
+
+def test_env_substeps_rows_do_not_depend_on_the_batch(cuda):
+    """Rows 0-7 of one launch at 1,024 environments, at 8, and in blocks of
+    2: bitwise equal."""
+    import dataclasses
+
+    from quadruped_springs_tpu_torch.env import substeps as ss
+
+    args = _env_substeps_args(cuda, 1024)
+    rows_of = (1, 2, 9, 10, 14)      # anchor, q_des, springs, push: a leading N
+    model_fields = ("trunk_inertia6", "trunk_mass", "leg_masses", "leg_coms",
+                    "leg_inertias6")
+
+    def launch(a, b):
+        cut = lambda t: t[a:b].contiguous()
+        sub = list(args)
+        sub[0] = dataclasses.replace(args[0], **{f.name: cut(getattr(args[0], f.name))
+                                                 for f in dataclasses.fields(args[0])})
+        for i in rows_of:
+            sub[i] = cut(args[i])
+        sub[3] = dataclasses.replace(args[3], **{f: cut(getattr(args[3], f))
+                                                 for f in model_fields})
+        sub[4] = dataclasses.replace(args[4], friction=cut(args[4].friction))
+        return torch.cat(_substeps_rows(ss.env_substeps(*sub)), dim=1)
+
+    full, eight = launch(0, 1024)[:8], launch(0, 8)
+    pairs = torch.cat([launch(i, i + 2) for i in range(0, 8, 2)])
+    assert torch.equal(full, eight) and torch.equal(eight, pairs)

@@ -202,7 +202,8 @@ def test_train_bench_main_tiny_on_cpu():
     for algo in ("ars", "ppo"):
         r = line[algo]
         assert r["steps_per_s"] > 0 and r["env_steps_per_s"] > 0
-        assert r["launches"] == {"actuation": 0, "contact_anchored": 0, "contact": 0}
+        assert r["launches"] == {"env_substeps": 0, "actuation": 0, "contact_anchored": 0,
+                                 "contact": 0}
         assert r["host_syncs"] == [0, 0, 0] and len(r["metrics"]) == 3
         assert all(np.isfinite(v) for m in r["metrics"] for v in m.values())
         assert "state" not in r

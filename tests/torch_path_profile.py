@@ -1,6 +1,7 @@
 """Launches, device time and wall time of the port's hot paths on the card.
 
     python tests/torch_path_profile.py [--root DIR] [--label NAME] [--headline]
+        [--paths knot,substep,lin_block,control_step,env_bench,train,oracle]
 
 Imports quadruped_springs_tpu_torch from DIR (default: this checkout), so that
 one call to the card can profile two commits in turn (an unpacked
@@ -14,8 +15,17 @@ Prints one JSON line per path:
   * lin_block: one block of the iLQR linearization: vmap over the 43 basis
     tangents of torch.func.jvp of the knot at 5,120 lanes (1024 problems x 5
     knots);
+  * control_step: one QuadrupedEnv.step of 1024 settled environments
+    (env_bench's configuration, the init action held): launches, device and
+    wall time of the whole control step, whatever runs its physics;
+  * env_bench: env_bench.run at 1024 environments (settle 600, one warm-up
+    and one timed segment of 100 control steps): sim-steps/s;
+  * train: train_bench.run(steps=1): seconds per ARS and PPO train_step;
+  * oracle: one oracle replay (JUMPING_IN_PLACE with springs through
+    utils/verification.verify_against_trace on one lane): seconds;
   * headline (--headline): bench.run's MPPI solve at full width, one warm-up
     and one timed solve.
+--paths picks the paths (default: knot, substep, lin_block).
 Device time and launches come from torch.profiler (kernels on the card, per
 call); wall time from the host clock around torch.cuda.synchronize(),
 untraced, the median over repeats. The kernel classes split the device time
@@ -31,7 +41,7 @@ import time
 
 CLASSES = (("gemm/gemv", ("gemm", "gemv", "cublas")),
            ("hand kernels", ("actuation_kernel", "contact_kernel", "actuation_jvp",
-                             "contact_jvp", "contact_anchored")),
+                             "contact_jvp", "contact_anchored", "env_substeps")),
            ("elementwise", ("elementwise",)), ("reduce", ("reduce",)),
            ("cat/copy", ("Cat", "copy")))
 
@@ -76,7 +86,9 @@ def main(argv=None):
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     ap.add_argument("--label", default="")
     ap.add_argument("--headline", action="store_true")
+    ap.add_argument("--paths", default="knot,substep,lin_block")
     a = ap.parse_args(argv)
+    paths = set(a.paths.split(","))
     sys.path.insert(0, os.path.abspath(a.root))
     import torch
 
@@ -96,26 +108,57 @@ def main(argv=None):
     prob = MPCProblem(MPCConfig(), "cuda")
     scen = rnd.sample_scenario(prob.cfg, "TEST_RANDOMIZER",
                                torch.Generator("cuda").manual_seed(0), n=1024)
-    with torch.no_grad():
-        lanes = prob.lane_params(scen, 32)
-        x = prob.default_x0().expand(1024 * 32, -1).contiguous()
-        u = prob.task_warm_start()[0].expand(1024 * 32, -1).contiguous()
-        emit("knot", {"lanes": 1024 * 32, **profile(torch, lambda: prob.dynamics(x, u, lanes),
-                                                    calls=5)})
+    x = prob.default_x0().expand(1024 * 32, -1).contiguous()
+    u = prob.task_warm_start()[0].expand(1024 * 32, -1).contiguous()
+    if "knot" in paths:
+        with torch.no_grad():
+            lanes = prob.lane_params(scen, 32)
+            emit("knot", {"lanes": 1024 * 32, **profile(
+                torch, lambda: prob.dynamics(x, u, lanes), calls=5)})
 
-    env = env_bench.QuadrupedEnv(env_bench.bench_config(600), device="cuda")
-    gen = torch.Generator("cuda").manual_seed(0)
-    state, _ = env.reset(gen, 1024)
-    actions = env.get_init_action().expand(1024, -1)
-    emit("substep", {"envs": 1024, **env_bench.profile_steps(env, state, actions, gen,
-                                                             steps=3)})
+    if paths & {"substep", "control_step"}:
+        env = env_bench.QuadrupedEnv(env_bench.bench_config(600), device="cuda")
+        gen = torch.Generator("cuda").manual_seed(0)
+        state, _ = env.reset(gen, 1024)
+        actions = env.get_init_action().expand(1024, -1)
+        if "substep" in paths:
+            emit("substep", {"envs": 1024, **env_bench.profile_steps(env, state, actions, gen,
+                                                                     steps=3)})
+        if "control_step" in paths:
+            emit("control_step", {"envs": 1024, **profile(
+                torch, lambda: env.step(state, actions, gen), calls=5)})
 
-    lanes5 = prob.lane_params(scen, 5)
-    z = torch.cat([x[:5120], u[:5120]], dim=-1)
-    block = lambda: ilqr._basis_jvp(lambda z: prob.dynamics(z[:, :37], z[:, 37:], lanes5), z)
-    emit("lin_block", {"lanes": 5120, "tangents": 43, **profile(torch, block, calls=1,
-                                                                reps=3),
-                       "peak_gib": torch.cuda.max_memory_allocated() / 2**30})
+    if "lin_block" in paths:
+        lanes5 = prob.lane_params(scen, 5)
+        z = torch.cat([x[:5120], u[:5120]], dim=-1)
+        block = lambda: ilqr._basis_jvp(lambda z: prob.dynamics(z[:, :37], z[:, 37:], lanes5),
+                                        z)
+        emit("lin_block", {"lanes": 5120, "tangents": 43, **profile(torch, block, calls=1,
+                                                                    reps=3),
+                           "peak_gib": torch.cuda.max_memory_allocated() / 2**30})
+
+    if "env_bench" in paths:
+        rec = env_bench.run(batch=1024, steps=100, segments=1, settle=600, device="cuda")
+        emit("env_bench", {k: rec[k] for k in ("sim_steps_per_s", "reset_s", "segment_s")})
+
+    if "train" in paths:
+        from quadruped_springs_tpu_torch import train_bench
+
+        rec = train_bench.run(steps=1, device="cuda")
+        emit("train", {algo: {k: rec[algo][k] for k in ("seconds_per_step", "env_steps_per_s")}
+                       for algo in ("ars", "ppo")})
+
+    if "oracle" in paths:
+        from quadruped_springs_tpu_torch.utils import verification as V
+
+        oracle_env = V.fidelity_env("JUMPING_IN_PLACE", True, device="cuda")
+        t0 = time.perf_counter()
+        report = V.verify_against_trace(oracle_env, os.path.join(
+            a.root, "tests/data/oracle_jumping_in_place.qsts"),
+            torch.Generator("cuda").manual_seed(0))
+        torch.cuda.synchronize()
+        emit("oracle", {"seconds": time.perf_counter() - t0, "pass": report["pass"],
+                        "steps": report["steps"]})
 
     if a.headline:
         rec = bench.run(batch=1024, runs=1, device="cuda")
