@@ -7,7 +7,8 @@ Phases (any failure raises, so the script exits non-zero):
   1. require a CUDA card (no CPU fallback); print its name and power limit;
   2. build the hand-written kernels of quadruped_springs_tpu_torch/csrc from
      the checkout (one nvcc per .cu, all at once) and print the build time
-     and env_substeps_kernel's registers and spills (nvcc -Xptxas -v);
+     and the registers and spills of env_substeps_kernel and
+     planner_rollout_kernel (nvcc -Xptxas -v): neither may spill;
   3. hold each kernel against its plain PyTorch twin on the card at the
      planner's shape (32,768 lanes), on seeded inputs plus hand-placed edge
      cases, to |kernel - twin| <= 1e-5·(1 + |twin|) (FMA contraction is the
@@ -19,12 +20,13 @@ Phases (any failure raises, so the script exits non-zero):
   4. drive the port's headline solve (quadruped_springs_tpu_torch.bench at
      full width: 1024 scenarios x 32 samples, H=50, 10 iterations, fused
      accept), check that every final cost is finite and that the mean lies
-     within 3% of the JAX reference's -70.98, and that each kernel launched
-     exactly once per planner substep the solves executed; print bench.py's
+     within 3% of the JAX reference's -70.98, and that `planner_rollout`
+     launched once per rollout (11 per solve: `iterations` + 1 with fused
+     accept) and `actuation` and `contact` never; print bench.py's
      eight-key line; then the full-rate row (bench --full-rate --horizon
      25 at the same width, 10 substeps per knot at 180 kN/m): finite costs,
      the mean final cost within 3% of JAX's FULL_RATE_REFERENCE_COST,
-     `actuation` and `contact` launched 2,750 times per solve;
+     `planner_rollout` launched 11 times per solve;
   5. hold every kernel of the environment's path against its twin at the
      environment's shapes and constants, to the bound of phase 3, and time
      both: the anchored contact kernel at 1024 environments x 12 sites
@@ -79,9 +81,10 @@ Phases (any failure raises, so the script exits non-zero):
      seconds per stage and the bf16 row's gap to the exact row's cost;
  11. closed-loop MPC (quadruped_springs_tpu_torch.closed_loop) at the JAX
      loop's defaults, LOOP_KNOTS knots, a solve every LOOP_REPLAN, executed
-     by closed_loop.execute_knot (the JAX loop's 1 kHz executor): iLQR on
-     the relaxed model, then MPPI on the execution-rate model (--full-rate);
-     each finite, airborne at some knot, launches exact;
+     by closed_loop.execute_knot (the JAX loop's 1 kHz executor, one
+     planner_rollout launch per knot): iLQR on the relaxed model, then MPPI
+     on the execution-rate model (--full-rate); each finite, airborne at
+     some knot, launches exact;
  12. after every timed path (the profiler stays attached to the process once
      it has run): torch.profiler's time of each kernel on the card alone
      (`device_ms`, beside the CUDA-event time of a call through its Python
@@ -153,7 +156,28 @@ Phases (any failure raises, so the script exits non-zero):
      given, rows 0-GAP_ROWS-1 bitwise equal at 1,024, 8 and 2 rows (costs,
      us, states, cost traces); then sharded_lqt_backward on the Go1 sizes (H=50, n=37, m=6) against
      riccati_sequential and _parallel_lqt_backward at the tolerances of
-     tests/test_riccati_sharded.py.
+     tests/test_riccati_sharded.py;
+ 19. (after phase 3) hold `planner_rollout` against planner_rollout_plain
+     at its paths' shapes: the headline's rollout (1024 TEST_RANDOMIZER
+     problems x 32 candidates, H=50, 2 relaxed substeps, every 8th problem
+     in flight, every 8th on friction 0.3), the full-rate row's (H=25, 10
+     substeps at 180 kN/m, clamp on) and the executor's (1 lane, H=1, 10
+     substeps): the kernel as close to the plain version run in float64 as
+     the plain version is (ROLLOUT_QUANTILES over the lanes, per field, knot
+     and on the lanes' costs, within ROLLOUT_DIST), env_substeps's per-lane spread
+     rule held on every lane at knot 1 (the executor at every knot) and
+     counted past it; one knot from the plain version's state at each of the
+     headline's 1.6 M knot-lanes, lane by lane against the float64 knot
+     (ONE_KNOT_FAR, ONE_KNOT_TAIL); rows 0-7 bitwise at 1,024, 8
+     and 2 problems; time both with CUDA events and (phase 12) the profiler;
+ 20. (with the host-bound runs) the three MPC behaviours of
+     quadruped_springs_tpu_torch.mpc_behaviours at the JAX examples' full
+     configurations over seeds 0-7 (jumping forward 0-63: BEHAVIOUR_JOBS),
+     each seed held to the JAX gates' bars and each driver to the JAX
+     package's pass count over the same seeds (JAX_PASSES, less SHARE_SLACK
+     for jumping forward; the backflip on the JAX example's ground of each
+     seed, its run on the port's own draw reported);
+     launches exact (planner_rollout once per rollout).
 Phase 11 also holds both loops to the transfer band of the JAX gate
 (executed apex > 0.45 m, upright, within LOOP_BAND of the largest planned
 apex; the JAX package's own loops meet 10% on the CPU).
@@ -162,7 +186,8 @@ solve (was 3). Phase 6's 3 segments and phase 7's 2,500-substep settle,
 cut while the environment ran ~500 launches a substep, are back since its
 physics is one env_substeps launch a control step. The host-bound runs of phases 11, 13, 16 and 17
 (the two loops, the six replays, the six oracle traces, the transfer gate)
-go at once in HOST_PROCESSES spawned processes on the one card, after the
+and phase 20's three drivers go at once in HOST_PROCESSES spawned processes
+on the one card, after the
 kernel checks of phases 13, 16 and 17, and phase 18's six small solves one
 process each. Phases 13-18 run before phase 12 (the profiler's). Most phases are bound by
 the host's launches, so fewer lanes would save nothing; PERF.md section 5
@@ -173,6 +198,7 @@ line is {"ok": true, "device": {...}}.
 
 import dataclasses
 import json
+import math
 import multiprocessing
 import statistics
 import subprocess
@@ -194,6 +220,7 @@ REL_TOL = 1e-5
 CANCEL_TOL = 1e-6                # ~8 ulp of f32, relative to cancelling terms
 SOURCE = "quadruped_springs_tpu_torch/csrc/planner_ops.cu"
 ENV_SOURCE = "quadruped_springs_tpu_torch/csrc/env_step.cu"
+ROLLOUT_SOURCE = "quadruped_springs_tpu_torch/csrc/planner_rollout.cu"
 ENVS, ENV_STEPS, ENV_SEGMENTS, ENV_SETTLE = 1024, 100, 3, 600
 # The anchor springs hold a static stance with ~1 mm of spring travel
 # (quadruped_springs_tpu/models/dynamics.py:71-78); a stance held by them
@@ -232,8 +259,39 @@ ADAPTER_LANES, ADAPTER_KNOTS = 64, 20
 # phase 16 and 17 run the environment's kernels at 1 and 2 lanes; their
 # checks build the hand-placed regimes on SMALL_INPUT_LANES lanes
 FIDELITY_LANES, SMALL_INPUT_LANES = (1, 2), 8
-# phases 11, 13, 16 and 17 run their host-bound paths in this many processes
+# phases 11, 13, 16, 17 and 20 run their host-bound paths in this many processes
 HOST_PROCESSES = 8
+# phase 20: each MPC behaviour driver (mpc_behaviours.DRIVERS) at the JAX
+# example's full configuration over its seeds, as (run, seeds) jobs of the
+# host-bound pool, the longest first. The port's draws differ from the JAX
+# package's, so a seed can fall on the other side of a bar in one package and
+# not the other: every run is held to the JAX package's own pass count over
+# the same seeds, JAX_PASSES (`python tests/jax_mpc_behaviours_probe.py
+# jumping_forward backflip continuous --seeds ...` on the CPU), less
+# SHARE_SLACK: tests/test_torch_transfer_share.py's rule, two binomial
+# standard deviations at the JAX package's miss rate, rounded up. It applies
+# to jumping forward, whose JAX share is measured over FORWARD_SEEDS (4
+# misses in 64: seeds 20, 35, 49, 59; none in 0-7, so 8 seeds measure no
+# rate); the other two are held to the JAX count itself over seeds 0-7. The
+# backflip is held on the JAX example's scenario of each seed: the
+# GROUND_RANDOMIZER friction its env.reset(PRNGKey(seed)) draws
+# (`--frictions`), injected as the driver's `friction`; the run on the
+# port's own draw of the ground ("backflip_drawn_ground") is reported beside
+# it, with no bar.
+BEHAVIOUR_SEEDS = tuple(range(8))
+FORWARD_SEEDS = tuple(range(64))
+JAX_BACKFLIP_FRICTION = (0.8758191466331482, 0.6319233775138855, 0.7557409405708313,
+                         0.859541118144989, 0.8161233067512512, 0.7351763844490051,
+                         0.7035908102989197, 0.9285371899604797)
+BEHAVIOUR_JOBS = (("continuous", (0, 1)), ("continuous", (2, 3)), ("continuous", (4, 5)),
+                  ("continuous", (6, 7))) + tuple(
+    ("jumping_forward", FORWARD_SEEDS[i:i + 16]) for i in range(0, len(FORWARD_SEEDS), 16)) + (
+    ("backflip", BEHAVIOUR_SEEDS), ("backflip_drawn_ground", BEHAVIOUR_SEEDS))
+JAX_PASSES = {"jumping_forward": 60, "backflip": 1, "continuous": 6}
+JAX_FORWARD_PASSES_0_7 = 8
+_FORWARD_MISS = 1 - JAX_PASSES["jumping_forward"] / len(FORWARD_SEEDS)
+SHARE_SLACK = {"jumping_forward": math.ceil(2 * math.sqrt(
+    len(FORWARD_SEEDS) * _FORWARD_MISS * (1 - _FORWARD_MISS)))}
 ORACLE_TRACES = [("JUMPING_IN_PLACE", True), ("JUMPING_FORWARD", True), ("BACKFLIP", True),
                  ("CONTINUOUS_JUMPING_FORWARD", True), ("JUMPING_IN_PLACE", False),
                  ("JUMPING_FORWARD", False)]
@@ -259,7 +317,10 @@ FLOPS_PER_ELEM = {"actuation": 10, "contact": 20, "contact_anchored": 30,
                   # kinematics, inertias, bias force, three sites' contact, 3x3
                   # block and share of the base's Schur system) and ~650 for
                   # the base (the trunk's bias, the 6x6 solve, the Euler update)
-                  "env_substeps": 10_000}
+                  "env_substeps": 10_000,
+                  # per (lane, substep): the same substep with the memoryless
+                  # foot (csrc/env_lane.cuh lane_substep)
+                  "planner_rollout": 10_000}
 # env_substeps against its plain version: within ENV_SPREAD times the plain
 # version's own spread, plus REL_TOL of 1 + |plain|. The spread, per
 # environment and output field, is the larger of the plain version's change
@@ -275,6 +336,34 @@ FLOPS_PER_ELEM = {"actuation": 10, "contact": 20, "contact_anchored": 30,
 # spreads (tests/test_torch_env_substeps.py's cases).
 ENV_SPREAD = 10.0
 ENV_GAP_ROWS, ENV_GAP_BLOCK = 8, 2
+# planner_rollout against its plain version, both against the plain version
+# run in float64: per field and knot, and on the lanes' MPPI costs, these
+# quantiles over the lanes of the kernel's relative distance within
+# ROLLOUT_DIST x the plain version's (+ REL_TOL). env_substeps's per-lane rule
+# (ROLLOUT_SPREAD x the plain version's own spread, as ENV_SPREAD) gates the
+# one-lane executor; over the 32,768 lanes x 50 knots of a rollout it does
+# not hold lane by lane: the relaxed contact's damping switches on at
+# phi = 0 (dn·|vz|, 40 N at 1 m/s), and where the kernel's contracted
+# (FMA) rounding puts a site on the other side of phi = 0 than the plain
+# version, its one-ulp start and its float64 run, the lane parts from them
+# by far more than they part from each other within one knot
+# (tests/torch_rollout_lane_probe.py, PERF.md). Such lanes are counted and
+# printed.
+ROLLOUT_QUANTILES = (0.5, 0.9, 0.99)
+ROLLOUT_DIST = 2.0
+ROLLOUT_SPREAD = 10.0
+# one knot from the plain version's state at each of the headline's 1.6 M
+# knot-lanes: the kernel may be 100 x farther from the float64 knot than the
+# plain version (a site put across phi = 0 by FMA rounding) at no more than
+# ONE_KNOT_FAR of them (1 measured on an NVIDIA H100 80GB HBM3 at 700 W), and
+# past the plain version's 0.999 quantile at no more than ONE_KNOT_TAIL x as
+# many as the plain version itself; a fault on a branch few lanes take (a
+# contact site, the friction cone) fails either
+ONE_KNOT_QUANTILES = (0.5, 0.9, 0.99, 0.999)
+ONE_KNOT_FAR = 8
+ONE_KNOT_TAIL = 2.0
+ROLLOUT_FIELDS = {"pos": slice(0, 3), "quat": slice(3, 7), "lin_vel": slice(7, 10),
+                  "ang_vel": slice(10, 13), "q": slice(13, 25), "qd": slice(25, 37)}
 
 
 def cuda_time_ms(torch, fn, reps=30, inner=1):
@@ -941,8 +1030,9 @@ def run_full_rate(torch, bench, act, dyn, kind):
     """Phase 4, second row: bench --full-rate --horizon 25 at full width
     (1024 scenarios x 32 samples, 10 iterations) on the execution-rate model:
     finite costs, the mean final cost within COST_BAND of the JAX bench's at
-    the same configuration, `actuation` and `contact` launched once per
-    substep: 2,750 per solve (11 rollouts x 25 knots x 10 substeps)."""
+    the same configuration, `planner_rollout` launched once per rollout: 11
+    per solve (each 25 knots x 10 substeps), `actuation` and `contact`
+    never."""
     reset_counts(act, dyn)
     rec = bench.run(batch=BATCH, horizon=FULL_RATE_HORIZON, iterations=ITERATIONS,
                     samples=SAMPLES, runs=TIMED_RUNS, device="cuda", full_rate=True)
@@ -951,8 +1041,8 @@ def run_full_rate(torch, bench, act, dyn, kind):
     if not bool(torch.isfinite(rec["costs"]).all()):
         raise AssertionError("phase 4: non-finite final costs in the full-rate solve")
     per_solve = (ITERATIONS + 1) * FULL_RATE_HORIZON * 10
-    substeps = rec["solves"] * per_solve
-    check_counts(counts, {"actuation": substeps, "contact": substeps, "contact_anchored": 0,
+    check_counts(counts, {"planner_rollout": rec["solves"] * (ITERATIONS + 1),
+                          "actuation": 0, "contact": 0, "contact_anchored": 0,
                           "env_substeps": 0,
                           "actuation_jvp": 0, "contact_jvp": 0,
                           **dict.fromkeys(BF16_KERNELS, 0)}, 4)
@@ -963,7 +1053,8 @@ def run_full_rate(torch, bench, act, dyn, kind):
         raise AssertionError(f"phase 4: full-rate mean final cost {mean_cost} outside "
                              f"[{lo:.2f}, {hi:.2f}]")
     print(f"phase 4: {rec['solves']} full-rate solves (H={FULL_RATE_HORIZON}, 10 substeps "
-          f"per knot at 180 kN/m, clamp on) ran {per_solve} substeps each; mean final cost "
+          f"per knot at 180 kN/m, clamp on) ran {per_solve} substeps each in "
+          f"{ITERATIONS + 1} planner_rollout launches; mean final cost "
           f"{mean_cost:.4f} (band [{lo:.2f}, {hi:.2f}]); {rec['value']:.2f} solves/s on "
           f"{kind}; launches {counts}", flush=True)
     print(json.dumps({"bench_full_rate": bench.line(rec)}))
@@ -1006,7 +1097,7 @@ def run_ilqr_solve(torch, bench, ilqr, act, dyn, kind):
     tangent = rec["solves"] * S * ITERATIONS * blocks
     check_counts(counts, {"actuation": primal, "contact": primal, "actuation_jvp": tangent,
                           "contact_jvp": tangent, "contact_anchored": 0, "env_substeps": 0,
-                          **dict.fromkeys(BF16_KERNELS, 0)}, 10)
+                          "planner_rollout": 0, **dict.fromkeys(BF16_KERNELS, 0)}, 10)
     # the same full-width problem, its rollout and one whole iteration, under
     # the sync debug mode (no stage clock: reading its events is the one sync
     # a timed solve makes, after the last iteration)
@@ -1047,7 +1138,7 @@ def run_ilqr_bf16(torch, bench, ilqr, act, dyn, kind, exact_cost):
     lin = rec["solves"] * S * blocks * -(-ITERATIONS // relin)
     check_counts(counts, {"actuation": primal, "contact": primal, "actuation_jvp": 0,
                           "contact_jvp": 0, "contact_anchored": 0, "env_substeps": 0,
-                          **dict.fromkeys(BF16_KERNELS, lin)}, 10)
+                          "planner_rollout": 0, **dict.fromkeys(BF16_KERNELS, lin)}, 10)
     gap = (rec["mean_final_cost"] - exact_cost) / abs(exact_cost)
     print(f"phase 10: {rec['solves']} full-width iLQR solves, bf16 linearization "
           f"relinearized every {relin}: {rec['value']:.3f} solves/s on {kind}; mean cost "
@@ -1095,12 +1186,15 @@ def check_closed_loop(res, kind, full_rate):
                              f"(executed apex > 0.45 m, upright, within {LOOP_BAND:.0%} of the "
                              f"planned {planned} m): {out}")
     H, its = (closed_loop.FULL_RATE_HORIZON if full_rate else 20), 4
+    # the executor: one planner_rollout launch per knot; MPPI's solves one
+    # per rollout, iLQR's substeps through `actuation` and `contact`
     if full_rate:
-        per_solve, tangent = (its + 1) * H * 10, 0
+        primal, tangent, rollouts = 0, 0, out["solves"] * (its + 1)
     else:
-        per_solve, tangent = 2 * (H + its * (1 + H)), out["solves"] * 2 * its
-    primal = out["solves"] * per_solve + closed_loop.EXEC_SUBSTEPS * LOOP_KNOTS
-    check_counts(counts, {"actuation": primal, "contact": primal, "actuation_jvp": tangent,
+        primal = out["solves"] * 2 * (H + its * (1 + H))
+        tangent, rollouts = out["solves"] * 2 * its, 0
+    check_counts(counts, {"planner_rollout": rollouts + LOOP_KNOTS, "actuation": primal,
+                          "contact": primal, "actuation_jvp": tangent,
                           "contact_jvp": tangent, "contact_anchored": 0, "env_substeps": 0,
                           **dict.fromkeys(BF16_KERNELS, 0)}, 11)
     print(f"phase 11: {name} closed loop ({out['planner']}) of {LOOP_KNOTS} knots, "
@@ -1145,27 +1239,30 @@ def run_host_bound_paths(policy_replay, kind):
 
     trajstore.library()              # build the store once, before the workers read it
     replays = list(policy_replay.BEHAVIORS)
-    jobs = ([(_closed_loop_worker, True), (_transfer_gate_worker, None),
-             (_closed_loop_worker, False)] + [(_replay_worker, n) for n in replays]
+    jobs = ([(_behaviour_worker, job) for job in BEHAVIOUR_JOBS]
+            + [(_closed_loop_worker, True), (_transfer_gate_worker, None),
+               (_closed_loop_worker, False)] + [(_replay_worker, n) for n in replays]
             + [(_oracle_trace_worker, job) for job in ORACLE_TRACES])
     t0 = time.perf_counter()
     with multiprocessing.get_context("spawn").Pool(HOST_PROCESSES) as pool:
         pending = [pool.apply_async(fn, (arg,)) for fn, arg in jobs]
         results = [r.get() for r in pending]
     wall = time.perf_counter() - t0
-    print(f"phases 11, 13, 16 and 17: {len(jobs)} host-bound paths in {wall:.2f} s "
+    print(f"phases 11, 13, 16, 17 and 20: {len(jobs)} host-bound paths in {wall:.2f} s "
           f"({HOST_PROCESSES} processes on one card)", flush=True)
+    behaviours, results = results[:len(BEHAVIOUR_JOBS)], results[len(BEHAVIOUR_JOBS):]
     by_path = {"closed_loop_full_rate": check_closed_loop(results[0], kind, True),
                "closed_loop": check_closed_loop(results[2], kind, False)}
     k = 3 + len(replays)
     by_path.update(check_replays(dict(zip(replays, results[3:k])), policy_replay, kind))
     by_path["oracle_gate"] = check_oracle_gate(results[k:], kind)
     by_path["transfer_gate"] = check_transfer_gate(results[1], kind)
+    by_path.update(check_behaviours(behaviours, kind))
     return by_path
 
 
 # kernel name -> (wrapper, its launch counter)
-COUNTERS = {"env_substeps": ("ss", "launches"),
+COUNTERS = {"env_substeps": ("ss", "launches"), "planner_rollout": ("ro", "launches"),
             "actuation": ("act", "launches"), "contact": ("dyn", "launches"),
             "contact_anchored": ("dyn", "anchored_launches"),
             "actuation_jvp": ("act", "jvp_launches"), "contact_jvp": ("dyn", "jvp_launches"),
@@ -1180,6 +1277,10 @@ def _counter_owner(act, dyn, which):
         from quadruped_springs_tpu_torch.env import substeps
 
         return substeps.env_substeps
+    if which == "ro":
+        from quadruped_springs_tpu_torch.solver import rollout
+
+        return rollout.planner_rollout
     return act.actuation_torque if which == "act" else dyn.contact_forces
 
 
@@ -1714,12 +1815,13 @@ def _transfer_gate_worker(_):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     S = prob.config.solver_substeps
-    mppi_sub = S * HORIZON * (2 + 2 * ITERATIONS)     # first, 2 per iteration, last
     blocks = -(-HORIZON // ilqr.linearization_blocks(1, HORIZON, N_TANGENTS))
     ilqr_sub = S * (HORIZON + ITERATIONS * (blocks + HORIZON))
-    # the env: two settles (the plans' start, the replay's), HORIZON steps
-    want = {"env_substeps": 2 + HORIZON, "actuation": mppi_sub + ilqr_sub,
-            "contact_anchored": 0, "contact": 2 + mppi_sub + ilqr_sub,
+    # the env: two settles (the plans' start, the replay's), HORIZON steps;
+    # MPPI (per-iteration accept): its first, 2 per iteration and its last
+    # rollout, one planner_rollout launch each
+    want = {"env_substeps": 2 + HORIZON, "planner_rollout": 2 + 2 * ITERATIONS,
+            "actuation": ilqr_sub, "contact_anchored": 0, "contact": 2 + ilqr_sub,
             "actuation_jvp": S * ITERATIONS * blocks, "contact_jvp": S * ITERATIONS * blocks}
     out = {}
     for lane, (name, sol) in enumerate(plans.items()):
@@ -1955,7 +2057,7 @@ def run_sharded(torch, act, dyn, ilqr, kind):
     blocks = -(-HORIZON // ilqr.linearization_blocks(SHARDED_BATCH, HORIZON, N_TANGENTS))
     primal = S * (HORIZON + ITERATIONS * (blocks + HORIZON))
     check_counts(counts, {"actuation": primal, "contact": primal, "contact_anchored": 0,
-                          "env_substeps": 0,
+                          "env_substeps": 0, "planner_rollout": 0,
                           "actuation_jvp": S * ITERATIONS * blocks,
                           "contact_jvp": S * ITERATIONS * blocks}, 18)
     finite = sanitize.finite_mask((us, costs))
@@ -2051,6 +2153,390 @@ def run_sharded(torch, act, dyn, ilqr, kind):
     return counts
 
 
+# -- phase 19: the planner's rollout kernel --------------------------------
+
+def rollout_problems(torch, prob, n, seed):
+    """n TEST_RANDOMIZER problems of `prob` for the rollout checks, from the
+    settled standing start: every 8th from problem 1 starts 15 cm up at
+    1 m/s (in flight), every 8th from problem 2 stands on friction 0.3 (its
+    feet slide on the friction cone under the random candidates).
+    Returns (x0 (n,37), scenarios)."""
+    from quadruped_springs_tpu_torch.env import randomizers as rnd
+
+    gen = torch.Generator("cuda").manual_seed(seed)
+    scen = rnd.sample_scenario(prob.cfg, "TEST_RANDOMIZER", gen, n=n)
+    friction = scen.friction.clone()
+    friction[2::8] = 0.3
+    scen = dataclasses.replace(scen, friction=friction)
+    x0 = prob.default_x0().expand(n, -1).clone()
+    x0[:, 13:25] += 0.02 * torch.randn((n, 12), generator=gen, device="cuda")
+    x0[1::8, 2] += 0.15
+    x0[1::8, 9] = 1.0
+    return x0, scen
+
+
+def _rollout_cost(torch, prob, xs, us):
+    """MPPI's cost of each lane's rollout, (B,R)."""
+    from quadruped_springs_tpu_torch.models import spatial as sp
+
+    ts = torch.arange(us.shape[2], device=us.device)
+    return sp.sum_fixed(prob.stage_cost(xs[:, :, :-1], us, ts)) + prob.terminal_cost(
+        xs[:, :, -1])
+
+
+def _lane_field_distance(torch, xs, exact, cols):
+    """max over the field's columns of |xs - exact| / (1 + |exact|), per lane
+    and knot (knots 1..H), as (lanes, H) float64."""
+    d = ((xs[..., cols].double() - exact[..., cols]).abs()
+         / (1.0 + exact[..., cols].abs())).amax(-1)
+    return d.reshape(-1, d.shape[-1])[:, 1:]
+
+
+def check_planner_rollout(torch, ro, prob, x0, us, lanes, consts, reps=10, strict=False):
+    """The `planner_rollout` kernel against planner_rollout_plain on the same
+    arguments, at every knot and on each lane's MPPI cost, both measured
+    against the plain version run in float64 (`exact`):
+
+    - gate: per field and knot, and on the costs, the ROLLOUT_QUANTILES of
+      the kernel's relative distance to `exact` over the lanes lie within
+      ROLLOUT_DIST x the same quantiles of the plain version's, plus REL_TOL
+      (the kernel is as close to the float64 answer as the plain version);
+    - per lane, env_substeps's rule (check_env_substeps): REL_TOL·(1 + |plain|) +
+      ROLLOUT_SPREAD x the plain version's own spread (the larger of its
+      change under a one-ulp change of the start and its distance to
+      `exact`, the largest over the state): a gate on every lane at knot 1
+      (from the same start), and at every knot and on the cost with
+      `strict` (one lane, one knot: the executor's shape); past knot 1,
+      the lanes outside it are counted and the spreads the others use
+      printed.
+
+    Times the kernel through its wrapper (CUDA events, median of `reps`)
+    and the plain version (its two float32 calls, the faster)."""
+    from quadruped_springs_tpu_torch.control import interfaces as ci
+    from quadruped_springs_tpu_torch.solver.mpc import cast_floats
+
+    q_des = ci.action_to_command(prob.iface, us).contiguous()
+    got = ro.planner_rollout(x0, q_des, lanes, consts)
+    torch.cuda.synchronize()
+    timed = []
+
+    def plain(x):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        xs = ro.planner_rollout_plain(x, q_des, lanes, consts)
+        end.record()
+        end.synchronize()
+        timed.append(start.elapsed_time(end))
+        return xs
+
+    want = plain(x0)
+    moved_x0 = x0.clone()
+    moved_x0[:, 13:25] = torch.nextafter(x0[:, 13:25], x0[:, 13:25] + 1.0)
+    moved = plain(moved_x0)
+    f64 = lambda t: cast_floats(t, torch.float64)
+    exact = ro.planner_rollout_plain(x0.double(), q_des.double(), f64(lanes), f64(consts))
+    spread = torch.maximum((moved - want).abs(), (exact - want).abs()).amax(-1, keepdim=True)
+    qs = torch.tensor(ROLLOUT_QUANTILES, dtype=torch.float64, device=x0.device)
+
+    def distribution(name, dk, dp):
+        """The gate on the lanes' distances (lanes, knots) to `exact`:
+        returns the largest (kernel quantile - REL_TOL) / plain quantile."""
+        qk, qp = torch.quantile(dk, qs, dim=0), torch.quantile(dp, qs, dim=0)
+        bad = qk > ROLLOUT_DIST * qp + REL_TOL
+        if bool(bad.any()):
+            i, k = (int(v) for v in bad.nonzero()[0])
+            raise AssertionError(
+                f"planner_rollout {name}: the kernel's {ROLLOUT_QUANTILES[i]} quantile of the "
+                f"relative distance to the float64 plain version {float(qk[i, k]):.3e} at knot "
+                f"{k + 1} exceeds {ROLLOUT_DIST} x the plain version's {float(qp[i, k]):.3e} + "
+                f"{REL_TOL}")
+        return float(((qk - REL_TOL).clamp_min(0.0) / qp.clamp_min(1e-30)).max())
+
+    dist, used, outside, err = {}, {}, {}, 0.0
+    for field, cols in ROLLOUT_FIELDS.items():
+        w, g = want[..., cols], got[..., cols]
+        d = (g - w).abs()
+        err = max(err, float(d.max()))
+        dist[field] = distribution(field, _lane_field_distance(torch, got, exact, cols),
+                                   _lane_field_distance(torch, want, exact, cols))
+        slack = d - REL_TOL * (1.0 + w.abs())
+        over = torch.where(slack > 0, slack / spread.clamp_min(1e-30), torch.zeros_like(slack))
+        lane_over = over.amax(-1) > ROLLOUT_SPREAD            # (B,R,H+1)
+        outside[field] = int(lane_over.any(-1).sum())
+        used[field] = float(torch.where(lane_over[..., None], torch.zeros_like(over),
+                                        over).max())
+        first = int(lane_over[..., 1].sum())
+        if first or (strict and outside[field]):
+            raise AssertionError(f"planner_rollout {field}: |kernel - plain| exceeds "
+                                 f"{REL_TOL}·(1+|plain|) + {ROLLOUT_SPREAD} x the plain version's "
+                                 f"spread at {first} lanes of knot 1 and at {outside[field]} "
+                                 f"lanes in all (held at every knot: {strict})")
+    costs = {k: _rollout_cost(torch, prob, xs.float(), us) for k, xs in
+             (("got", got), ("want", want), ("moved", moved))}
+    c_exact = _rollout_cost(torch, prob, exact, us.double())
+    rel = lambda c: ((c.double() - c_exact).abs() / (1.0 + c_exact.abs())).reshape(-1, 1)
+    dist["cost"] = distribution("cost", rel(costs["got"]), rel(costs["want"]))
+    c_spread = torch.maximum((costs["moved"] - costs["want"]).abs(),
+                             (c_exact.float() - costs["want"]).abs())
+    d = (costs["got"] - costs["want"]).abs()
+    slack = d - REL_TOL * (1.0 + costs["want"].abs())
+    over = torch.where(slack > 0, slack / c_spread.clamp_min(1e-30), torch.zeros_like(slack))
+    outside["cost"] = int((over > ROLLOUT_SPREAD).sum())
+    used["cost"] = float(torch.where(over > ROLLOUT_SPREAD, torch.zeros_like(over), over).max())
+    if strict and outside["cost"]:
+        raise AssertionError(f"planner_rollout cost: |kernel - plain| {float(d.max())} exceeds "
+                             f"{REL_TOL}·(1+|plain|) + {ROLLOUT_SPREAD} x the spread")
+    one = lambda: ro.planner_rollout(x0, q_des, lanes, consts)
+    B, R, H, _ = q_des.shape
+    inputs = [x0, q_des, lanes.packed, lanes.spring_k, lanes.spring_b, lanes.friction,
+              consts.kp, consts.kd, consts.torque_limits, consts.velocity_limits, consts.rest,
+              consts.sign]
+    return {"max_abs_err": err, "cost_max_abs_err": float(d.max()),
+            "distance_used": dist, "lanes_outside_spread": outside, "spread_used": used,
+            "ms": cuda_time_ms(torch, one, reps=reps),
+            "profile": (one, "planner_rollout_kernel"), "plain_ms": min(timed),
+            "lanes": B * R, "horizon": H, "substeps": consts.substeps,
+            **roofline("planner_rollout", B * R * H * consts.substeps, inputs, [got])}
+
+
+def one_knot_from_plain(torch, ro, prob, x0, us, scen):
+    """From the plain version's state at every knot of the rollout of `us`
+    (B problems x R candidates x H knots), one knot of the kernel, of the
+    plain version and of the plain version in float64, each knot-lane on its
+    problem's scenario row. Returns the states x (B·R,H,37), commands q
+    (B·R,H,12), the lanes' scenarios, the three results (B·R,H,37) and the
+    kernel's and the plain version's distance to the float64 knot, max over
+    the state of |a - exact| / (1 + |exact|), (B·R,H) float64."""
+    from quadruped_springs_tpu_torch.control import interfaces as ci
+    from quadruped_springs_tpu_torch.env.env import take
+    from quadruped_springs_tpu_torch.solver.mpc import cast_floats
+
+    B, R, H, _ = us.shape
+    q_des = ci.action_to_command(prob.iface, us).contiguous()
+    consts = prob.rollout_consts()
+    want = ro.planner_rollout_plain(x0, q_des, prob.rollout_lanes(scen), consts)
+    lane_scen = take(scen, torch.arange(B, device=x0.device).repeat_interleave(R))
+    lanes = prob.rollout_lanes(lane_scen)
+    f64 = lambda t: cast_floats(t, torch.float64)
+    lanes64, consts64 = f64(lanes), f64(consts)
+    xs, qs = want[:, :, :H].reshape(B * R, H, 37), q_des.reshape(B * R, H, 12)
+    out = []
+    for k in range(H):
+        x, q = xs[:, k].contiguous(), qs[:, k, None, None].contiguous()
+        out.append((ro.planner_rollout(x, q, lanes, consts)[:, 0, 1],
+                    ro.planner_rollout_plain(x, q, lanes, consts)[:, 0, 1],
+                    ro.planner_rollout_plain(x.double(), q.double(), lanes64,
+                                             consts64)[:, 0, 1]))
+    kernel, plain, exact = (torch.stack(t, 1) for t in zip(*out))
+    rel = lambda a: ((a.double() - exact).abs() / (1.0 + exact.abs())).amax(-1)
+    return {"x": xs, "q": qs, "scenario": lane_scen, "kernel": kernel, "plain": plain,
+            "exact": exact, "e_kernel": rel(kernel), "e_plain": rel(plain)}
+
+
+def check_one_knot_lanes(torch, ro, prob, x0, us, scen):
+    """The kernel lane by lane over every knot of the headline's rollout,
+    each knot from the plain version's state (one_knot_from_plain), against
+    the float64 knot: at most ONE_KNOT_FAR knot-lanes where the kernel is
+    100 x farther than the plain version (+ 1e-4), and at most ONE_KNOT_TAIL
+    x as many knot-lanes as the plain version's own past the plain version's
+    0.999 quantile. Returns the counts and quantiles."""
+    r = one_knot_from_plain(torch, ro, prob, x0, us, scen)
+    e_k, e_p = r["e_kernel"].flatten(), r["e_plain"].flatten()
+    qs = torch.tensor(ONE_KNOT_QUANTILES, dtype=torch.float64, device=e_k.device)
+    q_k, q_p = torch.quantile(e_k, qs).tolist(), torch.quantile(e_p, qs).tolist()
+    far = int((e_k > 100.0 * e_p + 1e-4).sum())
+    tail_k, tail_p = int((e_k > q_p[-1]).sum()), int((e_p > q_p[-1]).sum())
+    res = {"knot_lanes": e_k.numel(), "kernel_quantiles": q_k, "plain_quantiles": q_p,
+           "kernel_max": float(e_k.max()), "plain_max": float(e_p.max()), "far": far,
+           "past_plain_0.999_kernel": tail_k, "past_plain_0.999_plain": tail_p}
+    print(f"phase 19: planner_rollout, one knot from the plain version's state at each of "
+          f"{res['knot_lanes']} knot-lanes of the headline's rollout, distance to the float64 "
+          f"knot at the {ONE_KNOT_QUANTILES} quantiles: kernel {q_k}, plain {q_p}; max kernel "
+          f"{res['kernel_max']:.3e}, plain {res['plain_max']:.3e}; knot-lanes where the kernel "
+          f"is 100 x farther: {far} (bound {ONE_KNOT_FAR}); past the plain version's 0.999 "
+          f"quantile: kernel {tail_k}, plain {tail_p} (bound {ONE_KNOT_TAIL} x)", flush=True)
+    if far > ONE_KNOT_FAR or tail_k > ONE_KNOT_TAIL * tail_p:
+        raise AssertionError(f"phase 19: planner_rollout parts from the float64 knot at more "
+                             f"knot-lanes than the plain version: {res}")
+    return res
+
+
+def check_planner_rollout_batching(torch, ro, prob, x0, us, scen):
+    """Rows 0-GAP_ROWS-1 (every candidate of problems 0-7) of one launch at
+    the headline's problems, at GAP_ROWS problems and in blocks of
+    GAP_BLOCK: bitwise equal. Returns max |d| per batching."""
+    from quadruped_springs_tpu_torch.control import interfaces as ci
+    from quadruped_springs_tpu_torch.env.env import take
+
+    def rows(a, b):
+        idx = torch.arange(a, b, device="cuda")
+        return ro.planner_rollout(x0[a:b].contiguous(),
+                                  ci.action_to_command(prob.iface, us[a:b]).contiguous(),
+                                  prob.rollout_lanes(take(scen, idx)), prob.rollout_consts())
+
+    full, whole = rows(0, x0.shape[0]), rows(0, GAP_ROWS)
+    blocks = torch.cat([rows(i, i + GAP_BLOCK) for i in range(0, GAP_ROWS, GAP_BLOCK)])
+    return {str(x0.shape[0]): float((full[:GAP_ROWS] - whole).abs().max()),
+            f"{GAP_ROWS // GAP_BLOCK} x {GAP_BLOCK}": float((blocks - whole).abs().max())}
+
+
+def check_planner_rollout_shapes(torch, kind):
+    """Phase 19: `planner_rollout` against planner_rollout_plain on the card
+    at the shapes of its paths: the MPPI headline's rollout (BATCH
+    TEST_RANDOMIZER problems x SAMPLES candidates, H = 50, 2 substeps of the
+    relaxed model with springs), the full-rate row's (H = 25, 10 substeps at
+    180 kN/m, the clamp on) and the closed loop's executor (1 lane, H = 1,
+    10 substeps on the nominal row, held lane by lane); the candidates
+    drawn as MPPI's first iteration draws them (the task's warm start plus
+    low-passed noise of sigma 0.3, clipped), for the problems of
+    rollout_problems (in stance, in flight, sliding); then rows 0-7 of the
+    headline's launch bitwise equal at BATCH, 8 and 2 problems."""
+    from quadruped_springs_tpu_torch import closed_loop
+    from quadruped_springs_tpu_torch.solver import mppi
+    from quadruped_springs_tpu_torch.solver import rollout as ro
+    from quadruped_springs_tpu_torch.solver.mpc import MPCConfig, MPCProblem
+
+    checks = {}
+    for setting, mk, horizon in (("headline", MPCConfig, HORIZON),
+                                 ("full_rate", MPCConfig.full_rate, FULL_RATE_HORIZON)):
+        prob = MPCProblem(mk(horizon=horizon), "cuda")
+        x0, scen = rollout_problems(torch, prob, BATCH, 31)
+        eps = 0.3 * torch.randn((BATCH, SAMPLES, horizon, prob.action_dim), device="cuda",
+                                generator=torch.Generator("cuda").manual_seed(32))
+        us = torch.clamp(prob.task_warm_start()[None, None] + mppi._smooth_noise(eps),
+                         -1.0, 1.0)
+        checks[setting] = check_planner_rollout(torch, ro, prob, x0, us,
+                                                prob.rollout_lanes(scen), prob.rollout_consts())
+        if setting == "headline":
+            gap = check_planner_rollout_batching(torch, ro, prob, x0, us, scen)
+            one_knot = check_one_knot_lanes(torch, ro, prob, x0, us, scen)
+    prob = MPCProblem(MPCConfig(task="JUMPING_IN_PLACE"), "cuda")
+    lanes, consts = closed_loop.executor(prob)
+    extend = prob.task_warm_start(crouch_knots=6)[-1]
+    checks["executor"] = check_planner_rollout(
+        torch, ro, prob, prob.default_x0()[None], extend.expand(1, 1, 1, -1).contiguous(),
+        lanes, consts, reps=30, strict=True)
+    for setting, r in checks.items():
+        print(f"phase 19: planner_rollout ({setting}) at {r['lanes']} lanes x {r['horizon']} "
+              f"knots x {r['substeps']} substeps: max_abs_err {r['max_abs_err']:.3e}, cost "
+              f"{r['cost_max_abs_err']:.3e}; the kernel's distance to the float64 plain version "
+              f"at the {ROLLOUT_QUANTILES} quantiles over its lanes, in units of the plain "
+              f"version's (bound {ROLLOUT_DIST}): {r['distance_used']}; lanes outside "
+              f"{REL_TOL}·(1+|plain|) + {ROLLOUT_SPREAD} x the plain version's spread: "
+              f"{r['lanes_outside_spread']} of {r['lanes']}, spreads the others use: "
+              f"{r['spread_used']}; kernel "
+              f"{r['ms']:.4f} ms through its wrapper, plain {r['plain_ms']:.2f} ms; bound "
+              f"{r['bound_ms'] * 1e3:.2f} µs ({r['bytes']} bytes, by {r['bound_by']}) on {kind}",
+              flush=True)
+    print(f"phase 19: planner_rollout rows 0-{GAP_ROWS - 1} of {BATCH} problems against the "
+          f"same rows launched as {GAP_ROWS} and in blocks of {GAP_BLOCK}: max |d| {gap} "
+          f"(0: bitwise equal)", flush=True)
+    if any(v != 0.0 for v in gap.values()):
+        raise AssertionError(f"phase 19: planner_rollout rows depend on the batch: {gap}")
+    return checks, gap, one_knot
+
+
+# -- phase 20: the MPC behaviours -------------------------------------------
+
+def _behaviour_worker(job):
+    """Phase 20, in a process of its own: one MPC behaviour driver at the
+    JAX example's full configuration on the card, job = (run, seeds), the
+    run a driver's name or "backflip_drawn_ground". Returns its records,
+    the kernels' launches and the wall time."""
+    import torch
+
+    from quadruped_springs_tpu_torch import mpc_behaviours
+    from quadruped_springs_tpu_torch.models import dynamics as dyn
+    from quadruped_springs_tpu_torch.ops import actuation as act
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    reset_counts(act, dyn)
+    t0 = time.perf_counter()
+    run, seeds = job
+    if run == "backflip":
+        records = [mpc_behaviours.backflip(seed=seed, device="cuda",
+                                           friction=JAX_BACKFLIP_FRICTION[seed])
+                   for seed in seeds]
+    else:
+        driver = mpc_behaviours.DRIVERS[run.removesuffix("_drawn_ground")]
+        records = [driver(seed=seed, device="cuda") for seed in seeds]
+    torch.cuda.synchronize()
+    return {"records": records, "launches": read_counts(act, dyn),
+            "seconds": time.perf_counter() - t0}
+
+
+def behaviour_passed(name, rec):
+    """The bars of the JAX package's gate (tests/test_closed_loop_behaviors.py;
+    the backflip launch: the full rotation its example documents) and the
+    KPIs they read, as a line of text."""
+    if name == "jumping_forward":
+        ok = (rec["fwd_distance_m"] >= 0.30 and rec["apex_rel_m"] >= 0.10
+              and rec["final_z"] > 0.15)
+        return ok, (f"forward {rec['fwd_distance_m']:.3f} m (bar 0.30), apex "
+                    f"{rec['apex_rel_m']:.3f} m (0.10), final z {rec['final_z']:.3f} m (0.15)")
+    if name == "continuous":
+        perf = rec["per_jump_performance"]
+        high = sum(p >= 0.85 for p in perf)
+        ok = (rec["sim_seconds"] >= 5.0 and rec["good_jumps"] >= 4 and high >= 2
+              and rec["total_fwd_m"] > 4.0)
+        return ok, (f"{rec['sim_seconds']} s (bar 5), {rec['good_jumps']} good jumps (4), "
+                    f"{high} at >= 0.85 (2), forward {rec['total_fwd_m']} m (4.0)")
+    return rec["full_rotation"], (
+        f"pitch {rec['pitch_unwrapped_rad']:.4f} rad (full rotation {rec['full_rotation']}), "
+        f"upright {rec['upright']} (up_z {rec['up_z']:.4f}, final z {rec['final_z']:.3f} m; "
+        f"reported, no bar), friction {rec['friction']:.4f}")
+
+
+def check_behaviours(results, kind):
+    """Phase 20: the MPC behaviour runs of BEHAVIOUR_JOBS (`results` in its
+    order), each held to the JAX package's pass count over the same seeds
+    less SHARE_SLACK (JAX_PASSES; the run on the port's own draw of the
+    backflip's ground is reported); every solve's rollouts one planner_rollout launch each
+    (iterations + 1), `actuation` never, `contact` once per reset (its
+    contact priming)."""
+    from quadruped_springs_tpu_torch import mpc_behaviours
+
+    by_run = {}
+    for (run, _), res in zip(BEHAVIOUR_JOBS, results):
+        acc = by_run.setdefault(run, {"records": [], "launches": {}, "seconds": 0.0})
+        acc["records"] += res["records"]
+        acc["seconds"] = max(acc["seconds"], res["seconds"])
+        for k, v in res["launches"].items():
+            acc["launches"][k] = acc["launches"].get(k, 0) + v
+    by_path, failed = {}, []
+    for run, res in by_run.items():
+        records, counts = res["records"], res["launches"]
+        name = run.removesuffix("_drawn_ground")
+        its = mpc_behaviours.PLANNERS[name].iterations
+        solves = sum(r["solves"] for r in records)
+        check_counts(counts, {"planner_rollout": solves * (its + 1), "actuation": 0,
+                              "contact": len(records), "contact_anchored": 0}, 20)
+        passes = 0
+        for rec in records:
+            ok, kpis = behaviour_passed(name, rec)
+            passes += ok
+            print(f"phase 20: {run} (seed {rec['seed']}): {kpis}; {rec['solves']} solves",
+                  flush=True)
+            print(json.dumps({f"mpc_{run}": rec}))
+        seeds = [rec["seed"] for rec in records]
+        least = JAX_PASSES.get(run, 0) - SHARE_SLACK.get(run, 0)
+        gate = (f"the gate: at least {least} (the JAX package {JAX_PASSES[run]}, less "
+                f"{SHARE_SLACK.get(run, 0)})" if run in JAX_PASSES else "reported, no bar")
+        if run == "jumping_forward":
+            early = sum(behaviour_passed(name, r)[0] for r in records if r["seed"] < 8)
+            gate += (f"; seeds 0-7: {early} of 8, the JAX package {JAX_FORWARD_PASSES_0_7} "
+                     f"(reported)")
+        print(f"phase 20: {run}: {passes} of {len(records)} seeds ({seeds[0]}-{seeds[-1]}) "
+              f"meet the bars; {gate}; the longest process {res['seconds']:.2f} s on {kind}; "
+              f"launches {counts}", flush=True)
+        if run in JAX_PASSES and passes < least:
+            failed.append(run)
+        by_path[f"mpc_{run}"] = counts
+    if failed:
+        raise AssertionError(f"phase 20: {failed} pass fewer seeds than the JAX package")
+    return by_path
+
+
 def main():
     import torch
 
@@ -2083,10 +2569,13 @@ def main():
     print(f"phase 2: built and loaded {kernels.build().name} in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     log = kernels.build_log().splitlines()
-    for i, line in enumerate(log):
-        if "Compiling entry function" in line and "env_substeps_kernel" in line:
-            print("phase 2: env_substeps_kernel (nvcc -Xptxas -v): "
-                  + " | ".join(x.strip() for x in log[i + 2:i + 4]), flush=True)
+    for kernel in ("env_substeps_kernel", "planner_rollout_kernel"):
+        i = next(i for i, line in enumerate(log)
+                 if "Compiling entry function" in line and kernel in line)
+        usage = " | ".join(x.strip() for x in log[i + 2:i + 4])
+        print(f"phase 2: {kernel} (nvcc -Xptxas -v): {usage}", flush=True)
+        if "0 bytes spill stores, 0 bytes spill loads" not in usage:
+            raise AssertionError(f"phase 2: {kernel} spills to local memory: {usage}")
 
     prob = MPCProblem(MPCConfig(horizon=HORIZON, iterations=ITERATIONS), "cuda")
     model = prob.lane_params().model
@@ -2107,13 +2596,13 @@ def main():
                                "planner_clamp": contact_bf16[True],
                                "full_rate_clamp": contact_bf16_stiff[True]}}
     report_checks(3, checks, LANES, "lanes")
+    checks["planner_rollout"], rollout_gap, _ = check_planner_rollout_shapes(torch, kind)
 
     reset_counts(act, dyn)
     rec = bench.run(batch=BATCH, horizon=HORIZON, iterations=ITERATIONS,
                     samples=SAMPLES, runs=TIMED_RUNS, device="cuda")
     torch.cuda.synchronize()
     by_path = {"mppi_solve": read_counts(act, dyn)}
-    launches = {k: by_path["mppi_solve"][k] for k in ("actuation", "contact")}
     costs = rec["costs"]
     if not bool(torch.isfinite(costs).all()):
         raise AssertionError("non-finite final costs in the full-width solve")
@@ -2122,18 +2611,16 @@ def main():
     if not lo <= mean_cost <= hi:
         raise AssertionError(f"mean final cost {mean_cost} outside [{lo:.2f}, {hi:.2f}]")
     # fused accept: `iterations` K-wide rollouts plus one final rollout of
-    # (proposal, best), each H knots of solver_substeps substeps
-    substeps = rec["solves"] * (ITERATIONS + 1) * HORIZON * prob.config.solver_substeps
-    for name, count in launches.items():
-        if count != substeps:
-            raise AssertionError(f"{name} kernel launched {count} times, expected "
-                                 f"{substeps} (one per planner substep)")
-    check_counts(by_path["mppi_solve"], {"contact_anchored": 0, "env_substeps": 0,
-                                         "actuation_jvp": 0,
+    # (proposal, best), each one planner_rollout launch of H knots
+    rollouts = rec["solves"] * (ITERATIONS + 1)
+    check_counts(by_path["mppi_solve"], {"planner_rollout": rollouts, "actuation": 0,
+                                         "contact": 0, "contact_anchored": 0,
+                                         "env_substeps": 0, "actuation_jvp": 0,
                                          "contact_jvp": 0, **dict.fromkeys(BF16_KERNELS, 0)},
                  4)
-    print(f"phase 4: {rec['solves']} full-width solves ran {substeps} planner substeps; "
-          f"launches {launches}; mean final cost {mean_cost:.4f} "
+    print(f"phase 4: {rec['solves']} full-width solves ran {rollouts} rollouts, one "
+          f"planner_rollout launch each ({ITERATIONS + 1} a solve; `actuation` and `contact` "
+          f"0); mean final cost {mean_cost:.4f} "
           f"(band [{lo:.2f}, {hi:.2f}]); {rec['value']:.2f} solves/s on {kind}",
           flush=True)
     print(json.dumps({"bench": bench.line(rec)}))
@@ -2210,13 +2697,16 @@ def main():
     # and the tangent kernels are the forward-mode derivatives of the two
     # and the bf16 variants are the same four kernels on bfloat16 storage;
     # env_substeps fuses both (actuation, anchored contact) into the env's
-    # dynamics, as XLA fused them on the TPU
+    # dynamics, planner_rollout (actuation, contact) into the planner's
+    # rollout, as XLA fused them on the TPU
     replaces = {name: "scripts/pallas_microbench.py:" + ("96" if name.startswith("actuation")
                                                           else "153") for name in checks}
-    replaces["env_substeps"] = "scripts/pallas_microbench.py:96,153"
+    replaces["env_substeps"] = replaces["planner_rollout"] = "scripts/pallas_microbench.py:96,153"
+    sources = {"env_substeps": ENV_SOURCE, "planner_rollout": ROLLOUT_SOURCE}
+    gaps = {"env_substeps": env_gap, "planner_rollout": rollout_gap}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",
-         "source": ENV_SOURCE if name == "env_substeps" else SOURCE,
+         "source": sources.get(name, SOURCE),
          "replaces": replaces[name],
          "launches": sum(c[name] for c in by_path.values()),
          "launches_by_path": {p: c[name] for p, c in by_path.items()},
@@ -2225,7 +2715,7 @@ def main():
             for k in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by")},
          # no single PyTorch call computes any of these functions
          "library_ms": None, "launch_floor_ms": floor_ms, "checks": by_setting,
-         **({"batch_gap": env_gap} if name == "env_substeps" else {})}
+         **({"batch_gap": gaps[name]} if name in gaps else {})}
         for name, by_setting in checks.items()]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

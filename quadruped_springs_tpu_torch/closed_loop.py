@@ -7,7 +7,8 @@ action is executed, and the plan is shifted. The executor is the JAX loop's
 ``execute_knot``: 10 x 1 kHz substeps of PD plus spring torque and
 ``dynamics.step`` at ``default_sim_params(0.001)`` (180 kN/m, 100 N s/m,
 the damping clamp on, memoryless friction: no foot anchors) on the nominal
-scenario's model.
+scenario's model, which is the planner's rollout at H = 1, S = 10: one
+``planner_rollout`` kernel launch per executed knot on the card.
 
 The default loop plans with iLQR (H = 20, 4 iterations, 4 alphas) on the
 relaxed 200 Hz planner model; feedback re-planning absorbs the mismatch
@@ -28,21 +29,26 @@ upright. A CUDA device that is not available is an error, not a fallback.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 
 import torch
 
 from quadruped_springs_tpu_torch.control import interfaces as ci
+from quadruped_springs_tpu_torch.env import randomizers as rnd
 from quadruped_springs_tpu_torch.models import dynamics as dyn
-from quadruped_springs_tpu_torch.ops import actuation as act
 from quadruped_springs_tpu_torch.solver.mpc import (
-    LaneParams,
     MPCConfig,
     MPCProblem,
     state_to_vec,
     vec_to_state,
 )
 from quadruped_springs_tpu_torch.solver.mppi import MPPIConfig
+from quadruped_springs_tpu_torch.solver.rollout import (
+    RolloutConsts,
+    RolloutLanes,
+    planner_rollout,
+)
 
 _G = 9.81
 EXEC_SUBSTEPS = 10                 # 1 kHz substeps per 100 Hz knot
@@ -53,25 +59,29 @@ def ballistic_apex(z, vz):
     return z + torch.clamp_min(vz, 0.0) ** 2 / (2 * _G)
 
 
-def executor(prob: MPCProblem) -> tuple[LaneParams, dyn.SimParams]:
-    """The executor's constants: the nominal scenario's one lane (model and
-    springs) and the 1 kHz simulator's contact parameters."""
-    return prob.lane_params(), dyn.default_sim_params(0.001)
+def executor(prob: MPCProblem) -> tuple[RolloutLanes, RolloutConsts]:
+    """The executor's constants: the nominal scenario's one row (model and
+    springs, the 1 kHz simulator's friction) and the 1 kHz simulator's
+    contact parameters, EXEC_SUBSTEPS substeps a knot."""
+    params = dyn.default_sim_params(0.001)
+    nominal = rnd.nominal_params(prob.cfg)
+    ground = torch.full_like(nominal.friction, params.friction)
+    lanes = prob.rollout_lanes(dataclasses.replace(nominal, friction=ground))
+    return lanes, prob.rollout_consts(params, EXEC_SUBSTEPS)
 
 
-def execute_knot(prob: MPCProblem, lanes: LaneParams, params: dyn.SimParams,
+def execute_knot(prob: MPCProblem, lanes: RolloutLanes, consts: RolloutConsts,
                  state: dyn.RobotState, action: torch.Tensor):
     """One 100 Hz knot on the stiff simulator (10 x 1 kHz substeps) for N
-    lanes: action (N,m). Returns (state, info of the last substep)."""
-    c = prob.cfg
+    lanes: action (N,m), through planner_rollout (N problems of one
+    candidate, H = 1). Returns (state, info): info["feet_in_contact"] (N,4)
+    holds the feet touching the ground at the knot's end."""
     q_des = ci.action_to_command(prob.iface, action).contiguous()
-    for _ in range(EXEC_SUBSTEPS):
-        tau, _ = act.actuation_torque(q_des, state.q.contiguous(), state.qd.contiguous(),
-                                      c.motor_kp, c.motor_kd, c.torque_limits,
-                                      lanes.spring_k, lanes.spring_b, c.spring_rest_angles,
-                                      prob.engage_sign)
-        state, info = dyn.step(lanes.model, params, state, tau, c.velocity_limits)
-    return state, info
+    xs = planner_rollout(state_to_vec(state).contiguous(), q_des[:, None, None], lanes,
+                         consts)
+    state = vec_to_state(xs[:, 0, 1])
+    feet = dyn.foot_state_world(lanes.model, state)[0]
+    return state, {"feet_in_contact": feet[..., 2] < lanes.model.foot_radius}
 
 
 def run(n_steps: int = 40, replan_every: int = 5, horizon: int | None = None,
@@ -96,7 +106,7 @@ def run(n_steps: int = 40, replan_every: int = 5, horizon: int | None = None,
         horizon = 20 if horizon is None else horizon
         prob = MPCProblem(MPCConfig(task="JUMPING_IN_PLACE", horizon=horizon,
                                     iterations=iterations, n_alphas=n_alphas), device)
-    lanes, params = executor(prob)
+    lanes, consts = executor(prob)
     state = vec_to_state(prob.default_x0()[None])
     u_warm = prob.task_warm_start(crouch_knots=6)
     heights, apexes, planned, airborne = [], [], [], []
@@ -113,7 +123,7 @@ def run(n_steps: int = 40, replan_every: int = 5, horizon: int | None = None,
             planned.append(ballistic_apex(xs[:, 2], xs[:, 9]).max())
         action = u_warm[0]
         u_warm = torch.cat([u_warm[1:], u_warm[-1:]], dim=0)
-        state, info = execute_knot(prob, lanes, params, state, action[None])
+        state, info = execute_knot(prob, lanes, consts, state, action[None])
         heights.append(state.pos[0, 2])
         airborne.append(~info["feet_in_contact"][0].any())
         apexes.append(ballistic_apex(state.pos[0, 2], state.lin_vel[0, 2]))

@@ -41,25 +41,13 @@ namespace {
 
 constexpr int kThreads = 128;   // 32 environments a block
 
-// Sums over the four lanes of an environment (lanes 4e..4e+3 of a warp).
-struct QuadShfl {
-  unsigned mask;
-  template <int N>
-  __device__ __forceinline__ void sum(float (&v)[N]) {
-#pragma unroll
-    for (int i = 0; i < N; ++i) v[i] += __shfl_xor_sync(mask, v[i], 1);
-#pragma unroll
-    for (int i = 0; i < N; ++i) v[i] += __shfl_xor_sync(mask, v[i], 2);
-  }
-};
-
 __global__ void __launch_bounds__(kThreads)
 env_substeps_kernel(const __grid_constant__ qs::EnvConsts consts,
                     const __grid_constant__ qs::EnvArgs args) {
   int64_t tid = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   int64_t env = tid >> 2;
   if (env >= args.n) return;   // whole groups of four: their shuffles stay complete
-  QuadShfl quad{0xFu << (threadIdx.x & 28u)};
+  qs::QuadShfl quad{0xFu << (threadIdx.x & 28u)};
   qs::env_lane(consts, args, env, static_cast<int>(tid & 3), quad);
 }
 

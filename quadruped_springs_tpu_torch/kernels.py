@@ -40,6 +40,8 @@ _I64 = ctypes.c_int64
 ENV_SUBSTEPS_ARGTYPES = ([_P, ctypes.c_int] + [_P] * 8 + [_I64, _I64] + [_P] * 10
                          + [_I64, _P, _I64] + [_P] * 13
                          + [_I64] + [ctypes.c_int] * 4 + [_P])
+PLANNER_ROLLOUT_ARGTYPES = ([_P, ctypes.c_int] + [_P] * 12 + [_I64, _P, _I64]
+                            + [ctypes.c_int] * 4 + [_P])
 _SIGNATURES = {
     # q_des, q, qd, kp, kd, limits, spring_k, spring_b, rest, sign,
     # tau, tau_motor, n_lanes, stream
@@ -69,6 +71,11 @@ _SIGNATURES = {
     # model_stride, ext_force, ext_stride, the 13 outputs, n, substeps,
     # on_rack, clamp_damping, torque_mode, stream (csrc/env_lane.cuh)
     "env_substeps": ENV_SUBSTEPS_ARGTYPES,
+    # consts (host float array), n_consts, x0, q_des, kp, kd, torque_limits,
+    # velocity_limits, rest, sign, spring_k, spring_b, friction, model,
+    # scenario_stride, xs, n_problems, repeats, horizon, substeps,
+    # clamp_damping, stream (csrc/planner_lane.cuh)
+    "planner_rollout": PLANNER_ROLLOUT_ARGTYPES,
 }
 # the planner's four kernels also take bfloat16 arrays, under <name>_bf16
 for _name in ("planner_actuation", "planner_contact", "planner_actuation_jvp",

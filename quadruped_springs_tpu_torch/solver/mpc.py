@@ -23,6 +23,11 @@ from quadruped_springs_tpu_torch.models import dynamics as dyn
 from quadruped_springs_tpu_torch.models.go1_params import Go1Model, go1_config
 from quadruped_springs_tpu_torch.ops import actuation as act
 from quadruped_springs_tpu_torch.solver import ilqr, mppi
+from quadruped_springs_tpu_torch.solver.rollout import (
+    RolloutConsts,
+    RolloutLanes,
+    planner_rollout,
+)
 from quadruped_springs_tpu_torch.tasks import costs as task_costs
 
 N_STATE = 37
@@ -216,6 +221,40 @@ class MPCProblem:
 
         return dyn_fn
 
+    # -- rollout: H knots of B·R lanes in one planner_rollout call ------------
+    def rollout_consts(self, params: dyn.SimParams | None = None,
+                       substeps: int | None = None) -> RolloutConsts:
+        """What every lane of a rollout shares: the robot's gains and limits,
+        the planner's SimParams and substeps per knot (or those given)."""
+        cfg = self.cfg
+        return RolloutConsts(
+            kp=cfg.motor_kp, kd=cfg.motor_kd, torque_limits=cfg.torque_limits,
+            velocity_limits=cfg.velocity_limits, rest=cfg.spring_rest_angles,
+            sign=self.engage_sign, params=self.sim_params if params is None else params,
+            substeps=self.config.solver_substeps if substeps is None else substeps)
+
+    def rollout_lanes(self, scenario: rnd.ScenarioParams | None = None) -> RolloutLanes:
+        """A rollout's scenarios: lane_params' model, springs and friction,
+        one row per problem, or the nominal robot's one row for all of them
+        when `scenario` is None; the model packed for the kernel once."""
+        lanes = self.lane_params(scenario)
+        return RolloutLanes.make(lanes.model, lanes.spring_k, lanes.spring_b,
+                                 lanes.params.friction)
+
+    def lane_rollout(self, scenario: rnd.ScenarioParams | None = None):
+        """MPPI's rollout for B problems, one scenario each (the nominal
+        robot for all when None): rollout(x0 (B,n), us (B,R,H,m)) -> xs
+        (B,R,H+1,n), R candidates per problem. The commands of every knot
+        are computed at once; the model is packed once, here. One
+        planner_rollout launch per call on the card."""
+        lanes, consts = self.rollout_lanes(scenario), self.rollout_consts()
+
+        def rollout(x0, us):
+            q_des = ci.action_to_command(self.iface, us).contiguous()
+            return planner_rollout(x0.contiguous(), q_des, lanes, consts)
+
+        return rollout
+
     # -- solve ------------------------------------------------------------
     def solve_batch(self, x0s: torch.Tensor, u_inits: torch.Tensor,
                     scenarios: rnd.ScenarioParams | None = None,
@@ -253,15 +292,14 @@ class MPCProblem:
                    scenario: rnd.ScenarioParams | None = None,
                    noise: torch.Tensor | None = None) -> mppi.MPPISolution:
         """Sampling-based solve of B problems: x0 (B,37), u_init (B,H,m), one
-        scenario per problem (nominal when None). See mppi.solve for `noise`.
+        scenario per problem (the nominal robot for all when None). Every
+        rollout is one lane_rollout call. See mppi.solve for `noise`.
         """
         if config is None:
             config = mppi.MPPIConfig(horizon=self.config.horizon,
                                      iterations=self.config.iterations)
-        if scenario is None:
-            scenario = rnd.nominal_params(self.cfg, x0.shape[0])
-        return mppi.solve(self.lane_dynamics(scenario), self.stage_cost,
-                          self.terminal_cost, x0, u_init, config, generator, noise)
+        return mppi.solve(self.lane_rollout(scenario), self.stage_cost, self.terminal_cost,
+                          x0, u_init, config, generator, noise)
 
     # -- convenience -------------------------------------------------------
     def default_x0(self) -> torch.Tensor:

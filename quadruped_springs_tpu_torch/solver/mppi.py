@@ -3,12 +3,13 @@
 Port of ``quadruped_springs_tpu.solver.mppi``. Where the JAX solver handles
 one problem and is vmapped, ``solve`` takes B problems at once: x0 (B,n),
 u_init (B,H,m). The K candidates of every problem roll out together as
-B·K lanes; ``dynamics(x, u)`` receives x (B,R,n) and u (B,R,m) for R
-sequences per problem (R = K for the samples, 1 or 2 for the exact
-re-evaluations) and returns (B,R,n). The time loop is a Python loop. The
-sums over the horizon and over the samples are elementwise adds in a fixed
-order (``models/spatial.py``), so a problem's solution does not depend on
-how many problems share its batch.
+B·K lanes. ``rollout(x0, us)`` runs R sequences per problem (R = K for
+the samples, 1 or 2 for the exact re-evaluations) through the whole
+horizon: us (B,R,H,m) -> xs (B,R,H+1,n) (``MPCProblem.lane_rollout``: one
+``planner_rollout`` kernel launch on the card). The sums over the horizon
+and over the samples are elementwise adds in a fixed order
+(``models/spatial.py``), so a problem's solution does not depend on how
+many problems share its batch.
 
 The bfloat16 sample path of the JAX solver (``sample_dtype``) is not
 ported: it cost solution quality.
@@ -68,7 +69,7 @@ def _smooth_noise(eps):
     return torch.stack(steps, dim=2) / norm[:, None]
 
 
-def solve(dynamics: Callable, stage_cost: Callable, terminal_cost: Callable,
+def solve(rollout: Callable, stage_cost: Callable, terminal_cost: Callable,
           x0: torch.Tensor, u_init: torch.Tensor, config: MPPIConfig = MPPIConfig(),
           generator: torch.Generator | None = None,
           noise: torch.Tensor | None = None) -> MPPISolution:
@@ -90,14 +91,9 @@ def solve(dynamics: Callable, stage_cost: Callable, terminal_cost: Callable,
         raise ValueError(f"noise shape {tuple(noise.shape)}, expected "
                          f"{(config.iterations, B, K, H, m)}")
 
-    def rollout(us):
+    def rollout_cost(us):
         """us (B,R,H,m) -> xs (B,R,H+1,n), costs (B,R)."""
-        x = x0[:, None].expand(B, us.shape[1], x0.shape[-1])
-        xs = [x]
-        for t in range(H):
-            x = dynamics(x, us[:, :, t])
-            xs.append(x)
-        xs = torch.stack(xs, dim=2)
+        xs = rollout(x0, us)
         cost = sp.sum_fixed(stage_cost(xs[:, :, :-1], us, ts)) + terminal_cost(xs[:, :, -1])
         return xs, cost
 
@@ -129,7 +125,7 @@ def solve(dynamics: Callable, stage_cost: Callable, terminal_cost: Callable,
             eps = perturbation(i)
             eps = torch.cat([torch.zeros_like(eps[:, :1]), eps[:, 1:]], dim=1)
             cand = clip_u(us_prop[:, None] + eps)
-            _, costs = rollout(cand)
+            _, costs = rollout_cost(cand)
             costs = torch.where(torch.isfinite(costs), costs, inf)
             ib = torch.argmin(costs, dim=-1)
             c_ib = costs[rows, ib]
@@ -139,25 +135,25 @@ def solve(dynamics: Callable, stage_cost: Callable, terminal_cost: Callable,
             us_prop = softmax_update(costs, cand)
             trace.append(cost_best)
         # settle proposal vs best with the exact dynamics, both in one rollout
-        xs_pb, cost_pb = rollout(torch.stack([us_prop, us_best], dim=1))
+        xs_pb, cost_pb = rollout_cost(torch.stack([us_prop, us_best], dim=1))
         take_b = cost_pb[:, 1] < cost_pb[:, 0]
         us = torch.where(take_b[:, None, None], us_best, us_prop)
         xs = torch.where(take_b[:, None, None], xs_pb[:, 1], xs_pb[:, 0])
         cost = torch.where(take_b, cost_pb[:, 1], cost_pb[:, 0])
         return MPPISolution(us=us, xs=xs, cost=cost, cost_trace=torch.stack(trace, -1))
 
-    _, cost = rollout(us0[:, None])
+    _, cost = rollout_cost(us0[:, None])
     cost = cost[:, 0]
     us = us0
     for i in range(config.iterations):
         cand = clip_u(us[:, None] + perturbation(i))
-        _, costs = rollout(cand)
+        _, costs = rollout_cost(cand)
         costs = torch.where(torch.isfinite(costs), costs, inf)
         us_new = softmax_update(costs, cand)
-        _, cost_new = rollout(us_new[:, None])
+        _, cost_new = rollout_cost(us_new[:, None])
         better = cost_new[:, 0] < cost
         us = torch.where(better[:, None, None], us_new, us)
         cost = torch.where(better, cost_new[:, 0], cost)
         trace.append(cost)
-    xs, _ = rollout(us[:, None])
+    xs, _ = rollout_cost(us[:, None])
     return MPPISolution(us=us, xs=xs[:, 0], cost=cost, cost_trace=torch.stack(trace, -1))

@@ -1,8 +1,9 @@
 """The hand-written CUDA kernels of quadruped_springs_tpu_torch/csrc against
 their plain PyTorch twins on the card (the tangent kernels against
 torch.func.jvp of the twins), the env step's launch count (the fused
-`env_substeps`, held to its plain version in tests/test_torch_env_substeps.py)
-and the planner's linearization through the kernels. Marked `gpu`: without a CUDA card they
+`env_substeps`, held to its plain version in tests/test_torch_env_substeps.py),
+the planner's linearization through the kernels and the planner's rollout
+(`planner_rollout`; its CPU side is tests/test_torch_planner_rollout.py). Marked `gpu`: without a CUDA card they
 skip. On a card (torch only, no jax needed):
 
     python -m pytest --noconftest -m gpu tests/test_torch_kernels.py
@@ -19,6 +20,8 @@ pytestmark = pytest.mark.gpu
 
 N = 1000            # not a multiple of the 256-thread block: the ragged edge
 REL_TOL = 1e-5      # FMA contraction is the only difference from the twins
+# planner_rollout against its plain version, as chip_smoke.py phase 19 holds it
+ROLLOUT_SPREAD, ROLLOUT_DIST = 10.0, 2.0
 
 
 @pytest.fixture
@@ -496,3 +499,128 @@ def test_env_substeps_rows_do_not_depend_on_the_batch(cuda):
     full, eight = launch(0, 1024)[:8], launch(0, 8)
     pairs = torch.cat([launch(i, i + 2) for i in range(0, 8, 2)])
     assert torch.equal(full, eight) and torch.equal(eight, pairs)
+
+
+# --- planner_rollout: the MPPI rollout's knots and substeps in one launch -----
+
+def _rollout_case(dev, full_rate=False, n=64, r=8, horizon=8):
+    """planner_rollout's arguments for n TEST_RANDOMIZER problems x r
+    candidates drawn as MPPI's first iteration draws them, every 8th problem
+    from 1 in flight, every 8th from 2 on friction 0.3."""
+    import dataclasses
+
+    from quadruped_springs_tpu_torch.control import interfaces as ci
+    from quadruped_springs_tpu_torch.env import randomizers as rnd
+    from quadruped_springs_tpu_torch.solver import mppi
+    from quadruped_springs_tpu_torch.solver.mpc import MPCConfig, MPCProblem
+
+    prob = MPCProblem((MPCConfig.full_rate if full_rate else MPCConfig)(horizon=horizon), dev)
+    gen = torch.Generator(dev).manual_seed(3)
+    scen = rnd.sample_scenario(prob.cfg, "TEST_RANDOMIZER", gen, n=n)
+    friction = scen.friction.clone()
+    friction[2::8] = 0.3
+    scen = dataclasses.replace(scen, friction=friction)
+    x0 = prob.default_x0().expand(n, -1).clone()
+    x0[1::8, 2] += 0.15
+    x0[1::8, 9] = 1.0
+    eps = 0.3 * torch.randn((n, r, horizon, prob.action_dim), generator=gen, device=dev)
+    us = torch.clamp(prob.task_warm_start()[None, None] + mppi._smooth_noise(eps), -1.0, 1.0)
+    q_des = ci.action_to_command(prob.iface, us).contiguous()
+    return prob, scen, (x0, q_des, prob.rollout_lanes(scen), prob.rollout_consts())
+
+
+@pytest.mark.parametrize("full_rate", [False, True], ids=["relaxed", "full_rate"])
+def test_planner_rollout_kernel_matches_plain(cuda, full_rate):
+    """One launch against planner_rollout_plain over 8 knots of 64 problems
+    x 8 candidates: the first knot lane by lane within REL_TOL·(1+|plain|)
+    + ROLLOUT_SPREAD x the plain version's own spread (its one-ulp start,
+    its float64 run), every knot in distribution as chip_smoke.py phase 19
+    holds it (the 0.5 and 0.9 quantiles over the lanes of the kernel's
+    distance to the float64 run within ROLLOUT_DIST x the plain version's
+    + REL_TOL)."""
+    from quadruped_springs_tpu_torch.solver import rollout as ro
+    from quadruped_springs_tpu_torch.solver.mpc import cast_floats
+
+    _, _, (x0, q_des, lanes, consts) = _rollout_case(cuda, full_rate)
+    before = ro.planner_rollout.launches
+    got = ro.planner_rollout(x0, q_des, lanes, consts)
+    torch.cuda.synchronize()
+    assert ro.planner_rollout.launches == before + 1
+    assert torch.equal(got[:, :, 0], x0[:, None].expand(-1, got.shape[1], -1))
+    want = ro.planner_rollout_plain(x0, q_des, lanes, consts)
+    moved_x0 = x0.clone()
+    moved_x0[:, 13:25] = torch.nextafter(x0[:, 13:25], x0[:, 13:25] + 1.0)
+    moved = ro.planner_rollout_plain(moved_x0, q_des, lanes, consts)
+    f64 = lambda t: cast_floats(t, torch.float64)
+    exact = ro.planner_rollout_plain(x0.double(), q_des.double(), f64(lanes), f64(consts))
+    k1 = slice(1, 2)
+    spread = torch.maximum((moved - want).abs(), (exact - want).abs())[:, :, k1].amax(
+        -1, keepdim=True)
+    w = want[:, :, k1]
+    assert torch.all((got[:, :, k1] - w).abs() <= REL_TOL * (1 + w.abs()) + ROLLOUT_SPREAD
+                     * spread)
+    rel = lambda xs: ((xs.double() - exact).abs() / (1 + exact.abs())).amax(-1).reshape(
+        -1, xs.shape[2])[:, 1:]
+    qs = torch.tensor([0.5, 0.9], dtype=torch.float64, device=cuda)
+    qk, qp = torch.quantile(rel(got), qs, dim=0), torch.quantile(rel(want), qs, dim=0)
+    assert torch.all(qk <= ROLLOUT_DIST * qp + REL_TOL)
+
+
+def _one_command(prob, action):
+    """The (1, 1, 12) command of one action (one candidate, one knot)."""
+    from quadruped_springs_tpu_torch.control import interfaces as ci
+
+    return ci.action_to_command(prob.iface, action).reshape(1, 1, 12).contiguous()
+
+
+def test_planner_rollout_executor_matches_plain(cuda):
+    """The closed loop's executor (1 lane, H = 1, 10 substeps at 180 kN/m):
+    within REL_TOL·(1+|plain|) + ROLLOUT_SPREAD x the plain version's spread."""
+    from quadruped_springs_tpu_torch import closed_loop
+    from quadruped_springs_tpu_torch.solver import rollout as ro
+    from quadruped_springs_tpu_torch.solver.mpc import MPCConfig, MPCProblem, cast_floats
+
+    prob = MPCProblem(MPCConfig(task="JUMPING_IN_PLACE"), cuda)
+    lanes, consts = closed_loop.executor(prob)
+    x0 = prob.default_x0()[None]
+    q_des = _one_command(prob, prob.task_warm_start(crouch_knots=6)[-1])[None]
+    got = ro.planner_rollout(x0, q_des, lanes, consts)
+    want = ro.planner_rollout_plain(x0, q_des, lanes, consts)
+    moved_x0 = x0.clone()
+    moved_x0[:, 13:25] = torch.nextafter(x0[:, 13:25], x0[:, 13:25] + 1.0)
+    moved = ro.planner_rollout_plain(moved_x0, q_des, lanes, consts)
+    f64 = lambda t: cast_floats(t, torch.float64)
+    exact = ro.planner_rollout_plain(x0.double(), q_des.double(), f64(lanes), f64(consts))
+    spread = torch.maximum((moved - want).abs(), (exact - want).abs()).amax(-1, keepdim=True)
+    assert torch.all((got - want).abs() <= REL_TOL * (1 + want.abs()) + ROLLOUT_SPREAD * spread)
+
+
+def test_planner_rollout_rows_do_not_depend_on_the_batch(cuda):
+    """Rows 0-7 (every candidate of problems 0-7) of one launch at 64
+    problems, at 8, and in blocks of 2: bitwise equal."""
+    from quadruped_springs_tpu_torch.env.env import take
+    from quadruped_springs_tpu_torch.solver import rollout as ro
+
+    prob, scen, (x0, q_des, _, consts) = _rollout_case(cuda)
+
+    def launch(a, b):
+        idx = torch.arange(a, b, device=cuda)
+        return ro.planner_rollout(x0[a:b].contiguous(), q_des[a:b].contiguous(),
+                                  prob.rollout_lanes(take(scen, idx)), consts)
+
+    full, eight = launch(0, 64)[:8], launch(0, 8)
+    pairs = torch.cat([launch(i, i + 2) for i in range(0, 8, 2)])
+    assert torch.equal(full, eight) and torch.equal(eight, pairs)
+
+
+def test_planner_rollout_rejects_what_the_kernel_does_not_take(cuda):
+    from quadruped_springs_tpu_torch.solver import rollout as ro
+
+    _, _, (x0, q_des, lanes, consts) = _rollout_case(cuda, n=8)
+    with pytest.raises(TypeError):
+        ro.planner_rollout(x0, q_des.bfloat16(), lanes, consts)
+    with pytest.raises(ValueError, match="contiguous"):
+        ro.planner_rollout(x0, q_des.transpose(1, 2).contiguous().transpose(1, 2), lanes,
+                           consts)
+    with pytest.raises(ValueError, match="on cpu"):
+        ro.planner_rollout(x0, q_des.cpu(), lanes, consts)

@@ -17,12 +17,25 @@ B = np.array([[0.0], [DT]], np.float32)
 TARGET = np.array([1.0, 0.0], np.float32)
 
 
+def _dynamics(x, u):
+    return x @ torch.from_numpy(A).T + u @ torch.from_numpy(B).T
+
+
+def _rollout(x0, us):
+    """The knot loop over _dynamics: x0 (B,n), us (B,R,H,m) -> xs (B,R,H+1,n)."""
+    x = x0[:, None].expand(us.shape[0], us.shape[1], x0.shape[-1])
+    xs = [x]
+    for t in range(us.shape[2]):
+        x = _dynamics(x, us[:, :, t])
+        xs.append(x)
+    return torch.stack(xs, dim=2)
+
+
 def _torch_problem():
-    a, b, target = (torch.from_numpy(v) for v in (A, B, TARGET))
-    dynamics = lambda x, u: x @ a.T + u @ b.T
+    target = torch.from_numpy(TARGET)
     stage = lambda x, u, t: 0.01 * torch.sum(u * u, dim=-1)
     terminal = lambda x: torch.sum((x - target) ** 2, dim=-1)
-    return dynamics, stage, terminal
+    return _rollout, stage, terminal
 
 
 def _jax_problem():
@@ -59,12 +72,12 @@ def test_fused_accept_matches_quality():
     fused = _solve_torch(tmppi.MPPIConfig(**BASE, fused_accept=True), batch=4)
     assert torch.all(fused.cost < 0.118 * 1.10), fused.cost
     assert torch.all((fused.cost - ref.cost).abs() < 0.25 * ref.cost)
-    dynamics, stage, terminal = _torch_problem()
+    _, stage, terminal = _torch_problem()
     x = torch.zeros(4, 2)
     total = torch.zeros(4)
     for t in range(H):
         total = total + stage(x, fused.us[:, t], t)
-        x = dynamics(x, fused.us[:, t])
+        x = _dynamics(x, fused.us[:, t])
     np.testing.assert_allclose(total + terminal(x), fused.cost, rtol=1e-5)
     np.testing.assert_allclose(fused.xs[:, -1], x, rtol=1e-5, atol=1e-6)
 

@@ -1,7 +1,8 @@
 """Launches, device time and wall time of the port's hot paths on the card.
 
     python tests/torch_path_profile.py [--root DIR] [--label NAME] [--headline]
-        [--paths knot,substep,lin_block,control_step,env_bench,train,oracle]
+        [--paths knot,substep,lin_block,control_step,env_bench,train,oracle,mppi_rollout,
+                 full_rate,closed_loop]
 
 Imports quadruped_springs_tpu_torch from DIR (default: this checkout), so that
 one call to the card can profile two commits in turn (an unpacked
@@ -23,6 +24,16 @@ Prints one JSON line per path:
   * train: train_bench.run(steps=1): seconds per ARS and PPO train_step;
   * oracle: one oracle replay (JUMPING_IN_PLACE with springs through
     utils/verification.verify_against_trace on one lane): seconds;
+  * mppi_rollout: one rollout of the MPPI headline (1024 TEST_RANDOMIZER
+    scenarios x 32 candidates, H = 50, drawn as MPPI's first iteration
+    draws them) and one whole MPPI solve of the headline's configuration
+    (10 iterations, fused accept): through MPCProblem.lane_rollout (the
+    `planner_rollout` kernel) where the package has it, else through the
+    knot loop over MPCProblem.lane_dynamics that MPPI ran before it;
+  * full_rate: bench.run's full-rate row (MPPI, H = 25, 10 substeps a knot
+    at 180 kN/m) at full width, one warm-up and one timed solve;
+  * closed_loop: closed_loop.run at its defaults (40 knots), the iLQR and
+    the full-rate MPPI loop: wall seconds and the executed apex;
   * headline (--headline): bench.run's MPPI solve at full width, one warm-up
     and one timed solve.
 --paths picks the paths (default: knot, substep, lin_block).
@@ -41,7 +52,8 @@ import time
 
 CLASSES = (("gemm/gemv", ("gemm", "gemv", "cublas")),
            ("hand kernels", ("actuation_kernel", "contact_kernel", "actuation_jvp",
-                             "contact_jvp", "contact_anchored", "env_substeps")),
+                             "contact_jvp", "contact_anchored", "env_substeps",
+                             "planner_rollout")),
            ("elementwise", ("elementwise",)), ("reduce", ("reduce",)),
            ("cat/copy", ("Cat", "copy")))
 
@@ -159,6 +171,50 @@ def main(argv=None):
         torch.cuda.synchronize()
         emit("oracle", {"seconds": time.perf_counter() - t0, "pass": report["pass"],
                         "steps": report["steps"]})
+
+    if "mppi_rollout" in paths:
+        from quadruped_springs_tpu_torch.solver import mppi
+
+        gen = torch.Generator("cuda").manual_seed(0)
+        x0 = prob.default_x0().expand(1024, -1).contiguous()
+        eps = 0.3 * torch.randn((1024, 32, 50, prob.action_dim), generator=gen, device="cuda")
+        us = torch.clamp(prob.task_warm_start()[None, None] + mppi._smooth_noise(eps), -1.0, 1.0)
+        if hasattr(prob, "lane_rollout"):
+            how, rollout = "planner_rollout", prob.lane_rollout(scen)
+        else:
+            how, f = "knot loop", prob.lane_dynamics(scen)
+
+            def rollout(x0, us):
+                x, xs = x0[:, None].expand(1024, 32, 37), [x0[:, None].expand(1024, 32, 37)]
+                for t in range(us.shape[2]):
+                    x = f(x, us[:, :, t])
+                    xs.append(x)
+                return torch.stack(xs, dim=2)
+
+        with torch.no_grad():
+            emit("mppi_rollout", {"rollout": how, "lanes": 1024 * 32, "horizon": 50, **profile(
+                torch, lambda: rollout(x0, us), calls=1, reps=3)})
+            mcfg = mppi.MPPIConfig(horizon=50, iterations=10, n_samples=32, fused_accept=True)
+            u0 = prob.task_warm_start().expand(1024, -1, -1)
+            emit("mppi_solve", {"rollout": how, "problems": 1024, **profile(
+                torch, lambda: prob.solve_mppi(x0, u0, gen, mcfg, scen), calls=1, reps=2)})
+
+    if "full_rate" in paths:
+        rec = bench.run(batch=1024, runs=1, device="cuda", full_rate=True, horizon=25)
+        emit("full_rate", {"solves_per_s": rec["value"],
+                           "mean_final_cost": rec["mean_final_cost"]})
+
+    if "closed_loop" in paths:
+        from quadruped_springs_tpu_torch import closed_loop
+
+        for full_rate in (False, True):
+            t0 = time.perf_counter()
+            out = closed_loop.run(device="cuda", full_rate=full_rate)
+            torch.cuda.synchronize()
+            emit("closed_loop", {"solver": out["solver"], "knots": out["knots"],
+                                 "seconds": time.perf_counter() - t0,
+                                 "executed_apex_m": out["executed_apex_m"],
+                                 "planned_apex_max_m": out["planned_apex_max_m"]})
 
     if a.headline:
         rec = bench.run(batch=1024, runs=1, device="cuda")
