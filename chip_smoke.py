@@ -8,7 +8,10 @@ Phases (any failure raises, so the script exits non-zero):
   2. build the hand-written kernels of quadruped_springs_tpu_torch/csrc from
      the checkout (one nvcc per .cu, all at once) and print the build time
      and the registers and spills of env_substeps_kernel and
-     planner_rollout_kernel (nvcc -Xptxas -v): neither may spill;
+     planner_rollout_kernel (nvcc -Xptxas -v): neither may spill; and what
+     the card makes of planner_rollout_kernel at its paths' R (its
+     registers, the problems' staged models in shared memory, its warps an
+     SM: solver/rollout.py occupancy);
   3. hold each kernel against its plain PyTorch twin on the card at the
      planner's shape (32,768 lanes), on seeded inputs plus hand-placed edge
      cases, to |kernel - twin| <= 1e-5·(1 + |twin|) (FMA contraction is the
@@ -169,7 +172,12 @@ Phases (any failure raises, so the script exits non-zero):
      counted past it; one knot from the plain version's state at each of the
      headline's 1.6 M knot-lanes, lane by lane against the float64 knot
      (ONE_KNOT_FAR, ONE_KNOT_TAIL); rows 0-7 bitwise at 1,024, 8
-     and 2 problems; time both with CUDA events and (phase 12) the profiler;
+     and 2 problems; the kernel's map of a block's lanes to the problems
+     whose models it stages (ROLLOUT_MAP_SHAPES: every problem's rows bitwise
+     those of the problem launched alone, knot 1 within the spread rule);
+     time both with CUDA events and (phase 12) the profiler, and print the
+     kernel's time on the card, its share of the bound and its warps an SM
+     at the headline and full-rate widths;
  20. (with the host-bound runs) the three MPC behaviours of
      quadruped_springs_tpu_torch.mpc_behaviours at the JAX examples' full
      configurations over seeds 0-7 (jumping forward 0-63: BEHAVIOUR_JOBS),
@@ -362,6 +370,15 @@ ROLLOUT_SPREAD = 10.0
 ONE_KNOT_QUANTILES = (0.5, 0.9, 0.99, 0.999)
 ONE_KNOT_FAR = 8
 ONE_KNOT_TAIL = 2.0
+# the lane-to-problem map of planner_rollout's blocks (32 lanes each): (B, R,
+# H, full rate, one scenario row for all); a block that ends early (5 x 3),
+# problems that straddle two blocks (13 x 3, also on one row), R = 2 (the
+# fused accept's settle), 64 (the jumping-forward and backflip behaviours: a
+# problem over two blocks) and 1 (32 problems staged in one block; the
+# executor's H = 1, S = 10)
+ROLLOUT_MAP_SHAPES = ((5, 3, 4, False, False), (13, 3, 4, False, False),
+                      (13, 3, 4, False, True), (17, 2, 4, False, False),
+                      (2, 64, 2, False, False), (40, 1, 1, True, False))
 ROLLOUT_FIELDS = {"pos": slice(0, 3), "quat": slice(3, 7), "lin_vel": slice(7, 10),
                   "ang_vel": slice(10, 13), "q": slice(13, 25), "qd": slice(25, 37)}
 
@@ -2210,8 +2227,9 @@ def check_planner_rollout(torch, ro, prob, x0, us, lanes, consts, reps=10, stric
       the lanes outside it are counted and the spreads the others use
       printed.
 
-    Times the kernel through its wrapper (CUDA events, median of `reps`)
-    and the plain version (its two float32 calls, the faster)."""
+    Times the kernel through its wrapper (CUDA events, median of `reps`),
+    on the card alone (CUDA events around 10 back-to-back launches, median
+    of 5) and the plain version (its two float32 calls, the faster)."""
     from quadruped_springs_tpu_torch.control import interfaces as ci
     from quadruped_springs_tpu_torch.solver.mpc import cast_floats
 
@@ -2288,14 +2306,17 @@ def check_planner_rollout(torch, ro, prob, x0, us, lanes, consts, reps=10, stric
                              f"{REL_TOL}·(1+|plain|) + {ROLLOUT_SPREAD} x the spread")
     one = lambda: ro.planner_rollout(x0, q_des, lanes, consts)
     B, R, H, _ = q_des.shape
+    occ = ro.occupancy(R, lanes.spring_k.shape[0] == 1)
     inputs = [x0, q_des, lanes.packed, lanes.spring_k, lanes.spring_b, lanes.friction,
               consts.kp, consts.kd, consts.torque_limits, consts.velocity_limits, consts.rest,
               consts.sign]
     return {"max_abs_err": err, "cost_max_abs_err": float(d.max()),
             "distance_used": dist, "lanes_outside_spread": outside, "spread_used": used,
             "ms": cuda_time_ms(torch, one, reps=reps),
+            "card_ms": cuda_time_ms(torch, one, reps=5, inner=10),
             "profile": (one, "planner_rollout_kernel"), "plain_ms": min(timed),
             "lanes": B * R, "horizon": H, "substeps": consts.substeps,
+            "warps_per_sm": occ["warps_per_sm"], "registers": occ["registers"],
             **roofline("planner_rollout", B * R * H * consts.substeps, inputs, [got])}
 
 
@@ -2380,6 +2401,53 @@ def check_planner_rollout_batching(torch, ro, prob, x0, us, scen):
             f"{GAP_ROWS // GAP_BLOCK} x {GAP_BLOCK}": float((blocks - whole).abs().max())}
 
 
+def check_planner_rollout_map(torch, ro, n, r, horizon, full_rate, one_row):
+    """`planner_rollout` at n problems x r candidates x `horizon` knots
+    (rollout_problems' problems, candidates drawn as MPPI's first iteration
+    draws them): every problem's rows bitwise equal to the same problem
+    launched alone (where each block reads one scenario row), and every
+    lane's first knot within REL_TOL·(1 + |plain|) + ROLLOUT_SPREAD x the
+    plain version's spread (check_planner_rollout's rule). Returns the
+    largest |d| against the lone launches and the largest spread used."""
+    from quadruped_springs_tpu_torch.control import interfaces as ci
+    from quadruped_springs_tpu_torch.env.env import take
+    from quadruped_springs_tpu_torch.solver import mppi
+    from quadruped_springs_tpu_torch.solver.mpc import MPCConfig, MPCProblem, cast_floats
+
+    prob = MPCProblem((MPCConfig.full_rate if full_rate else MPCConfig)(horizon=horizon), "cuda")
+    x0, scen = rollout_problems(torch, prob, n, 41)
+    eps = 0.3 * torch.randn((n, r, horizon, prob.action_dim), device="cuda",
+                            generator=torch.Generator("cuda").manual_seed(42))
+    us = torch.clamp(prob.task_warm_start()[None, None] + mppi._smooth_noise(eps), -1.0, 1.0)
+    q_des = ci.action_to_command(prob.iface, us).contiguous()
+    lanes, consts = prob.rollout_lanes(None if one_row else scen), prob.rollout_consts()
+    got = ro.planner_rollout(x0, q_des, lanes, consts)
+    alone = 0.0
+    for p in range(n):
+        lanes_p = lanes if one_row else prob.rollout_lanes(take(scen, torch.tensor(
+            [p], device="cuda")))
+        got_p = ro.planner_rollout(x0[p:p + 1].contiguous(), q_des[p:p + 1].contiguous(),
+                                   lanes_p, consts)
+        alone = max(alone, float((got_p[0] - got[p]).abs().max()))
+    first = q_des[:, :, :1].contiguous()
+    plain = lambda x, q, ln, cs: ro.planner_rollout_plain(x, q, ln, cs)[:, :, 1]
+    want = plain(x0, first, lanes, consts)
+    moved_x0 = x0.clone()
+    moved_x0[:, 13:25] = torch.nextafter(x0[:, 13:25], x0[:, 13:25] + 1.0)
+    f64 = lambda t: cast_floats(t, torch.float64)
+    spread = torch.maximum(
+        (plain(moved_x0, first, lanes, consts) - want).abs(),
+        (plain(x0.double(), first.double(), f64(lanes), f64(consts)) - want).abs()).amax(
+        -1, keepdim=True)
+    slack = (got[:, :, 1] - want).abs() - REL_TOL * (1.0 + want.abs())
+    used = float((slack / spread.clamp_min(1e-30)).max())
+    if alone != 0.0 or used > ROLLOUT_SPREAD:
+        raise AssertionError(f"phase 19: planner_rollout at {n} x {r} x {horizon} (one row: "
+                             f"{one_row}): |d| {alone} against each problem launched alone, "
+                             f"knot 1 uses {used:.2f} of {ROLLOUT_SPREAD} spreads")
+    return {"alone_max_abs_diff": alone, "knot1_spreads_used": used}
+
+
 def check_planner_rollout_shapes(torch, kind):
     """Phase 19: `planner_rollout` against planner_rollout_plain on the card
     at the shapes of its paths: the MPPI headline's rollout (BATCH
@@ -2416,6 +2484,11 @@ def check_planner_rollout_shapes(torch, kind):
     checks["executor"] = check_planner_rollout(
         torch, ro, prob, prob.default_x0()[None], extend.expand(1, 1, 1, -1).contiguous(),
         lanes, consts, reps=30, strict=True)
+    for shape in ROLLOUT_MAP_SHAPES:
+        print(f"phase 19: planner_rollout's map of lanes to problems at (B, R, H, full rate, "
+              f"one row) = {shape}: {check_planner_rollout_map(torch, ro, *shape)} (each "
+              f"problem's rows bitwise those of the problem launched alone; knot 1 within "
+              f"{ROLLOUT_SPREAD} spreads)", flush=True)
     for setting, r in checks.items():
         print(f"phase 19: planner_rollout ({setting}) at {r['lanes']} lanes x {r['horizon']} "
               f"knots x {r['substeps']} substeps: max_abs_err {r['max_abs_err']:.3e}, cost "
@@ -2431,6 +2504,14 @@ def check_planner_rollout_shapes(torch, kind):
     print(f"phase 19: planner_rollout rows 0-{GAP_ROWS - 1} of {BATCH} problems against the "
           f"same rows launched as {GAP_ROWS} and in blocks of {GAP_BLOCK}: max |d| {gap} "
           f"(0: bitwise equal)", flush=True)
+    print("phase 19: planner_rollout on the card (CUDA events around 10 back-to-back "
+          "launches, median of 5): " + "; ".join(
+              f"{setting} {r['lanes']} x {r['horizon']} x {r['substeps']}: "
+              f"{r['card_ms']:.4f} ms, {100 * r['bound_ms'] / r['card_ms']:.1f}% of its bound "
+              f"{r['bound_ms']:.4f} ms, {r['warps_per_sm']} warps an SM at {r['registers']} "
+              f"registers a thread"
+              for setting, r in checks.items() if setting != "executor") + f" on {kind}",
+          flush=True)
     if any(v != 0.0 for v in gap.values()):
         raise AssertionError(f"phase 19: planner_rollout rows depend on the batch: {gap}")
     return checks, gap, one_knot
@@ -2576,6 +2657,18 @@ def main():
         print(f"phase 2: {kernel} (nvcc -Xptxas -v): {usage}", flush=True)
         if "0 bytes spill stores, 0 bytes spill loads" not in usage:
             raise AssertionError(f"phase 2: {kernel} spills to local memory: {usage}")
+    from quadruped_springs_tpu_torch.solver import rollout as ro
+    for what, repeats, one_row in (("headline and full rate", SAMPLES, False),
+                                   ("fused accept's settle", 2, False),
+                                   ("behaviours' R = 64", 64, False),
+                                   ("executor, one row", 1, True),
+                                   ("R = 1, a row a lane", 1, False)):
+        occ = ro.occupancy(repeats, one_row)
+        print(f"phase 2: planner_rollout_kernel at R = {repeats} ({what}): {occ['registers']} "
+              f"registers and {occ['local_bytes']} bytes of local memory a thread, "
+              f"{occ['threads_per_block']} threads and {occ['shared_bytes']} bytes of staged "
+              f"models a block, {occ['blocks_per_sm']} blocks ({occ['warps_per_sm']} warps) an "
+              f"SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor)", flush=True)
 
     prob = MPCProblem(MPCConfig(horizon=HORIZON, iterations=ITERATIONS), "cuda")
     model = prob.lane_params().model

@@ -124,6 +124,16 @@ QS_FN void quat_integrate(float* q, const V3& w, float half_dt, float half_dt2) 
   q[3] = ww / norm;
 }
 
+// a·b rounded on its own, never contracted into a multiply-add with the sum
+// it feeds (__fmul_rn on the card)
+QS_FN float mul_rn(float a, float b) {
+#if defined(__CUDA_ARCH__)
+  return __fmul_rn(a, b);
+#else
+  return a * b;
+#endif
+}
+
 // ---------------------------------------------------------------------------
 // Spatial inertias as (m, h = m·com, A = inertia about the base origin)
 // ---------------------------------------------------------------------------
@@ -144,19 +154,28 @@ QS_FN void inertia_matvec(const Inertia& I, const V3& w, const V3& v, V3* top, V
 }
 
 // a body of mass m, local COM c and local inertia about its COM Ic, placed
-// at rotation R and origin o in base coordinates (dynamics_soa.py:137)
+// at rotation R and origin o in base coordinates (dynamics_soa.py:137).
+// kHip: the hip body, whose R turns about x, so that its COM's c.x and the
+// products m·c.x and c.x·c.x are constants of the model: a kernel that
+// holds the model in registers computes them once before its loop, where
+// nothing can contract them into the sums they feed; mul_rn rounds them
+// alike where the model is read from memory inside the loop
+// (planner_rollout), so both kernels keep the same rounding.
+template <bool kHip = false>
 QS_FN Inertia body_inertia_base(float m, const V3& c_loc, const M3& Ic_loc, const M3& R,
                                 const V3& o) {
   V3 c = add(o, mul(R, c_loc));
   M3 Ic = mul_bt(mul(R, Ic_loc), R);
-  float cc = dot(c, c);
+  float cxx = kHip ? mul_rn(c.x, c.x) : c.x * c.x;
+  float cc = cxx + c.y * c.y + c.z * c.z;
   Inertia out;
   out.m = m;
   out.h = scale(m, c);
+  if (kHip) out.h.x = mul_rn(m, c.x);
 #pragma unroll
   for (int i = 0; i < 3; ++i) {
     float ci = at(c, i);
-    out.A.r[i] = v3(at(Ic, i, 0) + m * ((i == 0 ? cc : 0.0f) - ci * c.x),
+    out.A.r[i] = v3(at(Ic, i, 0) + m * ((i == 0 ? cc : 0.0f) - (i == 0 ? cxx : ci * c.x)),
                     at(Ic, i, 1) + m * ((i == 1 ? cc : 0.0f) - ci * c.y),
                     at(Ic, i, 2) + m * ((i == 2 ? cc : 0.0f) - ci * c.z));
   }
@@ -338,12 +357,20 @@ QS_FN Leg leg_kinematics(const EnvConsts& k, const V3& hip, const V3& thigh,
     L.sw[j] = L.axis[j];
     L.sv[j] = cross(L.o[j], L.axis[j]);
   }
-  L.I[0] = body_inertia_base(bodies.m[0], bodies.c[0], bodies.I[0], R1, L.o[0]);
+  L.I[0] = body_inertia_base<true>(bodies.m[0], bodies.c[0], bodies.I[0], R1, L.o[0]);
   L.I[1] = body_inertia_base(bodies.m[1], bodies.c[1], bodies.I[1], R2, L.o[1]);
   L.I[2] = body_inertia_base(bodies.m[2], bodies.c[2], bodies.I[2], R3, L.o[2]);
   Inertia Ic2 = inertia_add(L.I[1], L.I[2]);
   L.Ic1 = inertia_add(L.I[0], Ic2);
-  inertia_matvec(L.Ic1, L.sw[0], L.sv[0], &L.Ft[0], &L.Fb[0]);
+  // the hip's column F_0 = Ic1 s_0 (inertia_matvec), its m·s_v term (the
+  // leg's mass times hip × x, a product of model constants) rounded on its
+  // own: a kernel that holds the model in registers computes it once before
+  // its loop, where nothing can contract it, and planner_rollout, which
+  // reads the model from shared memory inside the loop, must round it alike
+  L.Ft[0] = add(mul(L.Ic1.A, L.sw[0]), cross(L.Ic1.h, L.sv[0]));
+  L.Fb[0] = add(scale(-1.0f, cross(L.Ic1.h, L.sw[0])),
+                v3(mul_rn(L.Ic1.m, L.sv[0].x), mul_rn(L.Ic1.m, L.sv[0].y),
+                   mul_rn(L.Ic1.m, L.sv[0].z)));
   inertia_matvec(Ic2, L.sw[1], L.sv[1], &L.Ft[1], &L.Fb[1]);
   inertia_matvec(L.I[2], L.sw[2], L.sv[2], &L.Ft[2], &L.Fb[2]);
   return L;

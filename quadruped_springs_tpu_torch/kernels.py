@@ -76,6 +76,9 @@ _SIGNATURES = {
     # scenario_stride, xs, n_problems, repeats, horizon, substeps,
     # clamp_damping, stream (csrc/planner_lane.cuh)
     "planner_rollout": PLANNER_ROLLOUT_ARGTYPES,
+    # repeats, scenario_stride, out (5 ints): planner_rollout's blocks an SM,
+    # threads a block, registers and local bytes a thread, shared bytes a block
+    "planner_rollout_occupancy": [ctypes.c_int, _I64, _P],
 }
 # the planner's four kernels also take bfloat16 arrays, under <name>_bf16
 for _name in ("planner_actuation", "planner_contact", "planner_actuation_jvp",

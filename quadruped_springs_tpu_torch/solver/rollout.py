@@ -22,6 +22,7 @@ the rollout: it raises under ``torch.func`` transforms and in reverse mode.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 
 import torch
@@ -149,6 +150,22 @@ def _launch(x0, q_des, lanes: RolloutLanes, consts: RolloutConsts) -> torch.Tens
     kernels.check_launch("planner_rollout", err)
     planner_rollout.launches += 1
     return xs
+
+
+def occupancy(repeats: int, one_row: bool, device=None) -> dict:
+    """What the card makes of the `planner_rollout` kernel for R = repeats
+    candidates a problem, on one scenario row for all problems or one each:
+    its blocks and warps an SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor
+    at the launch's shared memory), threads a block, registers and local
+    memory bytes a thread, shared memory bytes a block (the problems' staged
+    models). Builds the library if needed; needs a card."""
+    out = (ctypes.c_int * 5)()
+    with torch.cuda.device(device):
+        err = kernels.library().planner_rollout_occupancy(repeats, 0 if one_row else 1, out)
+    kernels.check_launch("planner_rollout_occupancy", err)
+    return {"blocks_per_sm": out[0], "warps_per_sm": out[0] * out[1] // 32,
+            "threads_per_block": out[1], "registers": out[2], "local_bytes": out[3],
+            "shared_bytes": out[4]}
 
 
 class _Rollout(torch.autograd.Function):

@@ -1,14 +1,19 @@
 // The planner_rollout kernel's body (quadruped_springs_tpu_torch/csrc/
 // planner_lane.cuh) built for the CPU with a host C++ compiler, so that a CPU
 // test can hold its arithmetic against the plain PyTorch version where no
-// card is present. Each lane runs as four host threads, one per leg, as the
-// kernel runs it as four lanes of a warp; their sum over the four is a
-// barrier and the kernel's fixed order (v0 + v1) + (v2 + v3). The entry
-// point takes the kernel launcher's arguments (host pointers; the stream is
-// ignored). Build (tests/test_torch_planner_rollout.py does):
+// card is present. Each block of the kernel is emulated in turn: its 128
+// threads stage the models of the rows its lanes read (stage_leg_model, into
+// as many slots as the launch reserves: max_block_rows), then each of its
+// lanes runs as four host threads, one per leg, as the kernel runs it as four
+// lanes of a warp, on the staged model its lane_model picks; their sum over
+// the four is a barrier and the kernel's fixed order (v0 + v1) + (v2 + v3).
+// The entry point takes the kernel launcher's arguments (host pointers; the
+// stream is ignored); it returns 2 if a block reads more rows than the
+// launch reserves. Build (tests/test_torch_planner_rollout.py does):
 //   g++ -std=c++20 -O2 -shared -fPIC -pthread -o libplanner_rollout_host.so
 //       tests/planner_rollout_host.cpp   (one command)
 
+#include <algorithm>
 #include <barrier>
 #include <string.h>
 #include <thread>
@@ -42,16 +47,26 @@ extern "C" int planner_rollout_host(QS_PLANNER_ROLLOUT_PARAMS) {
   qs::EnvConsts c;
   memcpy(&c, consts, sizeof(c));
   const qs::RolloutArgs args = QS_ROLLOUT_ARGS_FROM_PARAMS;
-  for (int64_t lane = 0; lane < n_problems * repeats; ++lane) {
-    std::barrier<> bar(4);
-    float slots[4][32];
-    std::vector<std::thread> legs;
-    for (int leg = 0; leg < 4; ++leg)
-      legs.emplace_back([&, leg] {
-        HostQuad quad{&bar, slots, leg};
-        qs::planner_lane(c, args, lane, leg, quad);
-      });
-    for (auto& t : legs) t.join();
+  const int64_t lanes = n_problems * repeats;
+  std::vector<qs::LegModel> models(4 * qs::max_block_rows(repeats, scenario_stride));
+  for (int64_t block = 0; block * qs::kRolloutLanes < lanes; ++block) {
+    const qs::BlockRows rows = qs::block_rows(args, block);
+    if (4 * rows.count > static_cast<int>(models.size())) return 2;
+    for (int t = 0; t < qs::kRolloutThreads; ++t)
+      qs::stage_leg_model(c, args, rows, t, models.data());
+    const int64_t end = std::min(lanes, (block + 1) * qs::kRolloutLanes);
+    for (int64_t lane = block * qs::kRolloutLanes; lane < end; ++lane) {
+      std::barrier<> bar(4);
+      float slots[4][32];
+      std::vector<std::thread> legs;
+      for (int leg = 0; leg < 4; ++leg)
+        legs.emplace_back([&, leg] {
+          HostQuad quad{&bar, slots, leg};
+          qs::planner_lane(c, args, qs::lane_model(args, rows, models.data(), lane, leg),
+                           lane, leg, quad);
+        });
+      for (auto& t : legs) t.join();
+    }
   }
   return 0;
 }

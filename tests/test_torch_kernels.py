@@ -613,6 +613,43 @@ def test_planner_rollout_rows_do_not_depend_on_the_batch(cuda):
     assert torch.equal(full, eight) and torch.equal(eight, pairs)
 
 
+@pytest.mark.parametrize("n, r, horizon, full_rate, one_row", [
+    (5, 3, 4, False, False), (13, 3, 4, False, False), (13, 3, 4, False, True),
+    (17, 2, 4, False, False), (2, 64, 2, False, False), (40, 1, 1, True, False)])
+def test_planner_rollout_lane_map(cuda, n, r, horizon, full_rate, one_row):
+    """The kernel's map of a block's lanes (32) to the problems whose models
+    the block stages: a block that ends early, problems across two blocks
+    (also on one scenario row), R = 2, 64 and 1. Every problem's rows
+    bitwise those of the problem launched alone; the first knot within
+    REL_TOL·(1+|plain|) + ROLLOUT_SPREAD x the plain version's spread."""
+    from quadruped_springs_tpu_torch.env.env import take
+    from quadruped_springs_tpu_torch.solver import rollout as ro
+    from quadruped_springs_tpu_torch.solver.mpc import cast_floats
+
+    prob, scen, (x0, q_des, lanes, consts) = _rollout_case(cuda, full_rate, n, r, horizon)
+    if one_row:
+        lanes = prob.rollout_lanes(None)
+    got = ro.planner_rollout(x0, q_des, lanes, consts)
+    for p in range(n):
+        lanes_p = lanes if one_row else prob.rollout_lanes(take(scen, torch.tensor(
+            [p], device=cuda)))
+        alone = ro.planner_rollout(x0[p:p + 1].contiguous(), q_des[p:p + 1].contiguous(),
+                                   lanes_p, consts)
+        assert torch.equal(alone[0], got[p])
+    first = q_des[:, :, :1].contiguous()
+    plain = lambda x, q, ln, cs: ro.planner_rollout_plain(x, q, ln, cs)[:, :, 1]
+    want = plain(x0, first, lanes, consts)
+    moved_x0 = x0.clone()
+    moved_x0[:, 13:25] = torch.nextafter(x0[:, 13:25], x0[:, 13:25] + 1.0)
+    f64 = lambda t: cast_floats(t, torch.float64)
+    spread = torch.maximum(
+        (plain(moved_x0, first, lanes, consts) - want).abs(),
+        (plain(x0.double(), first.double(), f64(lanes), f64(consts)) - want).abs()).amax(
+        -1, keepdim=True)
+    assert torch.all((got[:, :, 1] - want).abs() <= REL_TOL * (1 + want.abs())
+                     + ROLLOUT_SPREAD * spread)
+
+
 def test_planner_rollout_rejects_what_the_kernel_does_not_take(cuda):
     from quadruped_springs_tpu_torch.solver import rollout as ro
 

@@ -27,6 +27,7 @@ from quadruped_springs_tpu.solver import mpc as jmpc
 from quadruped_springs_tpu.solver import mppi as jmppi
 from quadruped_springs_tpu_torch import convert, kernels
 from quadruped_springs_tpu_torch.control import interfaces as ci
+from quadruped_springs_tpu_torch.env.env import take
 from quadruped_springs_tpu_torch.solver import mpc as tmpc
 from quadruped_springs_tpu_torch.solver import mppi as tmppi
 from quadruped_springs_tpu_torch.solver import rollout as ro
@@ -176,20 +177,71 @@ def host_build(tmp_path_factory):
     return fn
 
 
-@pytest.mark.parametrize("shared", [False, True], ids=["per_problem", "one_scenario"])
-@pytest.mark.parametrize("case", ["relaxed", "full_rate"])
-def test_kernel_body_on_the_host_matches_plain(case, shared, host_build):
-    """The kernel's body (csrc/planner_lane.cuh: four threads a lane that
-    sum the legs' shares of the base's Schur system, the state in registers
-    over every knot) built with g++, through the wrapper's argument packing,
-    against planner_rollout_plain: every knot's state held as the plain
-    version is held to JAX above, the spread the plain version's own (the
-    same float32 math in the scalarized order, without FMA). "one_scenario": one scenario row for every problem (the
-    stride-0 model of the nominal robot)."""
+@functools.lru_cache(maxsize=None)
+def _block_case(b: int, r: int, h: int):
+    """Seeded inputs for B problems x R candidates x H knots (springs on),
+    each problem on its own JAX-sampled TEST_RANDOMIZER scenario, so a lane
+    that read another problem's model would part from the plain version:
+    every third problem from 2 in flight, the candidates the task's warm
+    start plus noise, clipped."""
+    jprob, _ = _problems(False, True)
+    rng = np.random.default_rng(100 * b + r)
+    x0 = np.tile(np.asarray(jprob.default_x0()), (b, 1))
+    x0[:, 13:25] += 0.02 * rng.standard_normal((b, 12))
+    x0[2::3, 2] += 0.15
+    x0[2::3, 9] = 1.0
+    a_init = np.asarray(jprob.default_warm_start())[0]
+    us = a_init + 0.1 * rng.standard_normal((b, r, h, jprob.action_dim))
+    keys = jax.random.split(jax.random.PRNGKey(b), b)
+    scen = jax.vmap(lambda k: jrnd.sample_scenario(jprob.cfg, "TEST_RANDOMIZER", k))(keys)
+    return x0.astype(np.float32), np.clip(us, -1.0, 1.0).astype(np.float32), scen
+
+
+# (case, one scenario row for all, (B, R, H) or None for _case's 3 x 4 x 8);
+# the kernel's block is 32 lanes, and the shapes put its map of lanes to
+# problems where it can break
+BODY_CASES = {
+    "relaxed-per_problem": ("relaxed", False, None),
+    "relaxed-one_scenario": ("relaxed", True, None),
+    "full_rate-per_problem": ("full_rate", False, None),
+    "full_rate-one_scenario": ("full_rate", True, None),
+    # 15 lanes: five problems in one block that ends early
+    "relaxed-per_problem-B5_R3": ("relaxed", False, (5, 3, 8)),
+    # 39 lanes: problem 10 (lanes 30-32) straddles blocks 0 and 1
+    "relaxed-per_problem-B13_R3": ("relaxed", False, (13, 3, 4)),
+    "relaxed-one_scenario-B13_R3": ("relaxed", True, (13, 3, 4)),
+    # the fused accept's settle (R = 2): 16 problems in block 0, one in block 1
+    "relaxed-per_problem-B17_R2": ("relaxed", False, (17, 2, 4)),
+    # the jumping-forward and backflip behaviours' R = 64: a problem over two blocks
+    "relaxed-per_problem-B2_R64": ("relaxed", False, (2, 64, 2)),
+    # the executor's R = 1, H = 1, S = 10: 32 problems in block 0 (the most a
+    # block stages), 8 in block 1; and the executor itself on the nominal row
+    "full_rate-per_problem-B40_R1_H1": ("full_rate", False, (40, 1, 1)),
+    "full_rate-one_scenario-B1_R1_H1": ("full_rate", True, (1, 1, 1)),
+}
+
+
+@pytest.mark.parametrize("body_case", list(BODY_CASES))
+def test_kernel_body_on_the_host_matches_plain(body_case, host_build):
+    """The kernel's body (csrc/planner_lane.cuh: each block stages its
+    problems' models, then four threads a lane sum the legs' shares of the
+    base's Schur system, the state in registers over every knot) built with
+    g++, block by block, through the wrapper's argument packing, against
+    planner_rollout_plain: every knot's state held as the plain version is
+    held to JAX above, the spread the plain version's own (the same float32
+    math in the scalarized order, without FMA); on _case's inputs also the
+    first knot within TOL alone (on _block_case's, at full rate, the plain
+    version itself parts from its float64 run by more than TOL at the first
+    knot at some lanes in stance: there the spread carries it).
+    "one_scenario": one scenario row for every problem (the stride-0 model
+    of the nominal robot). Every problem's lanes are also launched alone,
+    where each block reads one row: bitwise the same."""
+    case, shared, shape = BODY_CASES[body_case]
     full_rate, springs = CASES[case]
-    x0, us, scen = _case(springs)
+    x0, us, scen = _case(springs) if shape is None else _block_case(*shape)
     _, tprob = _problems(full_rate, springs)
     x0_t, q_des, lanes, consts = _torch_inputs(tprob, x0, us, scen)
+    scen_t = convert.scenario_params(scen)
     if shared:
         lanes = tprob.rollout_lanes(None)
     args, xs = ro.launch_args(x0_t, q_des, lanes, consts)
@@ -198,10 +250,16 @@ def test_kernel_body_on_the_host_matches_plain(case, shared, host_build):
                                                consts).numpy()
     want = plain(x0)
     tol = TOL[full_rate]
-    np.testing.assert_allclose(xs[:, :, 1].numpy(), want[:, :, 1], rtol=tol, atol=tol)
+    if shape is None:
+        np.testing.assert_allclose(xs[:, :, 1].numpy(), want[:, :, 1], rtol=tol, atol=tol)
     refs = [plain(_moved(x0)), _float64_plain(x0, q_des, lanes, consts)]
-    _assert_within(xs.numpy(), want, refs, tol, case)
-    np.testing.assert_array_equal(xs[:, :, 0].numpy(), np.repeat(x0[:, None], R, 1))
+    _assert_within(xs.numpy(), want, refs, tol, body_case)
+    np.testing.assert_array_equal(xs[:, :, 0].numpy(), np.repeat(x0[:, None], xs.shape[1], 1))
+    for p in range(x0.shape[0]):
+        one = lanes if shared else tprob.rollout_lanes(take(scen_t, torch.tensor([p])))
+        args_p, xs_p = ro.launch_args(x0_t[p:p + 1], q_des[p:p + 1].contiguous(), one, consts)
+        assert host_build(*args_p, None) == 0
+        np.testing.assert_array_equal(xs_p[0].numpy(), xs[p].numpy())
 
 
 # --- the solve through the rollout, against JAX -------------------------------

@@ -31,7 +31,8 @@ Prints one JSON line per path:
     `planner_rollout` kernel) where the package has it, else through the
     knot loop over MPCProblem.lane_dynamics that MPPI ran before it;
   * full_rate: bench.run's full-rate row (MPPI, H = 25, 10 substeps a knot
-    at 180 kN/m) at full width, one warm-up and one timed solve;
+    at 180 kN/m) at full width, one warm-up and one timed solve, and one
+    such solve profiled as mppi_solve is;
   * closed_loop: closed_loop.run at its defaults (40 knots), the iLQR and
     the full-rate MPPI loop: wall seconds and the executed apex;
   * headline (--headline): bench.run's MPPI solve at full width, one warm-up
@@ -200,9 +201,20 @@ def main(argv=None):
                 torch, lambda: prob.solve_mppi(x0, u0, gen, mcfg, scen), calls=1, reps=2)})
 
     if "full_rate" in paths:
+        from quadruped_springs_tpu_torch.solver import mppi
+
         rec = bench.run(batch=1024, runs=1, device="cuda", full_rate=True, horizon=25)
         emit("full_rate", {"solves_per_s": rec["value"],
                            "mean_final_cost": rec["mean_final_cost"]})
+        fprob = MPCProblem(MPCConfig.full_rate(horizon=25), "cuda")
+        gen = torch.Generator("cuda").manual_seed(0)
+        fscen = rnd.sample_scenario(fprob.cfg, "TEST_RANDOMIZER", gen, n=1024)
+        fx0 = fprob.default_x0().expand(1024, -1).contiguous()
+        fu0 = fprob.task_warm_start().expand(1024, -1, -1)
+        fcfg = mppi.MPPIConfig(horizon=25, iterations=10, n_samples=32, fused_accept=True)
+        with torch.no_grad():
+            emit("full_rate_solve", {"problems": 1024, "horizon": 25, **profile(
+                torch, lambda: fprob.solve_mppi(fx0, fu0, gen, fcfg, fscen), calls=1, reps=2)})
 
     if "closed_loop" in paths:
         from quadruped_springs_tpu_torch import closed_loop
