@@ -344,6 +344,9 @@ FLOPS_PER_ELEM = {"actuation": 10, "contact": 20, "contact_anchored": 30,
 # spreads (tests/test_torch_env_substeps.py's cases).
 ENV_SPREAD = 10.0
 ENV_GAP_ROWS, ENV_GAP_BLOCK = 8, 2
+# env_substeps_kernel's local memory a thread: the stack of sinf's and cosf's
+# reduction of huge arguments, off the common path; more is a spill
+ENV_LOCAL_BYTES = 32
 # planner_rollout against its plain version, both against the plain version
 # run in float64: per field and knot, and on the lanes' MPPI costs, these
 # quantiles over the lanes of the kernel's relative distance within
@@ -750,6 +753,12 @@ def check_env_substeps(torch, ss, args, reps=30):
     out = one()
     n, substeps, ext = robot.q.shape[0], args[13], args[14]
     friction = args[4].friction
+    # the kernel alone: back-to-back launches of one argument list
+    from quadruped_springs_tpu_torch import kernels
+
+    launch, _ = ss.launch_args(robot, args[1], args[2], args[3], friction, *args[4:])
+    run, stream = kernels.library().env_substeps, kernels.stream_handle(robot.q.device)
+    inner = 2 if substeps > 100 else 20
     inputs = [robot.pos, robot.quat, robot.lin_vel, robot.ang_vel, robot.q, robot.qd,
               *args[1:3], *args[5:13], ss.pack_model(args[3]),
               *(t for t in (friction, ext) if torch.is_tensor(t))]
@@ -758,6 +767,8 @@ def check_env_substeps(torch, ss, args, reps=30):
                out.tau_m_sum, out.foot_forces, out.feet_in_contact, out.invalid_contact]
     return {"max_abs_err": err, "spread_used": used,
             "ms": cuda_time_ms(torch, one, reps=reps), "profile": (one, "env_substeps_kernel"),
+            "kernel_ms": cuda_time_ms(torch, lambda: run(*launch, stream), reps=reps,
+                                      inner=inner),
             "plain_ms": min(timed), **roofline("env_substeps", n * substeps, inputs, outputs)}
 
 
@@ -785,15 +796,15 @@ def check_env_substeps_batching(torch, ss, env, state, q_des, ext):
     return gap
 
 
-def check_env_substeps_shapes(torch, ss, env_bench, landing, kind):
-    """Phase 5, last: env_substeps against its plain version at the
-    environment's shapes: 1,024 settled environments x 10 substeps with
-    lanes moved into each regime (every 8th from lane 1 in flight, from
-    lane 2 its anchors 5 cm off so the feet slide on the friction cone, from
-    lane 3 pushed at the trunk) and the command interpolated from the last
-    action to a random one; the same in TORQUE mode (random torques held)
-    and on the rack; 64 of them under the landing gains; then rows 0-7
-    bitwise at 1,024, 8 and 2 environments."""
+def env_substeps_settings(torch, env_bench, landing):
+    """Phase 5's env_substeps settings: 1,024 settled environments x 10
+    substeps with lanes moved into each regime (every 8th from lane 1 in
+    flight, from lane 2 its anchors 5 cm off so the feet slide on the
+    friction cone, from lane 3 pushed at the trunk) and the command
+    interpolated from the last action to a random one ("env"); the same in
+    TORQUE mode (random torques held) and on the rack; 64 of them under the
+    landing gains. Returns ({setting: env_substeps's arguments}, (env, state,
+    q_des, ext) of "env")."""
     from quadruped_springs_tpu_torch.control import interfaces as ci
     from quadruped_springs_tpu_torch.env.env import take
 
@@ -818,22 +829,30 @@ def check_env_substeps_shapes(torch, ss, env_bench, landing, kind):
     held = command(action)
     few = take(state, torch.arange(64, device="cuda"))
     landing_q = command(env.get_landing_action().expand(64, -1))
-    checks = {
-        "env": check_env_substeps(torch, ss, env_substeps_args(env, state, q_des, 10, ext=ext)),
-        "env_torque": check_env_substeps(torch, ss, env_substeps_args(
-            env, state, torques, 10, torque_mode=True)),
-        "env_on_rack": check_env_substeps(torch, ss, env_substeps_args(
-            env, state, held, 10, on_rack=True)),
-        "env_landing_64": check_env_substeps(torch, ss, env_substeps_args(
-            env, few, landing_q, 10, *landing))}
+    settings = {
+        "env": env_substeps_args(env, state, q_des, 10, ext=ext),
+        "env_torque": env_substeps_args(env, state, torques, 10, torque_mode=True),
+        "env_on_rack": env_substeps_args(env, state, held, 10, on_rack=True),
+        "env_landing_64": env_substeps_args(env, few, landing_q, 10, *landing)}
+    return settings, (env, state, q_des, ext)
+
+
+def check_env_substeps_shapes(torch, ss, env_bench, landing, kind):
+    """Phase 5, last: env_substeps against its plain version at
+    env_substeps_settings, then rows 0-7 bitwise at 1,024, 8 and 2
+    environments."""
+    settings, (env, state, q_des, ext) = env_substeps_settings(torch, env_bench, landing)
+    checks = {setting: check_env_substeps(torch, ss, args) for setting, args in settings.items()}
     gap = check_env_substeps_batching(torch, ss, env, state, q_des, ext)
     for setting, r in checks.items():
         print(f"phase 5: env_substeps ({setting}) at {64 if '64' in setting else ENVS} "
               f"environments x 10 substeps: max_abs_err {r['max_abs_err']:.3e} (bound "
               f"{REL_TOL}·(1+|plain|) + {ENV_SPREAD} x the plain version's spread; "
               f"{r['spread_used']:.2f} spreads used), kernel {r['ms']:.4f} ms through its "
-              f"wrapper, plain {r['plain_ms']:.2f} ms; bound {r['bound_ms'] * 1e3:.2f} µs "
-              f"({r['bytes']} bytes, by {r['bound_by']}) on {kind}", flush=True)
+              f"wrapper, {r['kernel_ms'] * 1e3:.2f} µs on the card (back-to-back launches "
+              f"between two CUDA events), plain {r['plain_ms']:.2f} ms; bound "
+              f"{r['bound_ms'] * 1e3:.2f} µs ({r['bytes']} bytes, by {r['bound_by']}) on {kind}",
+              flush=True)
     print(f"phase 5: env_substeps rows 0-{ENV_GAP_ROWS - 1} of {ENVS} environments against "
           f"the same rows launched as {ENV_GAP_ROWS} and in blocks of {ENV_GAP_BLOCK}: max |d| "
           f"{gap} (0: bitwise equal)", flush=True)
@@ -1686,11 +1705,11 @@ def check_fidelity_widths(torch, act, dyn, model):
     return checks
 
 
-def check_fidelity_substeps(torch, ss, kind):
-    """Before phase 16: env_substeps against its plain version at the
-    fidelity gates' width, one lane: a control step (10 substeps) from the
-    settled fidelity env under a random command, and the oracle replay's
-    settle (2,500 substeps from the initial pose, the command held)."""
+def fidelity_substeps_settings(torch):
+    """env_substeps's settings at the fidelity gates' width, one lane: a
+    control step (10 substeps) from the settled fidelity env under a random
+    command, and the oracle replay's settle (2,500 substeps from the initial
+    pose, the command held). Returns {setting: env_substeps's arguments}."""
     from quadruped_springs_tpu_torch.control import interfaces as ci
     from quadruped_springs_tpu_torch.env import randomizers as rnd
     from quadruped_springs_tpu_torch.utils.verification import fidelity_env
@@ -1706,16 +1725,23 @@ def check_fidelity_substeps(torch, ss, kind):
     start = dataclasses.replace(state, robot=robot, foot_anchor=env._feet_anchor(
         rnd.model_from_params(state.scenario), robot))
     settle = env.config.settling_steps
-    checks = {"fidelity_1x10": check_env_substeps(torch, ss, env_substeps_args(
-        env, state, q_des, 10)),
-              f"fidelity_1x{settle}_settle": check_env_substeps(
-        torch, ss, env_substeps_args(env, start, env._settle_q_des.expand(1, 12).contiguous(),
-                                     settle), reps=5)}
+    return {"fidelity_1x10": env_substeps_args(env, state, q_des, 10),
+            f"fidelity_1x{settle}_settle": env_substeps_args(
+                env, start, env._settle_q_des.expand(1, 12).contiguous(), settle)}
+
+
+def check_fidelity_substeps(torch, ss, kind):
+    """Before phase 16: env_substeps against its plain version at
+    fidelity_substeps_settings."""
+    checks = {setting: check_env_substeps(torch, ss, args,
+                                          reps=5 if setting.endswith("settle") else 30)
+              for setting, args in fidelity_substeps_settings(torch).items()}
     for setting, r in checks.items():
         print(f"phase 16: env_substeps ({setting}): max_abs_err {r['max_abs_err']:.3e} "
               f"({r['spread_used']:.2f} spreads used), kernel {r['ms']:.4f} ms through its "
-              f"wrapper, plain {r['plain_ms']:.2f} ms; bound {r['bound_ms'] * 1e3:.3f} µs "
-              f"on {kind}", flush=True)
+              f"wrapper, {r['kernel_ms'] * 1e3:.2f} µs on the card (back-to-back launches "
+              f"between two CUDA events), plain {r['plain_ms']:.2f} ms; bound "
+              f"{r['bound_ms'] * 1e3:.3f} µs on {kind}", flush=True)
     return checks
 
 
@@ -2657,6 +2683,16 @@ def main():
         print(f"phase 2: {kernel} (nvcc -Xptxas -v): {usage}", flush=True)
         if "0 bytes spill stores, 0 bytes spill loads" not in usage:
             raise AssertionError(f"phase 2: {kernel} spills to local memory: {usage}")
+    occ = ss.occupancy()
+    print(f"phase 2: env_substeps_kernel: {occ['registers']} registers and "
+          f"{occ['local_bytes']} bytes of local memory a thread, {occ['threads_per_block']} "
+          f"threads a block, {occ['blocks_per_sm']} blocks ({occ['warps_per_sm']} warps) an SM "
+          f"(env_substeps_occupancy: cudaFuncGetAttributes, "
+          f"cudaOccupancyMaxActiveBlocksPerMultiprocessor)", flush=True)
+    if occ["local_bytes"] > ENV_LOCAL_BYTES:
+        raise AssertionError(f"phase 2: env_substeps_kernel holds {occ['local_bytes']} bytes of "
+                             f"local memory a thread, more than the {ENV_LOCAL_BYTES} of "
+                             f"sinf's and cosf's reduction of huge arguments")
     from quadruped_springs_tpu_torch.solver import rollout as ro
     for what, repeats, one_row in (("headline and full rate", SAMPLES, False),
                                    ("fused accept's settle", 2, False),

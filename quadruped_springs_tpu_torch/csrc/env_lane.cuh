@@ -29,10 +29,10 @@
 
 namespace qs {
 
-// Floats per environment of the packed model (env/substeps.py pack_model):
-// the trunk's mass, h = m·com and 3x3 inertia about the base origin, then
-// for each leg and body its mass, local COM and the top-left 3x3 block of
-// its spatial inertia about the link origin.
+// Floats per scenario of the packed model (env/substeps.py pack_model, the
+// planner's rows): the trunk's mass, h = m·com and 3x3 inertia about the
+// base origin, then for each leg and body its mass, local COM and the
+// top-left 3x3 block of its spatial inertia about the link origin.
 constexpr int kTrunkFloats = 13;
 constexpr int kBodyFloats = 13;
 constexpr int kModelFloats = kTrunkFloats + 12 * kBodyFloats;   // 169
@@ -48,8 +48,11 @@ struct EnvArgs {
   const float *kp, *kd, *torque_limits, *velocity_limits, *rest, *sign;
   const float *spring_k, *spring_b;   // (N,3)
   const float* friction;              // (N,)
-  const float* model;                 // rows of kModelFloats
-  int64_t model_stride;               // kModelFloats, or 0: one model for all
+  // the model's scenario fields where models/go1_params.py Go1Model holds
+  // them, B rows each: trunk_inertia6 (B,6,6), trunk_mass (B,), leg_masses
+  // (B,4,3), leg_coms (B,4,3,3), leg_inertias6 (B,4,3,6,6)
+  const float *trunk_inertia6, *trunk_mass, *leg_masses, *leg_coms, *leg_inertias6;
+  int64_t model_step;                 // 1: a row an environment (B = N); 0: row 0 for all
   const float* ext_force;             // world force at the trunk origin, or null
   int64_t ext_stride;                 // 3, or 0: one force for all
   // state out
@@ -75,8 +78,11 @@ struct EnvArgs {
       int64_t q_des_env, int64_t q_des_step, const float *kp, const float *kd, \
       const float *torque_limits, const float *velocity_limits,                \
       const float *rest, const float *sign, const float *spring_k,             \
-      const float *spring_b, const float *friction, const float *model,        \
-      int64_t model_stride, const float *ext_force, int64_t ext_stride,        \
+      const float *spring_b, const float *friction,                            \
+      const float *trunk_inertia6, const float *trunk_mass,                    \
+      const float *leg_masses, const float *leg_coms,                          \
+      const float *leg_inertias6, int64_t model_step, const float *ext_force,  \
+      int64_t ext_stride,                                                      \
       float *pos_out, float *quat_out, float *lin_vel_out, float *ang_vel_out, \
       float *q_out, float *qd_out, float *anchor_out, float *tau_out,          \
       float *tau_m_out, float *tau_m_sum_out, float *foot_force_out,           \
@@ -87,7 +93,8 @@ struct EnvArgs {
 #define QS_ENV_ARGS_FROM_PARAMS                                                 \
   qs::EnvArgs{pos, quat, lin_vel, ang_vel, q, qd, anchor, q_des, q_des_env,        \
           q_des_step, kp, kd, torque_limits, velocity_limits, rest, sign,      \
-          spring_k, spring_b, friction, model, model_stride, ext_force,        \
+          spring_k, spring_b, friction, trunk_inertia6, trunk_mass,            \
+          leg_masses, leg_coms, leg_inertias6, model_step, ext_force,          \
           ext_stride, pos_out, quat_out, lin_vel_out, ang_vel_out, q_out,      \
           qd_out, anchor_out, tau_out, tau_m_out, tau_m_sum_out,               \
           foot_force_out, feet_in_contact_out, invalid_contact_out, n,         \
@@ -119,21 +126,22 @@ struct LegModel {
   float mu;
 };
 
-// mf: the robot's packed model row; kp .. sign: the (12,) and (3,) tables;
-// sk, sb: the robot's (3,) springs
-QS_FN LegModel load_leg_model(const EnvConsts& k, const float* mf, int leg, const float* kp,
-                              const float* kd, const float* torque_limits,
-                              const float* velocity_limits, const float* rest,
-                              const float* sign, const float* sk, const float* sb, float mu,
-                              bool zero_gains) {
+// trunk: the robot's trunk; m, com, A: its leg's bodies' masses, local COMs
+// and the top-left 3x3 blocks of their spatial inertias about the link
+// origins; kp .. sign: the (12,) and (3,) tables; sk, sb: the robot's (3,)
+// springs
+QS_FN LegModel leg_model(const EnvConsts& k, const Inertia& trunk, const float (&m)[3],
+                         const V3 (&com)[3], const M3 (&A)[3], int leg, const float* kp,
+                         const float* kd, const float* torque_limits,
+                         const float* velocity_limits, const float* rest, const float* sign,
+                         const float* sk, const float* sb, float mu, bool zero_gains) {
   LegModel c;
-  c.trunk = Inertia{mf[0], load3(mf + 1), load33(mf + 4)};
+  c.trunk = trunk;
 #pragma unroll
   for (int j = 0; j < 3; ++j) {
-    const float* b = mf + kTrunkFloats + (3 * leg + j) * kBodyFloats;
-    c.bodies.m[j] = b[0];
-    c.bodies.c[j] = load3(b + 1);
-    c.bodies.I[j] = inertia_at_com(b[0], c.bodies.c[j], load33(b + 4));
+    c.bodies.m[j] = m[j];
+    c.bodies.c[j] = com[j];
+    c.bodies.I[j] = inertia_at_com(m[j], com[j], A[j]);
   }
   c.hip = pick_leg(k.hip, leg);
   c.thigh = pick_leg(k.thigh, leg);
@@ -154,6 +162,51 @@ QS_FN LegModel load_leg_model(const EnvConsts& k, const float* mf, int leg, cons
   return c;
 }
 
+// leg_model from a packed model row mf (kModelFloats)
+QS_FN LegModel load_leg_model(const EnvConsts& k, const float* mf, int leg, const float* kp,
+                              const float* kd, const float* torque_limits,
+                              const float* velocity_limits, const float* rest,
+                              const float* sign, const float* sk, const float* sb, float mu,
+                              bool zero_gains) {
+  float m[3];
+  V3 com[3];
+  M3 A[3];
+#pragma unroll
+  for (int j = 0; j < 3; ++j) {
+    const float* b = mf + kTrunkFloats + (3 * leg + j) * kBodyFloats;
+    m[j] = b[0];
+    com[j] = load3(b + 1);
+    A[j] = load33(b + 4);
+  }
+  return leg_model(k, Inertia{mf[0], load3(mf + 1), load33(mf + 4)}, m, com, A, leg, kp, kd,
+                   torque_limits, velocity_limits, rest, sign, sk, sb, mu, zero_gains);
+}
+
+// rows 0-2, columns 0-2 of a row-major 6x6 matrix
+QS_FN M3 top_left33(const float* I6) { return M3{{load3(I6), load3(I6 + 6), load3(I6 + 12)}}; }
+
+// leg_model of environment `env` from the model's scenario fields where they
+// lie (EnvArgs): the same floats pack_model copies into a row
+QS_FN LegModel scenario_leg_model(const EnvConsts& k, const EnvArgs& a, int64_t env, int leg) {
+  const int64_t row = env * a.model_step;
+  const float* ti = a.trunk_inertia6 + 36 * row;
+  const Inertia trunk{a.trunk_mass[row], v3(ti[2 * 6 + 4], ti[0 * 6 + 5], ti[1 * 6 + 3]),
+                      top_left33(ti)};
+  float m[3];
+  V3 com[3];
+  M3 A[3];
+#pragma unroll
+  for (int j = 0; j < 3; ++j) {
+    const int64_t body = 12 * row + 3 * leg + j;
+    m[j] = a.leg_masses[body];
+    com[j] = load3(a.leg_coms + 3 * body);
+    A[j] = top_left33(a.leg_inertias6 + 36 * body);
+  }
+  return leg_model(k, trunk, m, com, A, leg, a.kp, a.kd, a.torque_limits, a.velocity_limits,
+                   a.rest, a.sign, a.spring_k + 3 * env, a.spring_b + 3 * env, a.friction[env],
+                   a.torque_mode != 0);
+}
+
 // The robot's state: the base (world frame, every thread alike) and the
 // thread's leg.
 struct LaneState {
@@ -171,12 +224,63 @@ struct SubstepOut {
   bool foot_inc, other_inc;
 };
 
+// f(ops) for a stage of the substep: with CheckedOps (elems.cuh) where
+// kChecked, and again with IeeeOps where those could not vouch for a value;
+// with IeeeOps alone otherwise. f writes its results afresh each time.
+template <bool kChecked, class F>
+QS_FN void with_ops(F&& f) {
+  if constexpr (kChecked) {
+    CheckedOps ops;
+    f(ops);
+    if (ops.ok) return;
+  }
+  IeeeOps ieee;
+  f(ieee);
+}
+
+// What a leg's three contact sites give: the world forces at the foot, the
+// knee and the trunk corner, the foot's normal force, its new anchor and the
+// three contact flags.
+struct Sites {
+  V3 ff, fk, fc;
+  float foot_fn, anc_x, anc_y;
+  bool foot_inc, inc_k, inc_c;
+};
+
+// The contact laws at the foot (kAnchored: its anchor spring on the anchor
+// (anc_x, anc_y); otherwise the memoryless law), the knee and the trunk
+// corner, at their world positions and velocities.
+template <bool kAnchored, class Ops>
+QS_FN Sites contact_sites(const EnvConsts& k, float mu, bool clamp_damping, const V3& pf,
+                          const V3& vf, const V3& pk, const V3& vk, const V3& pc, const V3& vc,
+                          float anc_x, float anc_y, Ops& ops) {
+  Sites o;
+  float fn_k, fn_c;
+  if constexpr (kAnchored) {
+    anchored_foot_elem(k.foot_radius - pf.z, vf.x, vf.y, vf.z, pf.x, pf.y, anc_x, anc_y, mu,
+                       k.kn, k.dn, k.kt, k.ct, clamp_damping, &o.ff.x, &o.ff.y, &o.ff.z,
+                       &o.foot_fn, &o.foot_inc, &o.anc_x, &o.anc_y, ops);
+  } else {
+    contact_elem(k.foot_radius - pf.z, vf.x, vf.y, vf.z, mu, k.kn, k.dn, k.v_tol,
+                 clamp_damping, &o.ff.x, &o.ff.y, &o.ff.z, &o.foot_fn, &o.foot_inc, ops);
+    o.anc_x = anc_x;
+    o.anc_y = anc_y;
+  }
+  contact_elem(k.knee_radius - pk.z, vk.x, vk.y, vk.z, mu, k.kn, k.dn, k.v_tol, clamp_damping,
+               &o.fk.x, &o.fk.y, &o.fk.z, &fn_k, &o.inc_k, ops);
+  contact_elem(k.trunk_radius - pc.z, vc.x, vc.y, vc.z, mu, k.kn, k.dn, k.v_tol,
+               clamp_damping, &o.fc.x, &o.fc.y, &o.fc.z, &fn_c, &o.inc_c, ops);
+  return o;
+}
+
 // One substep of leg `leg`: actuation on the command cmd (PD targets, or
 // torques with torque_mode), contact (kAnchored: the feet's anchor springs
 // on the anchor (anc_x, anc_y), which it updates; otherwise the memoryless
 // law at the feet too), the joint limits, the star solve and the Euler
-// update of `s`. f_ext is read where has_ext.
-template <bool kAnchored, class Quad>
+// update of `s`. f_ext is read where has_ext. kChecked: the contact sites,
+// the 6x6 solve and the quaternion's update take their roots and quotients
+// off the slow-path branches (with_ops), bitwise the same values.
+template <bool kAnchored, bool kChecked, class Quad>
 QS_FN void lane_substep(const EnvConsts& k, const LegModel& c, const float* cmd,
                         bool torque_mode, bool on_rack, bool clamp_damping, bool has_ext,
                         const V3& f_ext, LaneState& s, float& anc_x, float& anc_y,
@@ -212,22 +316,17 @@ QS_FN void lane_substep(const EnvConsts& k, const LegModel& c, const float* cmd,
   V3 pf = add(s.pos, mul(R, L.foot)), vf = mul(R, foot_v);
   V3 pk = add(s.pos, mul(R, knee)), vk = mul(R, knee_v);
   V3 pc = add(s.pos, mul(R, c.corner)), vc = mul(R, corner_v);
-  V3 ff, fk, fc;
-  float fn_k, fn_c;
-  bool inc_k, inc_c;
-  if constexpr (kAnchored) {
-    anchored_foot_elem(k.foot_radius - pf.z, vf.x, vf.y, vf.z, pf.x, pf.y, anc_x, anc_y,
-                       c.mu, k.kn, k.dn, k.kt, k.ct, clamp_damping, &ff.x, &ff.y, &ff.z,
-                       &o.foot_fn, &o.foot_inc, &anc_x, &anc_y);
-  } else {
-    contact_elem(k.foot_radius - pf.z, vf.x, vf.y, vf.z, c.mu, k.kn, k.dn, k.v_tol,
-                 clamp_damping, &ff.x, &ff.y, &ff.z, &o.foot_fn, &o.foot_inc);
-  }
-  contact_elem(k.knee_radius - pk.z, vk.x, vk.y, vk.z, c.mu, k.kn, k.dn, k.v_tol,
-               clamp_damping, &fk.x, &fk.y, &fk.z, &fn_k, &inc_k);
-  contact_elem(k.trunk_radius - pc.z, vc.x, vc.y, vc.z, c.mu, k.kn, k.dn, k.v_tol,
-               clamp_damping, &fc.x, &fc.y, &fc.z, &fn_c, &inc_c);
-  o.other_inc = inc_k || inc_c;
+  Sites sites;
+  with_ops<kChecked>([&](auto& ops) {
+    sites = contact_sites<kAnchored>(k, c.mu, clamp_damping, pf, vf, pk, vk, pc, vc, anc_x,
+                                     anc_y, ops);
+  });
+  const V3 ff = sites.ff, fk = sites.fk, fc = sites.fc;
+  anc_x = sites.anc_x;
+  anc_y = sites.anc_y;
+  o.foot_fn = sites.foot_fn;
+  o.foot_inc = sites.foot_inc;
+  o.other_inc = sites.inc_k || sites.inc_c;
   // world forces -> base wrench and the leg's joint torques
   V3 fbf = mul_t(R, ff), fbk = mul_t(R, fk), fbc = mul_t(R, fc);
   V3 tqf = cross(L.foot, fbf), tqk = cross(knee, fbk), tqc = cross(c.corner, fbc);
@@ -328,10 +427,7 @@ QS_FN void lane_substep(const EnvConsts& k, const LegModel& c, const float* cmd,
 template <class Quad>
 QS_FN void env_lane(const EnvConsts& k, const EnvArgs& a, int64_t env, int leg, Quad& quad) {
   // ---- what the launch reads once -----------------------------------------
-  const LegModel c = load_leg_model(k, a.model + env * a.model_stride, leg, a.kp, a.kd,
-                                    a.torque_limits, a.velocity_limits, a.rest, a.sign,
-                                    a.spring_k + 3 * env, a.spring_b + 3 * env,
-                                    a.friction[env], a.torque_mode != 0);
+  const LegModel c = scenario_leg_model(k, a, env, leg);
   LaneState s;
   s.pos = load3(a.pos + 3 * env);
   s.lin_vel = load3(a.lin_vel + 3 * env);
@@ -352,8 +448,8 @@ QS_FN void env_lane(const EnvConsts& k, const EnvArgs& a, int64_t env, int leg, 
   float tau_m_sum[3] = {0.0f, 0.0f, 0.0f};
   for (int r = 0; r < a.substeps; ++r) {
     const float* cmd = a.q_des + env * a.q_des_env + r * a.q_des_step + 3 * leg;
-    lane_substep<true>(k, c, cmd, a.torque_mode != 0, a.on_rack != 0, a.clamp_damping != 0,
-                       has_ext, f_ext, s, anc_x, anc_y, o, quad);
+    lane_substep<true, true>(k, c, cmd, a.torque_mode != 0, a.on_rack != 0,
+                             a.clamp_damping != 0, has_ext, f_ext, s, anc_x, anc_y, o, quad);
 #pragma unroll
     for (int j = 0; j < 3; ++j) tau_m_sum[j] = r == 0 ? o.tau_m[j] : tau_m_sum[j] + o.tau_m[j];
   }

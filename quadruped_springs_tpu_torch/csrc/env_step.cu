@@ -15,21 +15,39 @@
 // (quadruped_springs_tpu/env/env.py:306-354).
 //
 // Bound on the H100: a launch reads each environment's state (37 floats),
-// anchors (8), springs and friction (7), packed model (169) and commands
-// (12 per substep, or 12 held) and writes 84 floats and 5 flags, ~1.3-1.7 kB
-// an environment: at 1,024 environments x 10 substeps ~1.8 MB, ~0.5 µs of
+// anchors (8), springs and friction (7), model (169 floats of the five
+// scenario fields of Go1Model, read where they lie) and commands (12 per
+// substep, or 12 held) and writes 84 floats and 5 flags, ~1.3-1.7 kB an
+// environment: at 1,024 environments x 10 substeps ~1.8 MB, ~0.5 µs of
 // memory time. A substep is ~10,000 float operations an environment (~2,350
 // per leg, ~650 for the base), 100 M at 1,024 x 10, ~1.5 µs at 67 TFLOP/s:
-// the bound is operations, and it is far below one launch slot, so what the
-// kernel buys is the launches it removes.
-// The work is a serial chain of 10 substeps per environment, so the kernel
-// runs 4 threads an environment (the Go1 is a star: one thread per leg),
-// 4,096 threads at 1,024 environments, ~1 warp per SM: it is latency-bound,
-// and instruction-level parallelism inside a thread matters more than
-// occupancy. State, anchors and the lane's model stay in registers across
-// the R substeps; the legs' shares of the base's Schur system are summed
-// with __shfl_xor_sync inside each group of four lanes, in a fixed order
-// that no other environment can change.
+// the bound is operations, and it is far below one launch slot.
+//
+// Design. The work is a serial chain of R substeps per environment, so the
+// kernel runs 4 threads an environment (the Go1 is a star: one thread per
+// leg) and is latency-bound: one warp's dependent chain sets its time at
+// every width the paths launch (1 to 1,024 environments), at ~3 cycles an
+// instruction. State, anchors and the thread's model stay in registers
+// across the R substeps (255 registers, no spill; staging the model in
+// shared memory, as planner_rollout does, measured slower here); the legs'
+// shares of the base's Schur system are summed with __shfl_xor_sync inside
+// each group of four lanes, in a fixed order that no other environment can
+// change. Blocks of 32 threads (8 environments) spread 1,024 environments
+// over 128 SMs, one warp each, where blocks of 128 put four on each of 32.
+// The chain is shortened where it waited on slow-path branches: sincosf for
+// each sinf / cosf pair (bitwise the same over all 2^32 inputs), and the
+// contact sites' roots and quotients through CheckedOps (elems.cuh), the
+// correctly rounded values without the branch, the sites recomputed with
+// the operators where a check fails. So every output is bitwise what the
+// kernel computed with sinf, cosf, sqrtf and `/` as written.
+//
+// Measured on an NVIDIA H100 80GB HBM3 at a 700 W power limit
+// (tests/torch_env_design_probe.py; PERF.md): 1,024 x 10 substeps 56.9 ->
+// 46.6 µs, 64 x 10 54.3 -> 43.0 µs, 1 x 10 46.5 -> 38.2 µs, the oracle
+// replay's 1 x 2,500 settle 9.76 -> 8.49 ms. The 6x6 solve's and the
+// quaternion's roots and quotients through CheckedOps, the commands loaded a
+// substep ahead and the shares summed through shared memory measured slower
+// or no faster, and are not used.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -39,7 +57,7 @@
 
 namespace {
 
-constexpr int kThreads = 128;   // 32 environments a block
+constexpr int kThreads = 32;   // 8 environments a block
 
 __global__ void __launch_bounds__(kThreads)
 env_substeps_kernel(const __grid_constant__ qs::EnvConsts consts,
@@ -62,4 +80,23 @@ extern "C" int env_substeps(QS_ENV_SUBSTEPS_PARAMS) {
   unsigned int blocks = static_cast<unsigned int>((threads + kThreads - 1) / kThreads);
   env_substeps_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(c, args);
   return static_cast<int>(cudaGetLastError());
+}
+
+// What the card makes of the kernel: out[0] its blocks an SM
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), out[1] threads a block,
+// out[2] registers a thread, out[3] local memory bytes a thread, out[4]
+// shared memory bytes a block (cudaFuncGetAttributes).
+extern "C" int env_substeps_occupancy(int* out) {
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, env_substeps_kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, env_substeps_kernel, kThreads, 0);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[0] = blocks;
+  out[1] = kThreads;
+  out[2] = attr.numRegs;
+  out[3] = static_cast<int>(attr.localSizeBytes);
+  out[4] = static_cast<int>(attr.sharedSizeBytes);
+  return 0;
 }

@@ -79,12 +79,26 @@ QS_FN M3 add(const M3& A, const M3& B) {
 QS_FN M3 load33(const float* p) { return M3{{load3(p), load3(p + 3), load3(p + 6)}}; }
 QS_FN float at(const M3& M, int i, int j) { return at(M.r[i], j); }
 
+// sin and cos of t by one sincosf: one argument reduction, and bitwise
+// sinf(t) and cosf(t) (all 2^32 inputs held against them on the card by
+// tests/torch_env_design_probe.py)
+QS_FN void sin_cos(float t, float* s, float* c) {
+#if defined(__CUDACC__)
+  sincosf(t, s, c);
+#else
+  *s = sinf(t);
+  *c = cosf(t);
+#endif
+}
+
 QS_FN M3 rot_x(float t) {
-  float c = cosf(t), s = sinf(t);
+  float s, c;
+  sin_cos(t, &s, &c);
   return M3{{v3(1.0f, 0.0f, 0.0f), v3(0.0f, c, -s), v3(0.0f, s, c)}};
 }
 QS_FN M3 rot_y(float t) {
-  float c = cosf(t), s = sinf(t);
+  float s, c;
+  sin_cos(t, &s, &c);
   return M3{{v3(c, 0.0f, s), v3(0.0f, 1.0f, 0.0f), v3(-s, 0.0f, c)}};
 }
 
@@ -109,8 +123,10 @@ QS_FN void quat_integrate(float* q, const V3& w, float half_dt, float half_dt2) 
   float angle = sqrtf(small ? 1.0f : n2);
   float half = half_dt * angle;
   float h2 = half_dt2 * n2;
-  float k = small ? half_dt * (1.0f - h2 / 6.0f) : sinf(half) / angle;
-  float c = small ? 1.0f - h2 / 2.0f : cosf(half);
+  float sin_half, cos_half;
+  sin_cos(half, &sin_half, &cos_half);
+  float k = small ? half_dt * (1.0f - h2 / 6.0f) : sin_half / angle;
+  float c = small ? 1.0f - h2 / 2.0f : cos_half;
   float x2 = w.x * k, y2 = w.y * k, z2 = w.z * k, w2 = c;
   float x1 = q[0], y1 = q[1], z1 = q[2], w1 = q[3];
   float x = w1 * x2 + x1 * w2 + y1 * z2 - z1 * y2;

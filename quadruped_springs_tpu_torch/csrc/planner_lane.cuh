@@ -152,8 +152,8 @@ QS_FN void planner_lane(const EnvConsts& k, const RolloutArgs& a, const LegModel
   const float* cmd = a.q_des + lane * a.horizon * 12 + 3 * leg;
   for (int t = 0; t < a.horizon; ++t) {
     for (int r = 0; r < a.substeps; ++r)
-      lane_substep<false>(k, c, cmd, false, false, clamp_damping, false, no_force, s,
-                          no_anchor_x, no_anchor_y, o, quad);
+      lane_substep<false, false>(k, c, cmd, false, false, clamp_damping, false, no_force, s,
+                                 no_anchor_x, no_anchor_y, o, quad);
     out += kStateFloats;
     cmd += 12;
     write_state(out, s, leg);

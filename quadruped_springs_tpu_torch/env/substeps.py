@@ -11,8 +11,11 @@ reset's settle and ``control/utils.settle_robot_by_pd`` call it.
 
 Nothing differentiates through the environment: the wrapper raises on
 inputs that require grad. The Go1's geometry (joint origins, foot radius,
-trunk corners, gravity) is the fixed one of ``go1_params``; the per-scenario
-fields of the model are packed by ``pack_model``.
+trunk corners, gravity) is the fixed one of ``go1_params``; the kernel reads
+the model's five per-scenario fields where ``Go1Model`` holds them, one row
+per environment or one for all. The wrapper's host time is part of every
+control step: it reads each argument's metadata once, allocates the outputs
+and launches, and makes no other launch.
 """
 
 from __future__ import annotations
@@ -85,7 +88,9 @@ def env_substeps_plain(robot: dyn.RobotState, anchor, q_des, model: Go1Model,
 
 def pack_model(model: Go1Model) -> torch.Tensor:
     """The per-scenario fields of `model` as one contiguous (B, MODEL_FLOATS)
-    float32 tensor, B its scenario count (1 or N): per row the trunk's mass,
+    float32 tensor, B its scenario count (the planner's rows,
+    solver/rollout.py; the env_substeps kernel reads the same floats from the
+    fields themselves): per row the trunk's mass,
     h = m·com (the skew block of its spatial inertia) and the top-left 3x3
     of its spatial inertia, then for each leg and body its mass, local COM
     and the top-left 3x3 of its spatial inertia about the link origin."""
@@ -134,7 +139,28 @@ def _params_key(params: dyn.SimParams) -> tuple:
         params.joint_limit_stiffness, params.joint_limit_damping))
 
 
-def launch_args(robot: dyn.RobotState, anchor, q_des, model_rows, friction, params,
+ROBOT_FIELDS = ("pos", "quat", "lin_vel", "ang_vel", "q", "qd")
+# the model's per-scenario fields (go1_params.SCENARIO_FIELDS) as the kernel
+# reads them, and each one's shape after its B rows
+MODEL_FIELDS = (("trunk_inertia6", (6, 6)), ("trunk_mass", ()), ("leg_masses", (4, 3)),
+                ("leg_coms", (4, 3, 3)), ("leg_inertias6", (4, 3, 6, 6)))
+
+
+def allocate_outputs(n: int, dev: torch.device) -> SubstepsOut:
+    """The kernel's outputs for n environments, uninitialised and each
+    contiguous; the outputs of one shape are the rows of one allocation
+    (fewer calls into the allocator: a control step's host time)."""
+    e = lambda *shape, dtype=torch.float32: torch.empty(shape, dtype=dtype, device=dev)
+    pos, lin_vel, ang_vel = e(3, n, 3).unbind(0)
+    quat, foot_forces = e(2, n, 4).unbind(0)
+    q, qd, tau, tau_m, tau_m_sum = e(5, n, 12).unbind(0)
+    return SubstepsOut(
+        robot=dyn.RobotState(pos, quat, lin_vel, ang_vel, q, qd), anchor=e(n, 4, 2), tau=tau,
+        tau_m=tau_m, tau_m_sum=tau_m_sum, foot_forces=foot_forces,
+        feet_in_contact=e(n, 4, dtype=torch.bool), invalid_contact=e(n, dtype=torch.bool))
+
+
+def launch_args(robot: dyn.RobotState, anchor, q_des, model: Go1Model, friction, params,
                 kp, kd, torque_limits, velocity_limits, spring_k, spring_b, rest_angles3,
                 engage_sign, substeps: int, ext_force_world, torque_mode: bool):
     """Check every argument from its metadata (device, dtype, shape,
@@ -149,48 +175,51 @@ def launch_args(robot: dyn.RobotState, anchor, q_des, model_rows, friction, para
         q_shape, q_env, q_step = (n, substeps, 12), substeps * 12, 12
     else:
         q_shape, q_env, q_step = (n, 12), 12, 0
-    rows = model_rows.shape[0]
+    fields = [(name, getattr(model, name), shape) for name, shape in MODEL_FIELDS]
+    rows = fields[1][1].shape[0] if fields[1][1].dim() == 1 else -1
     if rows not in (1, n):
-        raise ValueError(f"env_substeps: {rows} model rows for {n} environments")
-    checks = [("pos", robot.pos, (n, 3)), ("quat", robot.quat, (n, 4)),
-              ("lin_vel", robot.lin_vel, (n, 3)), ("ang_vel", robot.ang_vel, (n, 3)),
-              ("q", robot.q, (n, 12)), ("qd", robot.qd, (n, 12)),
+        raise ValueError(f"env_substeps: model rows {tuple(fields[1][1].shape)} for "
+                         f"{n} environments")
+    state = [getattr(robot, f) for f in ROBOT_FIELDS]
+    checks = [*zip(ROBOT_FIELDS, state, ((n, 3), (n, 4), (n, 3), (n, 3), (n, 12), (n, 12))),
               ("foot_anchor", anchor, (n, 4, 2)), ("q_des", q_des, q_shape),
               ("kp", kp, (12,)), ("kd", kd, (12,)), ("torque_limits", torque_limits, (12,)),
               ("velocity_limits", velocity_limits, (12,)),
               ("rest_angles3", rest_angles3, (3,)), ("engage_sign", engage_sign, (12,)),
               ("spring_k", spring_k, (n, 3)), ("spring_b", spring_b, (n, 3)),
-              ("friction", friction, (n,)), ("model", model_rows, (rows, MODEL_FLOATS))]
+              ("friction", friction, (n,)),
+              *((name, t, (rows, *shape)) for name, t, shape in fields)]
     ext_stride = 0
     if ext_force_world is not None:
         ext_stride = 3 if ext_force_world.dim() == 2 else 0
         checks.append(("ext_force_world", ext_force_world, (n, 3) if ext_stride else (3,)))
-    for name, t, shape in checks:
-        kernels.check_tensor(name, t, shape, dev)
-    out = SubstepsOut(
-        robot=dyn.RobotState(*(torch.empty_like(t) for t in (
-            robot.pos, robot.quat, robot.lin_vel, robot.ang_vel, robot.q, robot.qd))),
-        anchor=torch.empty_like(anchor), tau=torch.empty_like(robot.q),
-        tau_m=torch.empty_like(robot.q), tau_m_sum=torch.empty_like(robot.q),
-        foot_forces=torch.empty(n, 4, dtype=torch.float32, device=dev),
-        feet_in_contact=torch.empty(n, 4, dtype=torch.bool, device=dev),
-        invalid_contact=torch.empty(n, dtype=torch.bool, device=dev))
+    kernels.check_tensors(checks, dev)
+    out = allocate_outputs(n, dev)
     consts = consts_array(_params_key(params))
-    ptr = lambda t: None if t is None else t.data_ptr()
     r = out.robot
-    args = [consts, len(consts),
-            *(t.data_ptr() for t in (robot.pos, robot.quat, robot.lin_vel, robot.ang_vel,
-                                     robot.q, robot.qd, anchor, q_des)),
-            q_env, q_step,
+    args = [consts, len(consts), *(t.data_ptr() for t in state), anchor.data_ptr(),
+            q_des.data_ptr(), q_env, q_step,
             *(t.data_ptr() for t in (kp, kd, torque_limits, velocity_limits, rest_angles3,
-                                     engage_sign, spring_k, spring_b, friction, model_rows)),
-            0 if rows == 1 else MODEL_FLOATS, ptr(ext_force_world), ext_stride,
+                                     engage_sign, spring_k, spring_b, friction)),
+            *(t.data_ptr() for _, t, _ in fields), 0 if rows == 1 else 1,
+            None if ext_force_world is None else ext_force_world.data_ptr(), ext_stride,
             *(t.data_ptr() for t in (r.pos, r.quat, r.lin_vel, r.ang_vel, r.q, r.qd,
                                      out.anchor, out.tau, out.tau_m, out.tau_m_sum,
                                      out.foot_forces, out.feet_in_contact,
                                      out.invalid_contact)),
             n, substeps, int(params.on_rack), int(params.clamp_damping), int(torque_mode)]
     return args, out
+
+
+def occupancy() -> dict:
+    """What the card makes of the env_substeps kernel: its registers and
+    local memory a thread (cudaFuncGetAttributes), threads and shared memory
+    a block, blocks and warps an SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+    out = (ctypes.c_int * 5)()
+    kernels.check_launch("env_substeps_occupancy", kernels.library().env_substeps_occupancy(out))
+    return {"blocks_per_sm": out[0], "threads_per_block": out[1], "registers": out[2],
+            "local_bytes": out[3], "shared_bytes": out[4],
+            "warps_per_sm": out[0] * out[1] // 32}
 
 
 def env_substeps(robot: dyn.RobotState, anchor, q_des, model: Go1Model,
@@ -204,17 +233,18 @@ def env_substeps(robot: dyn.RobotState, anchor, q_des, model: Go1Model,
     for all of them (PD targets; TORQUE mode: torques). kp, kd,
     torque_limits, velocity_limits, engage_sign: (12,); rest_angles3: (3,);
     spring_k, spring_b: (N,3) (zeros without springs). params: the
-    SimParams, friction a float or (N,). ext_force_world: None, (N,3) or (3,)
+    SimParams, friction a float or (N,). model: its per-scenario fields
+    with 1 or N rows, contiguous. ext_force_world: None, (N,3) or (3,)
     world force at the trunk origin in every substep. torque_mode: q_des are
     torques (the non-RL TORQUE interface). All float32. CUDA tensors launch
     the `env_substeps` kernel once; CPU tensors run env_substeps_plain.
     """
-    tensors = [*(getattr(robot, f.name) for f in dataclasses.fields(robot)), anchor, q_des,
-               kp, kd, torque_limits, velocity_limits, spring_k, spring_b, rest_angles3,
-               engage_sign, ext_force_world, params.friction,
-               *(getattr(model, f) for f in gp.SCENARIO_FIELDS)]
-    if torch.is_grad_enabled() and any(torch.is_tensor(t) and t.requires_grad
-                                       for t in tensors):
+    if torch.is_grad_enabled() and any(
+            torch.is_tensor(t) and t.requires_grad for t in (
+                *(getattr(robot, f) for f in ROBOT_FIELDS), anchor, q_des, kp, kd,
+                torque_limits, velocity_limits, spring_k, spring_b, rest_angles3,
+                engage_sign, ext_force_world, params.friction,
+                *(getattr(model, f) for f in gp.SCENARIO_FIELDS))):
         raise ValueError("env_substeps: nothing differentiates through the environment; "
                          "call it on tensors that do not require grad")
     dev = robot.q.device
@@ -229,16 +259,13 @@ def env_substeps(robot: dyn.RobotState, anchor, q_des, model: Go1Model,
     friction = params.friction
     if not torch.is_tensor(friction):
         friction = torch.full((n,), float(friction), dtype=torch.float32, device=dev)
-    model_rows = pack_model(model)     # held until the launch has been enqueued
-    args, out = launch_args(robot, anchor, q_des, model_rows, friction, params, kp, kd,
+    args, out = launch_args(robot, anchor, q_des, model, friction, params, kp, kd,
                             torque_limits, velocity_limits, spring_k, spring_b,
                             rest_angles3, engage_sign, substeps, ext_force_world,
                             torque_mode)
     if n == 0:
         return out
-    with torch.cuda.device(dev):
-        err = kernels.library().env_substeps(*args, kernels.stream_handle(dev))
-    kernels.check_launch("env_substeps", err)
+    kernels.launch(dev, "env_substeps", kernels.library().env_substeps, args)
     env_substeps.launches += 1
     return out
 

@@ -37,7 +37,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
-ENV_SUBSTEPS_ARGTYPES = ([_P, ctypes.c_int] + [_P] * 8 + [_I64, _I64] + [_P] * 10
+ENV_SUBSTEPS_ARGTYPES = ([_P, ctypes.c_int] + [_P] * 8 + [_I64, _I64] + [_P] * 14
                          + [_I64, _P, _I64] + [_P] * 13
                          + [_I64] + [ctypes.c_int] * 4 + [_P])
 PLANNER_ROLLOUT_ARGTYPES = ([_P, ctypes.c_int] + [_P] * 12 + [_I64, _P, _I64]
@@ -67,10 +67,14 @@ _SIGNATURES = {
     "planner_noop": [_P],
     # consts (host float array), n_consts, pos, quat, lin_vel, ang_vel, q, qd,
     # anchor, q_des, q_des_env, q_des_step, kp, kd, torque_limits,
-    # velocity_limits, rest, sign, spring_k, spring_b, friction, model,
-    # model_stride, ext_force, ext_stride, the 13 outputs, n, substeps,
-    # on_rack, clamp_damping, torque_mode, stream (csrc/env_lane.cuh)
+    # velocity_limits, rest, sign, spring_k, spring_b, friction, the model's
+    # trunk_inertia6, trunk_mass, leg_masses, leg_coms, leg_inertias6,
+    # model_step, ext_force, ext_stride, the 13 outputs, n, substeps, on_rack,
+    # clamp_damping, torque_mode, stream (csrc/env_lane.cuh)
     "env_substeps": ENV_SUBSTEPS_ARGTYPES,
+    # out (5 ints): env_substeps's blocks an SM, threads a block, registers
+    # and local bytes a thread, shared bytes a block
+    "env_substeps_occupancy": [_P],
     # consts (host float array), n_consts, x0, q_des, kp, kd, torque_limits,
     # velocity_limits, rest, sign, spring_k, spring_b, friction, model,
     # scenario_stride, xs, n_problems, repeats, horizon, substeps,
@@ -192,9 +196,31 @@ def check_tensor(name: str, t: torch.Tensor, shape: tuple, device: torch.device,
         raise ValueError(f"{name}: not contiguous")
 
 
+def check_tensors(checks, device: torch.device, dtype=torch.float32) -> None:
+    """check_tensor over (name, tensor, shape) triples, each tensor's four
+    properties read once; check_tensor names what fails."""
+    for name, t, shape in checks:
+        if (t.device != device or t.dtype != dtype or t.shape != shape
+                or not t.is_contiguous()):
+            check_tensor(name, t, shape, device, dtype)
+
+
 def stream_handle(device: torch.device) -> int:
-    """The raw cudaStream_t of PyTorch's current stream on `device`."""
-    return torch.cuda.current_stream(device).cuda_stream
+    """The raw cudaStream_t of PyTorch's current stream on `device` (read
+    without making a torch.cuda.Stream)."""
+    index = torch.cuda.current_device() if device.index is None else device.index
+    return torch._C._cuda_getCurrentRawStream(index)
+
+
+def launch(device: torch.device, name: str, fn, args) -> None:
+    """fn(*args, stream) on PyTorch's current stream of `device`, made the
+    current device where it is not; raises on a launch error."""
+    if device.index == torch.cuda.current_device():
+        err = fn(*args, stream_handle(device))
+    else:
+        with torch.cuda.device(device):
+            err = fn(*args, stream_handle(device))
+    check_launch(name, err)
 
 
 # -- shared by the autograd Functions that bind a kernel and its tangent kernel --

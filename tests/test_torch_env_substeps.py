@@ -33,7 +33,7 @@ from quadruped_springs_tpu_torch.control import utils as tcu
 from quadruped_springs_tpu_torch.env import env as tenv
 from quadruped_springs_tpu_torch.env import substeps as ss
 from quadruped_springs_tpu_torch.models import dynamics as tdyn
-from quadruped_springs_tpu_torch.models.go1_params import go1_config
+from quadruped_springs_tpu_torch.models.go1_params import SCENARIO_FIELDS, go1_config
 from quadruped_springs_tpu_torch.ops import actuation as act
 
 N, R = 8, 10
@@ -237,8 +237,7 @@ def _host_run(fn, args):
     own argument packing."""
     (robot, anchor, q_des, model, params, kp, kd, lim, vlim, k, b, rest, sign, substeps,
      ext, torque) = args
-    model_rows = ss.pack_model(model)
-    launch, out = ss.launch_args(robot, anchor, q_des, model_rows, params.friction, params,
+    launch, out = ss.launch_args(robot, anchor, q_des, model, params.friction, params,
                                  kp, kd, lim, vlim, k, b, rest, sign, substeps, ext, torque)
     assert fn(*launch, None) == 0
     return out
@@ -264,6 +263,33 @@ def test_kernel_body_on_the_host_matches_plain(case, host_build):
         _within(got[k], want[k], 0.0, k)
     for k in want_b:
         np.testing.assert_array_equal(got_b[k], want_b[k], err_msg=k)
+
+
+def _model_rows(model, rows):
+    """`model` with its scenario fields cut to `rows` (a slice): contiguous
+    views that start inside the fields' storage."""
+    return dataclasses.replace(model, **{f: getattr(model, f)[rows]
+                                         for f in SCENARIO_FIELDS})
+
+
+@pytest.mark.parametrize("env", [0, 5])
+def test_kernel_body_reads_the_model_rows_where_they_lie(env, host_build):
+    """The kernel reads the model's five scenario fields in place (no packed
+    copy), a row an environment or one row for all: environment `env` of a
+    launch at N rows is bitwise what it is in a launch whose one row is its
+    own (the fields sliced to env:env+1, so the row starts inside their
+    storage); and at N rows against env_substeps_plain as in the pd case."""
+    args = list(_torch_args("pd"))
+    every = _fields(_host_run(host_build, args))
+    one = list(args)
+    one[3] = _model_rows(args[3], slice(env, env + 1))
+    alone = _fields(_host_run(host_build, one))
+    for got, want in zip(every, alone):
+        for k in want:
+            np.testing.assert_array_equal(got[k][env], want[k][env], err_msg=k)
+    want, want_b = _fields(ss.env_substeps_plain(*args))
+    for k in want:
+        _within(every[0][k], want[k], 0.0, k)
 
 
 # --- the environment through the wrapper, against its loop before it ---------
@@ -369,8 +395,9 @@ def test_settle_robot_by_pd_matches_the_inline_loop():
 def test_wrapper_rejects_what_the_kernel_does_not_take():
     """Grad-requiring inputs raise on every device; launch_args (the CUDA
     path's checks, device-agnostic) rejects a non-contiguous state, a
-    wrong dtype, a model of neither 1 nor N rows and q_des of another
-    substep count, from metadata alone."""
+    wrong dtype, a model of neither 1 nor N rows, a model field that is
+    not contiguous, of another dtype or of rows unlike the others, and
+    q_des of another substep count, from metadata alone."""
     args = list(_torch_args("pd"))
     grad = list(args)
     grad[2] = args[2].clone().requires_grad_()
@@ -380,19 +407,26 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
         ss.env_substeps(*grad)
     robot, anchor, q_des, model, params = args[:5]
     rest = args[5:13]
-    rows = ss.pack_model(model)
 
-    def check(robot=robot, anchor=anchor, q_des=q_des, rows=rows, substeps=R):
-        return ss.launch_args(robot, anchor, q_des, rows, params.friction, params, *rest,
+    def check(robot=robot, anchor=anchor, q_des=q_des, model=model, substeps=R):
+        return ss.launch_args(robot, anchor, q_des, model, params.friction, params, *rest,
                               substeps, None, False)
 
     check()
+    check(model=_model_rows(model, slice(3, 4)))
     with pytest.raises(ValueError, match="contiguous"):
         check(robot=dataclasses.replace(robot, q=robot.q.t().contiguous().t()))
     with pytest.raises(TypeError, match="dtype"):
         check(anchor=anchor.double())
     with pytest.raises(ValueError, match="model rows"):
-        check(rows=rows[:2])
+        check(model=_model_rows(model, slice(0, 2)))
+    with pytest.raises(ValueError, match="leg_inertias6: not contiguous"):
+        check(model=dataclasses.replace(
+            model, leg_inertias6=model.leg_inertias6.transpose(-1, -2)))
+    with pytest.raises(TypeError, match="leg_coms: dtype"):
+        check(model=dataclasses.replace(model, leg_coms=model.leg_coms.double()))
+    with pytest.raises(ValueError, match="trunk_inertia6: shape"):
+        check(model=dataclasses.replace(model, trunk_inertia6=model.trunk_inertia6[:1]))
     with pytest.raises(ValueError, match="shape"):
         check(substeps=R - 1)
     with pytest.raises(ValueError, match="at least 1"):

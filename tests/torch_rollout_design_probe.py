@@ -63,8 +63,8 @@ sys.path.insert(0, ROOT)
 KNOT_LOOP = """  const float* cmd = a.q_des + lane * a.horizon * 12 + 3 * leg;
   for (int t = 0; t < a.horizon; ++t) {
     for (int r = 0; r < a.substeps; ++r)
-      lane_substep<false>(k, c, cmd, false, false, clamp_damping, false, no_force, s,
-                          no_anchor_x, no_anchor_y, o, quad);
+      lane_substep<false, false>(k, c, cmd, false, false, clamp_damping, false, no_force, s,
+                                 no_anchor_x, no_anchor_y, o, quad);
     out += kStateFloats;
     cmd += 12;
     write_state(out, s, leg);
@@ -77,8 +77,8 @@ CMD_LOOP = """  const float* src = a.q_des + lane * a.horizon * 12 + 3 * leg;
     if (%(prefetch)d && t + 1 < a.horizon)
       for (int j = 0; j < 3; ++j) next[j] = src[12 * (t + 1) + j];
     for (int r = 0; r < a.substeps; ++r)
-      lane_substep<false>(k, c, cmd, false, false, clamp_damping, false, no_force, s,
-                          no_anchor_x, no_anchor_y, o, quad);
+      lane_substep<false, false>(k, c, cmd, false, false, clamp_damping, false, no_force, s,
+                                 no_anchor_x, no_anchor_y, o, quad);
     out += kStateFloats;
     write_state(out, s, leg);
     if (t + 1 < a.horizon)
@@ -100,12 +100,12 @@ MIN_BLOCKS = ("planner_rollout.cu", "constexpr int kMinBlocks = 4;")
 THREADS = ("planner_lane.cuh", "constexpr int kRolloutThreads = 128;")
 blocks = lambda n: (*MIN_BLOCKS, f"constexpr int kMinBlocks = {n};")
 FENCED_LOOP = KNOT_LOOP.replace("""    for (int r = 0; r < a.substeps; ++r)
-      lane_substep<false>(k, c, cmd, false, false, clamp_damping, false, no_force, s,
-                          no_anchor_x, no_anchor_y, o, quad);
+      lane_substep<false, false>(k, c, cmd, false, false, clamp_damping, false, no_force, s,
+                                 no_anchor_x, no_anchor_y, o, quad);
 """, """    for (int r = 0; r < a.substeps; ++r) {
       asm volatile("" ::: "memory");
-      lane_substep<false>(k, c, cmd, false, false, clamp_damping, false, no_force, s,
-                          no_anchor_x, no_anchor_y, o, quad);
+      lane_substep<false, false>(k, c, cmd, false, false, clamp_damping, false, no_force, s,
+                                 no_anchor_x, no_anchor_y, o, quad);
     }
 """)
 
