@@ -124,7 +124,8 @@ Phases (any failure raises, so the script exits non-zero):
      launched on 1 and 2 lanes (12 and 24 threads) with fidelity_env's
      constants (motor gains with springs and without, 180 kN/m, the clamp on
      and off), and `env_substeps` at one lane against its plain version (a
-     control step; the oracle replay's 2,500-substep settle); then the
+     control step; the oracle replay's 2,500-substep settle; the CPG
+     example's single TORQUE substep on the rigid robot); then the
      oracle-trace gate: the six committed traces
      tests/data/oracle_*.qsts through the port's
      utils/verification.verify_against_trace at their real size (the
@@ -157,15 +158,23 @@ Phases (any failure raises, so the script exits non-zero):
      feedback) must read 0 at 1,024 and 8 rows against 2; then the
      headline's MPPI solve (GAP_MPPI_ITERATIONS iterations) with its draws
      given, rows 0-GAP_ROWS-1 bitwise equal at 1,024, 8 and 2 rows (costs,
-     us, states, cost traces); then sharded_lqt_backward on the Go1 sizes (H=50, n=37, m=6) against
+     us, states, cost traces), and the same for the full-rate row's MPPI
+     solve (H=25, 10 substeps at 180 kN/m, the clamp on) and, at 64, 8 and 2
+     rows, for the planned comparison's solve of each robot (K=64 without
+     the fused accept, phase 21's batch and the entry point's); then
+     sharded_lqt_backward on the Go1 sizes (H=50, n=37, m=6) against
      riccati_sequential and _parallel_lqt_backward at the tolerances of
      tests/test_riccati_sharded.py;
  19. (after phase 3) hold `planner_rollout` against planner_rollout_plain
      at its paths' shapes: the headline's rollout (1024 TEST_RANDOMIZER
      problems x 32 candidates, H=50, 2 relaxed substeps, every 8th problem
      in flight, every 8th on friction 0.3), the full-rate row's (H=25, 10
-     substeps at 180 kN/m, clamp on) and the executor's (1 lane, H=1, 10
-     substeps): the kernel as close to the plain version run in float64 as
+     substeps at 180 kN/m, clamp on), the executor's (1 lane, H=1, 10
+     substeps) and the springs-vs-rigid comparison's (PLANNED_SOLVES problems
+     x PLANNED_SAMPLES candidates and x 1, H=50, relaxed, on the nominal row
+     of the PEA robot and of the rigid one; for the quantile gate its
+     launches pooled over draws to COMPARE_POOLED_LANES lanes): the kernel
+     as close to the plain version run in float64 as
      the plain version is (ROLLOUT_QUANTILES over the lanes, per field, knot
      and on the lanes' costs, within ROLLOUT_DIST), env_substeps's per-lane spread
      rule held on every lane at knot 1 (the executor at every knot) and
@@ -185,7 +194,31 @@ Phases (any failure raises, so the script exits non-zero):
      package's pass count over the same seeds (JAX_PASSES, less SHARE_SLACK
      for jumping forward; the backflip on the JAX example's ground of each
      seed, its run on the port's own draw reported);
-     launches exact (planner_rollout once per rollout).
+     launches exact (planner_rollout once per rollout);
+ 21. (with the host-bound runs) the planned springs-vs-rigid comparison
+     (quadruped_springs_tpu_torch.compare_springs.planned_rows at
+     scripts/compare_springs.py's configuration) for both robots over
+     PLANNED_SEEDS, the 8 solves of every seed as one batch of 64 rows
+     (bitwise those of the entry point's batch of 8: phase 18): every row
+     finite, the peak motor torque at the 33.55 N m limit on every row,
+     springs' executed apex above rigid's at no fewer seeds than the JAX
+     package's count less PLANNED_SLACK (JAX_PLANNED; tests/test_artifacts.py's
+     three bars together counted and printed beside the JAX package's, not
+     gated), seed 1's rows printed in the script's JSON beside the committed
+     1.142 / 0.801 m;
+     launches exact;
+ 22. (with the host-bound runs) the learned comparison
+     (compare_springs.run_config, its ARS configuration) cut to LEARNED_ITERS
+     iterations, one process a robot: metrics and W finite, W changed by
+     every iteration whose top returns do not tie, the springs' evaluation
+     apex at LEARNED_APEX within them, launches exact; the evaluation
+     apexes printed beside the JAX curve's;
+ 23. first `actuation`, `contact` and their tangents against their twins at
+     the iLQR examples' widths (EXAMPLE_ILQR); then (with the host-bound
+     runs) every run of quadruped_springs_tpu_torch.examples at its default
+     size (EXAMPLE_JOBS: episode, cpg, cartesian_jump, mpc, mpc --mppi, mpc
+     --batch 4, backflip, quickstart), each held to its example's bars
+     (example_passed), launches exact.
 Phase 11 also holds both loops to the transfer band of the JAX gate
 (executed apex > 0.45 m, upright, within LOOP_BAND of the largest planned
 apex; the JAX package's own loops meet 10% on the CPU).
@@ -193,8 +226,9 @@ Cuts of depth, against the first form of this script: phase 4 times 1
 solve (was 3). Phase 6's 3 segments and phase 7's 2,500-substep settle,
 cut while the environment ran ~500 launches a substep, are back since its
 physics is one env_substeps launch a control step. The host-bound runs of phases 11, 13, 16 and 17
-(the two loops, the six replays, the six oracle traces, the transfer gate)
-and phase 20's three drivers go at once in HOST_PROCESSES spawned processes
+(the two loops, the six replays, the six oracle traces, the transfer gate),
+phase 20's three drivers and phases 21-23's comparisons and examples go at
+once in HOST_PROCESSES spawned processes
 on the one card, after the
 kernel checks of phases 13, 16 and 17, and phase 18's six small solves one
 process each. Phases 13-18 run before phase 12 (the profiler's). Most phases are bound by
@@ -267,8 +301,42 @@ ADAPTER_LANES, ADAPTER_KNOTS = 64, 20
 # phase 16 and 17 run the environment's kernels at 1 and 2 lanes; their
 # checks build the hand-placed regimes on SMALL_INPUT_LANES lanes
 FIDELITY_LANES, SMALL_INPUT_LANES = (1, 2), 8
-# phases 11, 13, 16, 17 and 20 run their host-bound paths in this many processes
+# phases 11, 13, 16, 17 and 20-23 run their host-bound paths in this many processes
 HOST_PROCESSES = 8
+# phase 21: the planned springs-vs-rigid comparison (compare_springs.planned_rows,
+# scripts/compare_springs.py's configuration) over PLANNED_SEEDS, seed 1 the
+# entry point's default. The JAX script's executed apexes are chaotic in its
+# draws: on the CPU (`python tests/torch_compare_springs_probe.py --jax-keys 1
+# 2 3 4 5 6 7 8`) springs land above rigid at 7 of its keys 1-8 (mean gain
+# +0.1296 m) and meet all of tests/test_artifacts.py's mechanical bars at 2
+# (keys 4 and 7; not at key 1, whose committed TPU run did). The port is held
+# to the count above rigid less PLANNED_SLACK, tests/test_torch_transfer_share.py's
+# rule (two binomial standard deviations at the JAX miss rate, rounded up).
+PLANNED_SEEDS = tuple(range(1, 9))
+# phase 19 holds the comparison's rollouts to the quantile gate over this many
+# lanes: its launches of PLANNED_SOLVES problems pooled over draws
+# (compare_rollout_gate)
+COMPARE_POOLED_LANES = 16384
+PLANNED_SOLVES, PLANNED_SAMPLES, PLANNED_ITERATIONS = 8, 64, 10
+PLANNED_ROLLOUTS = 2 + 2 * PLANNED_ITERATIONS   # a solve without the fused accept
+JAX_PLANNED = {"springs_higher": 7, "bars": 2, "mean_gain_m": 0.1296}
+PLANNED_SLACK = math.ceil(2 * math.sqrt(len(PLANNED_SEEDS) * (7 / 8) * (1 / 8)))
+# phase 22: the learned comparison (compare_springs.run_config) cut to
+# LEARNED_ITERS iterations, one process a robot; a step whose returns all
+# tie has sigma_r at its 1e-8 floor. Within those iterations the springs'
+# evaluation apex reaches LEARNED_APEX: the JAX curve
+# (docs/springs_vs_rigid_learned.json) at iteration 7, the port's 150-iteration
+# run on an NVIDIA H100 80GB HBM3 (700 W) at 9
+LEARNED_ITERS = 12
+LEARNED_APEX = 0.5
+SIGMA_TIE = 1e-6
+# phase 23: each run of quadruped_springs_tpu_torch.examples at its default
+# size, the longest first; the iLQR runs' widths (problems, horizon, line
+# search candidates) for the kernel checks at the head of the phase
+EXAMPLE_JOBS = (("backflip", {}), ("cpg", {}), ("mpc", {"batch": 4}), ("mpc", {}),
+                ("quickstart", {}), ("mpc", {"mppi": True}), ("episode", {}),
+                ("cartesian_jump", {}))
+EXAMPLE_ILQR = {"mpc": (1, 25, 6), "mpc_batch4": (4, 25, 6), "backflip": (1, 60, 8)}
 # phase 20: each MPC behaviour driver (mpc_behaviours.DRIVERS) at the JAX
 # example's full configuration over its seeds, as (run, seeds) jobs of the
 # host-bound pool, the longest first. The port's draws differ from the JAX
@@ -311,9 +379,11 @@ SHARDED_MARGIN = 2000.0
 # phase 18 solves the first GAP_ROWS scenarios again, as one batch and as
 # batches of GAP_BLOCK, which must give the answers bitwise; and once more as
 # one batch with the last row's start NaN, which must leave the others as
-# they were. The MPPI batch check runs the headline's solve with
-# GAP_MPPI_ITERATIONS iterations (10 in the headline: every op of the solve
-# runs in each iteration, and the host's launches set the time)
+# they were. The MPPI batch check runs the headline's and the full-rate
+# row's solves with GAP_MPPI_ITERATIONS iterations (10 in the headline: every
+# op of the solve runs in each iteration, and the host's launches set the
+# time), and the planned comparison's (non-fused accept, both robots) at its
+# own iterations
 GAP_ROWS, GAP_BLOCK, GAP_MPPI_ITERATIONS = 8, 2, 3
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA's data sheet
 F32_FLOPS_PER_S = 67e12          # float32 outside the tensor cores
@@ -1275,17 +1345,27 @@ def run_host_bound_paths(policy_replay, kind):
 
     trajstore.library()              # build the store once, before the workers read it
     replays = list(policy_replay.BEHAVIORS)
+    robots = ("springs", "rigid")
+    added = ([(_learned_worker, r) for r in robots] + [(_example_worker, job)
+                                                       for job in EXAMPLE_JOBS]
+             + [(_planned_worker, r) for r in robots])
     jobs = ([(_behaviour_worker, job) for job in BEHAVIOUR_JOBS]
             + [(_closed_loop_worker, True), (_transfer_gate_worker, None),
-               (_closed_loop_worker, False)] + [(_replay_worker, n) for n in replays]
-            + [(_oracle_trace_worker, job) for job in ORACLE_TRACES])
+               (_closed_loop_worker, False)] + added[:2] + [(_replay_worker, n)
+                                                           for n in replays]
+            + [(_oracle_trace_worker, job) for job in ORACLE_TRACES] + added[2:])
     t0 = time.perf_counter()
     with multiprocessing.get_context("spawn").Pool(HOST_PROCESSES) as pool:
         pending = [pool.apply_async(fn, (arg,)) for fn, arg in jobs]
         results = [r.get() for r in pending]
     wall = time.perf_counter() - t0
-    print(f"phases 11, 13, 16, 17 and 20: {len(jobs)} host-bound paths in {wall:.2f} s "
+    print(f"phases 11, 13, 16, 17 and 20-23: {len(jobs)} host-bound paths in {wall:.2f} s "
           f"({HOST_PROCESSES} processes on one card)", flush=True)
+    by_fn = {}
+    for (fn, arg), res in zip(jobs, results):
+        by_fn.setdefault(fn, []).append((arg, res))
+    results = [res for (fn, _), res in zip(jobs, results) if fn not in (
+        _learned_worker, _example_worker, _planned_worker)]
     behaviours, results = results[:len(BEHAVIOUR_JOBS)], results[len(BEHAVIOUR_JOBS):]
     by_path = {"closed_loop_full_rate": check_closed_loop(results[0], kind, True),
                "closed_loop": check_closed_loop(results[2], kind, False)}
@@ -1294,6 +1374,9 @@ def run_host_bound_paths(policy_replay, kind):
     by_path["oracle_gate"] = check_oracle_gate(results[k:], kind)
     by_path["transfer_gate"] = check_transfer_gate(results[1], kind)
     by_path.update(check_behaviours(behaviours, kind))
+    by_path.update(check_planned(dict(by_fn[_planned_worker]), kind))
+    by_path.update(check_learned(dict(by_fn[_learned_worker]), kind))
+    by_path.update(check_examples([res for _, res in by_fn[_example_worker]], kind))
     return by_path
 
 
@@ -1708,8 +1791,11 @@ def check_fidelity_widths(torch, act, dyn, model):
 def fidelity_substeps_settings(torch):
     """env_substeps's settings at the fidelity gates' width, one lane: a
     control step (10 substeps) from the settled fidelity env under a random
-    command, and the oracle replay's settle (2,500 substeps from the initial
-    pose, the command held). Returns {setting: env_substeps's arguments}."""
+    command, the oracle replay's settle (2,500 substeps from the initial
+    pose, the command held), and the CPG example's control step (one
+    substep of a held torque in TORQUE mode on the rigid robot). Returns
+    {setting: env_substeps's arguments}."""
+    from quadruped_springs_tpu_torch import examples
     from quadruped_springs_tpu_torch.control import interfaces as ci
     from quadruped_springs_tpu_torch.env import randomizers as rnd
     from quadruped_springs_tpu_torch.utils.verification import fidelity_env
@@ -1725,9 +1811,15 @@ def fidelity_substeps_settings(torch):
     start = dataclasses.replace(state, robot=robot, foot_anchor=env._feet_anchor(
         rnd.model_from_params(state.scenario), robot))
     settle = env.config.settling_steps
+    # the CPG example's environment: the rigid robot in TORQUE mode, one
+    # substep a control step, a held torque
+    cpg = examples.cpg_env("cuda")
+    cpg_state, _ = cpg.reset(gen, 1)
+    torques = 16.0 * torch.rand((1, 12), generator=gen, device="cuda") - 8.0
     return {"fidelity_1x10": env_substeps_args(env, state, q_des, 10),
             f"fidelity_1x{settle}_settle": env_substeps_args(
-                env, start, env._settle_q_des.expand(1, 12).contiguous(), settle)}
+                env, start, env._settle_q_des.expand(1, 12).contiguous(), settle),
+            "cpg_1x1_torque": env_substeps_args(cpg, cpg_state, torques, 1, torque_mode=True)}
 
 
 def check_fidelity_substeps(torch, ss, kind):
@@ -1972,49 +2064,73 @@ def batch_rounding_probe(torch, ilqr, prob, rows):
     return out
 
 
-def check_mppi_batching(torch):
-    """Phase 18: the headline's MPPI solve (JUMPING_IN_PLACE on the relaxed
-    model, BATCH TEST_RANDOMIZER scenarios, K = SAMPLES, H = HORIZON, fused
-    accept; GAP_MPPI_ITERATIONS iterations) with its standard-normal draws
-    given, then its first GAP_ROWS rows as one batch and in batches of
-    GAP_BLOCK with the same rows' draws: costs, controls, states and cost
-    traces must be bitwise equal. Returns max |d| per batching and field."""
+def check_mppi_batching(torch, setting="headline"):
+    """Phase 18: an MPPI solve with its standard-normal draws given, then
+    its first GAP_ROWS rows as one batch and in batches of GAP_BLOCK with
+    the same rows' draws: costs, controls, states and cost traces must be
+    bitwise equal. `setting` is the headline's solve (JUMPING_IN_PLACE on
+    the relaxed model, BATCH TEST_RANDOMIZER scenarios, K = SAMPLES, H =
+    HORIZON, fused accept; GAP_MPPI_ITERATIONS iterations), "full_rate" the
+    full-rate row's (H = FULL_RATE_HORIZON, 10 substeps a knot at 180 kN/m,
+    the clamp on), or "compare_springs" / "compare_rigid" the planned
+    comparison's for that robot (compare_springs.planned_rows: the nominal
+    robot, H = HORIZON, PLANNED_ITERATIONS iterations of K =
+    PLANNED_SAMPLES without the fused accept, at phase 21's batch of
+    PLANNED_SEEDS x PLANNED_SOLVES rows; its entry point solves
+    PLANNED_SOLVES = GAP_ROWS). Returns max |d| per batching and field."""
     from quadruped_springs_tpu_torch.env import randomizers as rnd
     from quadruped_springs_tpu_torch.env.env import take
     from quadruped_springs_tpu_torch.solver.mppi import MPPIConfig
     from quadruped_springs_tpu_torch.solver.mpc import MPCConfig, MPCProblem
 
-    prob = MPCProblem(MPCConfig(task="JUMPING_IN_PLACE", horizon=HORIZON,
-                                iterations=GAP_MPPI_ITERATIONS), "cuda")
-    cfg = MPPIConfig(horizon=HORIZON, iterations=GAP_MPPI_ITERATIONS, n_samples=SAMPLES,
-                     fused_accept=True)
-    scen = rnd.sample_scenario(prob.cfg, "TEST_RANDOMIZER",
-                               torch.Generator("cuda").manual_seed(0), n=BATCH)
-    x0 = prob.default_x0().expand(BATCH, -1)
-    u0 = prob.task_warm_start().expand(BATCH, -1, -1)
-    noise = torch.randn((GAP_MPPI_ITERATIONS, BATCH, SAMPLES, HORIZON, prob.action_dim),
+    compare = setting.startswith("compare")
+    horizon = FULL_RATE_HORIZON if setting == "full_rate" else HORIZON
+    iterations = PLANNED_ITERATIONS if compare else GAP_MPPI_ITERATIONS
+    if compare:
+        prob = MPCProblem(MPCConfig(task="JUMPING_IN_PLACE", horizon=horizon,
+                                    iterations=iterations, n_alphas=8,
+                                    enable_springs=setting == "compare_springs"), "cuda")
+        cfg = MPPIConfig(horizon=horizon, iterations=iterations)
+        assert (cfg.n_samples, cfg.fused_accept) == (PLANNED_SAMPLES, False)
+        rows, scen = len(PLANNED_SEEDS) * PLANNED_SOLVES, None
+    else:
+        prob = MPCProblem((MPCConfig.full_rate if setting == "full_rate" else MPCConfig)(
+            task="JUMPING_IN_PLACE", horizon=horizon, iterations=iterations), "cuda")
+        cfg = MPPIConfig(horizon=horizon, iterations=iterations, n_samples=SAMPLES,
+                         fused_accept=True)
+        rows = BATCH
+        scen = rnd.sample_scenario(prob.cfg, "TEST_RANDOMIZER",
+                                   torch.Generator("cuda").manual_seed(0), n=rows)
+    x0 = prob.default_x0().expand(rows, -1)
+    u0 = prob.task_warm_start().expand(rows, -1, -1)
+    noise = torch.randn((iterations, rows, cfg.n_samples, horizon, prob.action_dim),
                         generator=torch.Generator("cuda").manual_seed(1), device="cuda")
+    row = {"headline": "headline's", "full_rate": "full-rate row's",
+           "compare_springs": "planned comparison's PEA",
+           "compare_rigid": "planned comparison's rigid"}[setting]
+    tag = "mppi" if setting == "headline" else f"mppi {setting}"
     fields = ("cost", "us", "xs", "cost_trace")
 
     def solve(a, b):
         sol = prob.solve_mppi(x0[a:b], u0[a:b], config=cfg, noise=noise[:, a:b],
-                              scenario=take(scen, torch.arange(a, b, device="cuda")))
+                              scenario=None if scen is None else
+                              take(scen, torch.arange(a, b, device="cuda")))
         return {k: getattr(sol, k) for k in fields}
 
     t0 = time.perf_counter()
-    full, whole = solve(0, BATCH), solve(0, GAP_ROWS)
+    full, whole = solve(0, rows), solve(0, GAP_ROWS)
     split = [solve(i, i + GAP_BLOCK) for i in range(0, GAP_ROWS, GAP_BLOCK)]
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     if not bool(torch.isfinite(full["cost"]).all()):
         raise AssertionError("phase 18: a non-finite MPPI cost")
     gap = {}
-    for name, sol in ((str(BATCH), full), (f"{GAP_ROWS // GAP_BLOCK} x {GAP_BLOCK}", None)):
+    for name, sol in ((str(rows), full), (f"{GAP_ROWS // GAP_BLOCK} x {GAP_BLOCK}", None)):
         for k in fields:
             got = (torch.cat([b[k] for b in split]) if sol is None else sol[k][:GAP_ROWS])
-            gap[f"mppi {name} {k}"] = float((got - whole[k]).abs().max())
-    print(f"phase 18: MPPI (the headline's problem, {GAP_MPPI_ITERATIONS} iterations) rows "
-          f"0-{GAP_ROWS - 1} solved in batches of {BATCH}, {GAP_ROWS} and {GAP_BLOCK} with "
+            gap[f"{tag} {name} {k}"] = float((got - whole[k]).abs().max())
+    print(f"phase 18: MPPI (the {row} problem, {iterations} iterations) rows "
+          f"0-{GAP_ROWS - 1} solved in batches of {rows}, {GAP_ROWS} and {GAP_BLOCK} with "
           f"the same draws: max |d| against the {GAP_ROWS}-row solve {gap} (0: bitwise "
           f"equal; {wall:.2f} s)", flush=True)
     moved = [k for k, v in gap.items() if v != 0.0]
@@ -2167,7 +2283,8 @@ def run_sharded(torch, act, dyn, ilqr, kind):
               for k, v in by.items() if v != 0.0]
     if moved:
         raise AssertionError(f"phase 18: the answer depends on the batch size: {moved}")
-    gap.update(check_mppi_batching(torch))
+    for setting in ("headline", "full_rate", "compare_springs", "compare_rigid"):
+        gap.update(check_mppi_batching(torch, setting))
 
     args = random_lq(torch, torch.Generator("cuda").manual_seed(5), HORIZON, 37, 6)
     reg_seq, reg_par = torch.tensor([1e-5], device="cuda"), torch.tensor([1e-2], device="cuda")
@@ -2257,10 +2374,31 @@ def check_planner_rollout(torch, ro, prob, x0, us, lanes, consts, reps=10, stric
     on the card alone (CUDA events around 10 back-to-back launches, median
     of 5) and the plain version (its two float32 calls, the faster)."""
     from quadruped_springs_tpu_torch.control import interfaces as ci
-    from quadruped_springs_tpu_torch.solver.mpc import cast_floats
 
     q_des = ci.action_to_command(prob.iface, us).contiguous()
     got = ro.planner_rollout(x0, q_des, lanes, consts)
+    res = rollout_gate(torch, ro, prob, x0, q_des, us, lanes, consts, got, strict)
+    one = lambda: ro.planner_rollout(x0, q_des, lanes, consts)
+    B, R, H, _ = q_des.shape
+    occ = ro.occupancy(R, lanes.spring_k.shape[0] == 1)
+    inputs = [x0, q_des, lanes.packed, lanes.spring_k, lanes.spring_b, lanes.friction,
+              consts.kp, consts.kd, consts.torque_limits, consts.velocity_limits, consts.rest,
+              consts.sign]
+    return {**res, "ms": cuda_time_ms(torch, one, reps=reps),
+            "card_ms": cuda_time_ms(torch, one, reps=5, inner=10),
+            "profile": (one, "planner_rollout_kernel"),
+            "lanes": B * R, "horizon": H, "substeps": consts.substeps,
+            "warps_per_sm": occ["warps_per_sm"], "registers": occ["registers"],
+            **roofline("planner_rollout", B * R * H * consts.substeps, inputs, [got])}
+
+
+def rollout_gate(torch, ro, prob, x0, q_des, us, lanes, consts, got, strict=False):
+    """check_planner_rollout's gates on the kernel's rollout `got` of the
+    commands q_des (of `us`) from x0. Returns the errors, the distances and
+    spreads used, the lanes outside the spread and the plain version's
+    time (its two float32 calls, the faster)."""
+    from quadruped_springs_tpu_torch.solver.mpc import cast_floats
+
     torch.cuda.synchronize()
     timed = []
 
@@ -2330,20 +2468,9 @@ def check_planner_rollout(torch, ro, prob, x0, us, lanes, consts, reps=10, stric
     if strict and outside["cost"]:
         raise AssertionError(f"planner_rollout cost: |kernel - plain| {float(d.max())} exceeds "
                              f"{REL_TOL}·(1+|plain|) + {ROLLOUT_SPREAD} x the spread")
-    one = lambda: ro.planner_rollout(x0, q_des, lanes, consts)
-    B, R, H, _ = q_des.shape
-    occ = ro.occupancy(R, lanes.spring_k.shape[0] == 1)
-    inputs = [x0, q_des, lanes.packed, lanes.spring_k, lanes.spring_b, lanes.friction,
-              consts.kp, consts.kd, consts.torque_limits, consts.velocity_limits, consts.rest,
-              consts.sign]
     return {"max_abs_err": err, "cost_max_abs_err": float(d.max()),
             "distance_used": dist, "lanes_outside_spread": outside, "spread_used": used,
-            "ms": cuda_time_ms(torch, one, reps=reps),
-            "card_ms": cuda_time_ms(torch, one, reps=5, inner=10),
-            "profile": (one, "planner_rollout_kernel"), "plain_ms": min(timed),
-            "lanes": B * R, "horizon": H, "substeps": consts.substeps,
-            "warps_per_sm": occ["warps_per_sm"], "registers": occ["registers"],
-            **roofline("planner_rollout", B * R * H * consts.substeps, inputs, [got])}
+            "plain_ms": min(timed)}
 
 
 def one_knot_from_plain(torch, ro, prob, x0, us, scen):
@@ -2380,8 +2507,8 @@ def one_knot_from_plain(torch, ro, prob, x0, us, scen):
             "exact": exact, "e_kernel": rel(kernel), "e_plain": rel(plain)}
 
 
-def check_one_knot_lanes(torch, ro, prob, x0, us, scen):
-    """The kernel lane by lane over every knot of the headline's rollout,
+def check_one_knot_lanes(torch, ro, prob, x0, us, scen, what="the headline's rollout"):
+    """The kernel lane by lane over every knot of a rollout (the headline's),
     each knot from the plain version's state (one_knot_from_plain), against
     the float64 knot: at most ONE_KNOT_FAR knot-lanes where the kernel is
     100 x farther than the plain version (+ 1e-4), and at most ONE_KNOT_TAIL
@@ -2397,7 +2524,7 @@ def check_one_knot_lanes(torch, ro, prob, x0, us, scen):
            "kernel_max": float(e_k.max()), "plain_max": float(e_p.max()), "far": far,
            "past_plain_0.999_kernel": tail_k, "past_plain_0.999_plain": tail_p}
     print(f"phase 19: planner_rollout, one knot from the plain version's state at each of "
-          f"{res['knot_lanes']} knot-lanes of the headline's rollout, distance to the float64 "
+          f"{res['knot_lanes']} knot-lanes of {what}, distance to the float64 "
           f"knot at the {ONE_KNOT_QUANTILES} quantiles: kernel {q_k}, plain {q_p}; max kernel "
           f"{res['kernel_max']:.3e}, plain {res['plain_max']:.3e}; knot-lanes where the kernel "
           f"is 100 x farther: {far} (bound {ONE_KNOT_FAR}); past the plain version's 0.999 "
@@ -2427,7 +2554,7 @@ def check_planner_rollout_batching(torch, ro, prob, x0, us, scen):
             f"{GAP_ROWS // GAP_BLOCK} x {GAP_BLOCK}": float((blocks - whole).abs().max())}
 
 
-def check_planner_rollout_map(torch, ro, n, r, horizon, full_rate, one_row):
+def check_planner_rollout_map(torch, ro, n, r, horizon, full_rate, one_row, springs=True):
     """`planner_rollout` at n problems x r candidates x `horizon` knots
     (rollout_problems' problems, candidates drawn as MPPI's first iteration
     draws them): every problem's rows bitwise equal to the same problem
@@ -2440,7 +2567,8 @@ def check_planner_rollout_map(torch, ro, n, r, horizon, full_rate, one_row):
     from quadruped_springs_tpu_torch.solver import mppi
     from quadruped_springs_tpu_torch.solver.mpc import MPCConfig, MPCProblem, cast_floats
 
-    prob = MPCProblem((MPCConfig.full_rate if full_rate else MPCConfig)(horizon=horizon), "cuda")
+    prob = MPCProblem((MPCConfig.full_rate if full_rate else MPCConfig)(
+        horizon=horizon, enable_springs=springs), "cuda")
     x0, scen = rollout_problems(torch, prob, n, 41)
     eps = 0.3 * torch.randn((n, r, horizon, prob.action_dim), device="cuda",
                             generator=torch.Generator("cuda").manual_seed(42))
@@ -2510,6 +2638,7 @@ def check_planner_rollout_shapes(torch, kind):
     checks["executor"] = check_planner_rollout(
         torch, ro, prob, prob.default_x0()[None], extend.expand(1, 1, 1, -1).contiguous(),
         lanes, consts, reps=30, strict=True)
+    compare = check_compare_rollouts(torch, ro, mppi, MPCConfig, MPCProblem)
     for shape in ROLLOUT_MAP_SHAPES:
         print(f"phase 19: planner_rollout's map of lanes to problems at (B, R, H, full rate, "
               f"one row) = {shape}: {check_planner_rollout_map(torch, ro, *shape)} (each "
@@ -2540,7 +2669,108 @@ def check_planner_rollout_shapes(torch, kind):
           flush=True)
     if any(v != 0.0 for v in gap.values()):
         raise AssertionError(f"phase 19: planner_rollout rows depend on the batch: {gap}")
+    checks.update(compare)
     return checks, gap, one_knot
+
+
+def compare_rollout_gate(torch, ro, mppi, prob, r, lanes_total=COMPARE_POOLED_LANES,
+                         seed=33):
+    """The quantile gate (rollout_gate) at the springs-vs-rigid comparison's
+    width: PLANNED_SOLVES problems x r candidates (MPPI's K or its accept
+    rollout, R = 1) on the nominal robot's one row, H = HORIZON, relaxed,
+    the kernel launched at that width lanes_total / (PLANNED_SOLVES x r)
+    times on independent draws (rollout_problems' starts from `seed`,
+    sigma-0.3 smoothed candidates about the task's warm start) and the
+    lanes pooled, so that the quantiles rest on many lanes. Then one knot
+    from the plain version's states at every pooled knot-lane
+    (check_one_knot_lanes). Returns the gate's record."""
+    from quadruped_springs_tpu_torch.control import interfaces as ci
+    from quadruped_springs_tpu_torch.env import randomizers as rnd
+
+    lanes, consts = prob.rollout_lanes(), prob.rollout_consts()
+    n = lanes_total // r
+    x0, _ = rollout_problems(torch, prob, n, seed)
+    eps = 0.3 * torch.randn((n, r, HORIZON, prob.action_dim), device="cuda",
+                            generator=torch.Generator("cuda").manual_seed(seed + 1 + r))
+    us = torch.clamp(prob.task_warm_start()[None, None] + mppi._smooth_noise(eps), -1.0, 1.0)
+    q_des = ci.action_to_command(prob.iface, us).contiguous()
+    got = torch.cat([ro.planner_rollout(x0[i:i + PLANNED_SOLVES].contiguous(),
+                                        q_des[i:i + PLANNED_SOLVES].contiguous(), lanes, consts)
+                     for i in range(0, n, PLANNED_SOLVES)])
+    res = rollout_gate(torch, ro, prob, x0, q_des, us, lanes, consts, got)
+    robot = "springs" if prob.config.enable_springs else "rigid"
+    res["one_knot"] = check_one_knot_lanes(
+        torch, ro, prob, x0, us, rnd.nominal_params(prob.cfg, n),
+        what=f"the {robot} comparison's rollouts ({PLANNED_SOLVES} x {r}, "
+             f"{n // PLANNED_SOLVES} launches)")
+    return {**res, "lanes": n * r, "launches": n // PLANNED_SOLVES, "horizon": HORIZON,
+            "substeps": consts.substeps}
+
+
+def check_compare_rollouts(torch, ro, mppi, MPCConfig, MPCProblem):
+    """Phase 19, the springs-vs-rigid comparison's rollouts (MPPI's K =
+    PLANNED_SAMPLES candidates and its accept rollout, R = 1, on the nominal
+    robot's one row, H = 50, relaxed) for the PEA robot and the rigid one
+    (per-joint gains [55, 60, 60], no spring rows), at the comparison's
+    width of PLANNED_SOLVES problems: every problem's rows bitwise the
+    problem launched alone and knot 1 within the spread rule
+    (check_planner_rollout_map), times at that width; and the gate on
+    quantiles over lanes with the launches of that width pooled over
+    independent draws to COMPARE_POOLED_LANES lanes (compare_rollout_gate:
+    over one launch's 8-512 lanes a few lanes' contact events set the
+    quantiles, the plain version's as much as the kernel's,
+    tests/torch_rollout_compare_probe.py), with one knot from the plain
+    version's states at every pooled knot-lane."""
+    from quadruped_springs_tpu_torch.control import interfaces as ci
+
+    checks = {}
+    for robot, springs in (("springs", True), ("rigid", False)):
+        prob = MPCProblem(MPCConfig(task="JUMPING_IN_PLACE", horizon=HORIZON,
+                                    enable_springs=springs), "cuda")
+        lanes, consts = prob.rollout_lanes(), prob.rollout_consts()
+        n = PLANNED_SOLVES
+        x0, _ = rollout_problems(torch, prob, n, 33)
+        for r in (PLANNED_SAMPLES, 1):
+            checks[f"compare_{robot}_{n}x{r}_pooled"] = compare_rollout_gate(
+                torch, ro, mppi, prob, r)
+            eps = 0.3 * torch.randn((n, r, HORIZON, prob.action_dim), device="cuda",
+                                    generator=torch.Generator("cuda").manual_seed(34 + r))
+            us = torch.clamp(prob.task_warm_start()[None, None] + mppi._smooth_noise(eps),
+                             -1.0, 1.0)
+            mapped = check_planner_rollout_map(torch, ro, n, r, HORIZON, False, True, springs)
+            q_des = ci.action_to_command(prob.iface, us).contiguous()
+            one = lambda: ro.planner_rollout(x0, q_des, lanes, consts)
+            got = one()
+            want = ro.planner_rollout_plain(x0, q_des[:, :, :1].contiguous(), lanes, consts)
+            inputs = [x0, q_des, lanes.packed, lanes.spring_k, lanes.spring_b,
+                      lanes.friction, consts.kp, consts.kd, consts.torque_limits,
+                      consts.velocity_limits, consts.rest, consts.sign]
+            checks[f"compare_{robot}_{n}x{r}"] = {
+                "max_abs_err": float((got[:, :, 1] - want[:, :, 1]).abs().max()),
+                **mapped, "lanes": n * r, "horizon": HORIZON, "substeps": consts.substeps,
+                "ms": cuda_time_ms(torch, one), "card_ms": cuda_time_ms(
+                    torch, one, reps=5, inner=10),
+                "plain_ms": cuda_time_ms(torch, lambda: ro.planner_rollout_plain(
+                    x0, q_des, lanes, consts), reps=3),
+                **roofline("planner_rollout", n * r * HORIZON * consts.substeps, inputs,
+                           [got])}
+    for setting, r in checks.items():
+        if "launches" in r:
+            print(f"phase 19: planner_rollout ({setting}) at {r['lanes']} lanes x "
+                  f"{r['horizon']} knots x {r['substeps']} substeps in {r['launches']} "
+                  f"launches: max_abs_err {r['max_abs_err']:.3e}, distance to the float64 "
+                  f"plain version in units of the plain version's {r['distance_used']}, "
+                  f"lanes outside the spread {r['lanes_outside_spread']}", flush=True)
+            continue
+        extra = (f"knot 1 max_abs_err {r['max_abs_err']:.3e}, each problem's rows against the "
+                 f"problem alone {r['alone_max_abs_diff']}, knot 1 {r['knot1_spreads_used']:.2f} "
+                 f"spreads")
+        print(f"phase 19: planner_rollout ({setting}) at {r['lanes']} lanes x {r['horizon']} "
+              f"knots x {r['substeps']} substeps: {extra}; kernel {r['ms']:.4f} ms through its "
+              f"wrapper, {r['card_ms']:.4f} ms on the card (10 back-to-back launches), plain "
+              f"{r['plain_ms']:.2f} ms; bound {r['bound_ms'] * 1e3:.3f} µs (by "
+              f"{r['bound_by']})", flush=True)
+    return checks
 
 
 # -- phase 20: the MPC behaviours -------------------------------------------
@@ -2641,6 +2871,307 @@ def check_behaviours(results, kind):
         by_path[f"mpc_{run}"] = counts
     if failed:
         raise AssertionError(f"phase 20: {failed} pass fewer seeds than the JAX package")
+    return by_path
+
+
+# -- phases 21-23: the springs-vs-rigid comparisons and the examples ---------
+
+def check_example_widths(torch, act, dyn, ilqr, model):
+    """Head of phase 23: `actuation` and `contact` against their twins at the
+    iLQR examples' lane counts (EXAMPLE_ILQR: B lanes a rollout, B x alphas a
+    line search, each launch a block of SMALL_INPUT_LANES or more lanes) with
+    the planner's constants, and `actuation_jvp`, `contact_jvp` against
+    torch.func.jvp of theirs at one linearization block (B x knots lanes x
+    N_TANGENTS), to the bounds of phases 3 and 8."""
+    from quadruped_springs_tpu_torch.solver.mpc import MPCConfig, MPCProblem
+
+    checks = {k: {} for k in ("actuation", "contact", "actuation_jvp", "contact_jvp")}
+    for path, (b, horizon, alphas) in EXAMPLE_ILQR.items():
+        task = "BACKFLIP" if path == "backflip" else "JUMPING_IN_PLACE"
+        prob = MPCProblem(MPCConfig(task=task, horizon=horizon), "cuda")
+        sim = prob.sim_params
+        for what, lanes in (("rollout", b), ("line_search", b * alphas)):
+            n = lanes * math.ceil(SMALL_INPUT_LANES / lanes)
+            tag = f"{path}_{what}_{lanes}"
+            checks["actuation"][tag] = check_actuation(torch, act, prob, n, lanes=lanes)
+            contact = check_contact(torch, dyn, model, n, sim.contact_stiffness,
+                                    sim.contact_damping, lanes)
+            checks["contact"][tag] = contact[False]
+            checks["contact"][tag + "_clamp"] = contact[True]
+        block = b * ilqr.linearization_blocks(b, horizon, N_TANGENTS)
+        tag = f"{path}_block_{block}"
+        checks["actuation_jvp"][tag] = check_actuation_jvp(torch, act, prob, block)
+        jvp = check_contact_jvp(torch, dyn, block)
+        checks["contact_jvp"][tag], checks["contact_jvp"][tag + "_clamp"] = jvp[False], jvp[True]
+    for name, by_setting in checks.items():
+        for r in by_setting.values():
+            r.pop("profile", None)
+        worst = max(by_setting.values(), key=lambda r: r["max_abs_err"])
+        ms = [r["ms"] for r in by_setting.values()]
+        print(f"phase 23: {name} against its twin at the iLQR examples' widths "
+              f"({', '.join(by_setting)}): max_abs_err {worst['max_abs_err']:.3e}, kernel "
+              f"{min(ms):.4f}-{max(ms):.4f} ms through its wrapper", flush=True)
+    return checks
+
+
+def _planned_worker(label):
+    """Phase 21, in a process of its own: compare_springs.planned_rows of one
+    robot over PLANNED_SEEDS on the card (the solves of all seeds one batch,
+    the best plans one fidelity env). Returns the rows, the kernels' launches,
+    those its resets and env steps call for, and the wall time."""
+    import torch
+
+    from quadruped_springs_tpu_torch import compare_springs as cs
+    from quadruped_springs_tpu_torch.env.env import QuadrupedEnv
+    from quadruped_springs_tpu_torch.models import dynamics as dyn
+    from quadruped_springs_tpu_torch.ops import actuation as act
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    reset_counts(act, dyn)
+    t0 = time.perf_counter()
+    with EnvCalls(QuadrupedEnv) as calls:
+        rows = cs.planned_rows(cs.CONFIGS[label], torch.device("cuda"), PLANNED_SEEDS)
+    torch.cuda.synchronize()
+    return {"rows": rows, "launches": read_counts(act, dyn), "want": calls.launches(),
+            "seconds": time.perf_counter() - t0}
+
+
+def check_planned(results, kind):
+    """Phase 21: the planned comparison (scripts/compare_springs.py's
+    configuration: H = 50, K = 64, 10 iterations, the accept rollout every
+    iteration, 8 solves, the best plan and 70 knots of the landing action on
+    each robot's 1 kHz fidelity env) over PLANNED_SEEDS. Held: every row
+    finite, the peak motor torque at the 33.55 N m limit on every row
+    (JAX: 16 of 16), springs' executed apex above rigid's at no fewer seeds
+    than the JAX package's JAX_PLANNED["springs_higher"] less PLANNED_SLACK;
+    tests/test_artifacts.py's three bars together are counted beside
+    JAX_PLANNED["bars"] (the share rule leaves them no bar); launches exact:
+    one batched solve a robot, 2 + 2 x iterations planner_rollout launches,
+    env_substeps once per settle and control step, contact once per reset,
+    actuation never."""
+    from quadruped_springs_tpu_torch import compare_springs as cs
+
+    by_path, failed = {}, []
+    for label, res in results.items():
+        check_counts(res["launches"], {**res["want"], "planner_rollout": PLANNED_ROLLOUTS,
+                                       **dict.fromkeys(BF16_KERNELS, 0)}, 21)
+        by_path[f"compare_planned_{label}"] = res["launches"]
+        for row in res["rows"]:
+            values = [v for k, v in row.items() if isinstance(v, float)] + row["costs"]
+            if not all(math.isfinite(v) for v in values):
+                failed.append(f"{label}: non-finite row {row}")
+            if round(row["peak_motor_torque_Nm"], 2) != 33.55:
+                failed.append(f"{label}: peak motor torque {row['peak_motor_torque_Nm']}")
+    pairs = list(zip(PLANNED_SEEDS, results["springs"]["rows"], results["rigid"]["rows"]))
+    higher = sum(s["executed_apex_m"] > g["executed_apex_m"] for _, s, g in pairs)
+    bars = sum(cs.bars(s, g) for _, s, g in pairs)
+    for seed, s, g in pairs:
+        print(f"phase 21: planned seed {seed}: springs planned best "
+              f"{s['planned_apex_best_m']:.3f} m (cost {s['best_cost']:.2f}, mean "
+              f"{s['mean_cost']:.2f}), executed {s['executed_apex_m']:.3f} m, upright "
+              f"{s['upright']}, work {s['motor_work_J']:.2f} J | rigid "
+              f"{g['planned_apex_best_m']:.3f} m ({g['best_cost']:.2f}, {g['mean_cost']:.2f}), "
+              f"executed {g['executed_apex_m']:.3f} m, upright {g['upright']}, work "
+              f"{g['motor_work_J']:.2f} J | gain {s['executed_apex_m'] - g['executed_apex_m']:+.3f}"
+              f" m; test_artifacts' bars {cs.bars(s, g)}", flush=True)
+    gains = [s["executed_apex_m"] - g["executed_apex_m"] for _, s, g in pairs]
+    least = JAX_PLANNED["springs_higher"] - PLANNED_SLACK
+    first = {lab: cs.rounded(results[lab]["rows"][0]) for lab in results}
+    print(json.dumps({"compare_springs_planned": {
+        **first, "summary": cs.summary(first["springs"], first["rigid"]),
+        "seed": PLANNED_SEEDS[0]}}))
+    print(f"phase 21: planned comparison over seeds {PLANNED_SEEDS[0]}-{PLANNED_SEEDS[-1]}: "
+          f"springs above rigid at {higher} (the gate: at least {least}, the JAX package "
+          f"{JAX_PLANNED['springs_higher']} of its keys 1-8 on the CPU, less {PLANNED_SLACK}); "
+          f"mean gain {statistics.mean(gains):+.4f} m (JAX {JAX_PLANNED['mean_gain_m']:+.4f}); "
+          f"all of test_artifacts' bars at {bars} (JAX {JAX_PLANNED['bars']}; reported); the "
+          f"committed JAX run (docs/springs_vs_rigid.json): executed 1.142 / 0.801 m; the "
+          f"longest process {max(r['seconds'] for r in results.values()):.2f} s on {kind}; "
+          f"launches {by_path}", flush=True)
+    if higher < least:
+        failed.append(f"springs above rigid at {higher} seeds, fewer than {least}")
+    if failed:
+        raise AssertionError(f"phase 21: {failed}")
+    return by_path
+
+
+def _learned_worker(label):
+    """Phase 22, in a process of its own: compare_springs.run_config of one
+    robot for LEARNED_ITERS iterations on the card. Returns the record (W's
+    finiteness in place of W), the kernels' launches, those its resets and
+    env steps call for, and the wall time."""
+    import torch
+
+    from quadruped_springs_tpu_torch import compare_springs as cs
+    from quadruped_springs_tpu_torch.env.env import QuadrupedEnv
+    from quadruped_springs_tpu_torch.models import dynamics as dyn
+    from quadruped_springs_tpu_torch.ops import actuation as act
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    reset_counts(act, dyn)
+    t0 = time.perf_counter()
+    with EnvCalls(QuadrupedEnv) as calls:
+        rec = cs.run_config(cs.CONFIGS[label], LEARNED_ITERS, 0, "cuda")
+    torch.cuda.synchronize()
+    rec["W_finite"] = bool(torch.isfinite(rec.pop("W")).all())
+    return {"record": rec, "launches": read_counts(act, dyn), "want": calls.launches(),
+            "seconds": time.perf_counter() - t0}
+
+
+def check_learned(results, kind):
+    """Phase 22: the learned comparison at the cut depth LEARNED_ITERS (its
+    full configuration otherwise), one process a robot. Held: every metric
+    and W finite; every iteration changed W unless its top returns tied
+    (sigma_r at its 1e-8 floor: the update is then 0 by the algorithm);
+    launches exact (env_substeps once per settle and control step, contact
+    once per reset); the springs' best evaluation apex at LEARNED_APEX or
+    more. The evaluation apexes are printed beside the JAX curve's over the
+    same iterations."""
+    with open("docs/springs_vs_rigid_learned.json") as f:
+        committed = json.load(f)
+    by_path, failed = {}, []
+    for label, res in results.items():
+        rec, curve = res["record"], res["record"]["curve"]
+        check_counts(res["launches"], {**res["want"], "planner_rollout": 0,
+                                       **dict.fromkeys(BF16_KERNELS, 0)}, 22)
+        by_path[f"compare_learned_{label}"] = res["launches"]
+        values = [v for c in curve for v in c.values()]
+        if not (rec["W_finite"] and all(math.isfinite(v) for v in values)):
+            failed.append(f"{label}: a non-finite metric or W")
+        stuck = [c["iter"] for c in curve if c["dW_max"] == 0.0 and c["sigma_r"] > SIGMA_TIE]
+        if stuck:
+            failed.append(f"{label}: W unchanged at iterations {stuck}")
+        if label == "springs" and rec["best_apex_m"] < LEARNED_APEX:
+            failed.append(f"springs: best evaluation apex {rec['best_apex_m']} below "
+                          f"{LEARNED_APEX} m in {LEARNED_ITERS} iterations")
+        jax_curve = committed[label]["curve"][:LEARNED_ITERS]
+        print(f"phase 22: learned {label}, {LEARNED_ITERS} iterations in {res['seconds']:.2f} s "
+              f"({res['seconds'] / LEARNED_ITERS:.3f} s an iteration) on {kind}: evaluation "
+              f"apex {[round(c['eval_max_height'], 3) for c in curve]} (JAX "
+              f"{[round(c['eval_max_height'], 3) for c in jax_curve]}); best "
+              f"{rec['best_apex_m']:.3f} m, 0.5 m at iteration {rec['iters_to_0p5m']} (JAX "
+              f"{committed[label]['iters_to_0p5m']}); ties "
+              f"{sum(c['sigma_r'] <= SIGMA_TIE for c in curve)}; launches {res['launches']}",
+              flush=True)
+    if failed:
+        raise AssertionError(f"phase 22: {failed}")
+    return by_path
+
+
+def _example_worker(job):
+    """Phase 23, in a process of its own: one run of
+    quadruped_springs_tpu_torch.examples at its default size on the card,
+    job = (run, keyword arguments). Returns its record, the kernels'
+    launches, those its resets and env steps call for, and the wall time."""
+    import torch
+
+    from quadruped_springs_tpu_torch import examples
+    from quadruped_springs_tpu_torch.env.env import QuadrupedEnv
+    from quadruped_springs_tpu_torch.models import dynamics as dyn
+    from quadruped_springs_tpu_torch.ops import actuation as act
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    reset_counts(act, dyn)
+    t0 = time.perf_counter()
+    run, kw = job
+    with EnvCalls(QuadrupedEnv) as calls:
+        rec = examples.RUNS[run](device="cuda", **kw)
+    torch.cuda.synchronize()
+    return {"record": rec, "launches": read_counts(act, dyn), "want": calls.launches(),
+            "seconds": time.perf_counter() - t0}
+
+
+def ilqr_launches(horizon, iterations, blocks=1, substeps=2):
+    """`actuation` (and `contact`) and their tangents' launches of one iLQR
+    solve: a substep's launch for every knot of the first rollout, of each
+    iteration's line search (all candidates one launch) and of each
+    linearization block's primal; the tangents once per block and substep."""
+    return substeps * (horizon + iterations * (blocks + horizon)), substeps * iterations * blocks
+
+
+def example_passed(run, kw, rec):
+    """The bars of the verify skill's "Drive it" list (and
+    tests/test_closed_loop_behaviors.py's for the Cartesian jump), and the
+    KPIs they read, as a line of text."""
+    if run == "episode":
+        ok = (abs(rec["reset_height_m"] - 0.325) < 0.01 and all(rec["feet_in_contact"])
+              and rec["max_height_m"] > 0.2 and rec["controller_switched"])
+        return ok, (f"reset height {rec['reset_height_m']:.4f} m (~0.325), feet "
+                    f"{rec['feet_in_contact']}, max relative height {rec['max_height_m']:.3f} m "
+                    f"(bar 0.2), switched {rec['controller_switched']}, return "
+                    f"{rec['return']:.4f}")
+    if run == "cpg":
+        ok = rec["forward_travel_m"] > 0.05 and rec["min_height_m"] > 0.12
+        return ok, (f"forward travel {rec['forward_travel_m']:.4f} m (bar 0.05), least height "
+                    f"{rec['min_height_m']:.4f} m (0.12), mean {rec['mean_height_m']:.4f} m")
+    if run == "cartesian_jump":
+        ok = rec["apex_rel_m"] >= 0.25 and rec["controller_switched"] and rec["upright"]
+        return ok, (f"apex {rec['apex_rel_m']:.3f} m (bar 0.25), switched "
+                    f"{rec['controller_switched']}, upright {rec['upright']} (up_z "
+                    f"{rec['up_z']:.4f}, final z {rec['final_z']:.3f} m)")
+    if run == "mpc":
+        ok = rec["monotone"] and rec["controls_finite"] and rec["max_height_m"] > 0.33
+        text = (f"cost {rec['initial_cost']:.4f} -> {rec['final_cost']:.4f} (monotone "
+                f"{rec['monotone']}), max height {rec['max_height_m']:.4f} m (bar 0.33), "
+                f"predicted apex {rec['predicted_apex_m']:.4f} m, |u| <= {rec['u_absmax']:.3f}")
+        if kw.get("batch"):
+            same = rec["batch_cost_min"] == rec["batch_cost_max"] == rec["final_cost"]
+            ok = ok and same
+            text += f"; {kw['batch']} copies as one batch: costs equal the single solve's {same}"
+        return ok, text
+    if run == "backflip":
+        ok = rec["rotation_deg"] > 60.0 and rec["monotone"] and rec["controls_finite"]
+        return ok, (f"rotation {rec['rotation_deg']:.1f} deg (bar 60), cost "
+                    f"{rec['initial_cost']:.2f} -> {rec['final_cost']:.2f} (monotone "
+                    f"{rec['monotone']}), apex {rec['apex_height_m']:.3f} m")
+    values = [v for step in rec["steps"] for v in step.values()] + [
+        rec[k] for k in ("eval_return_mean", "eval_return_std", "eval_max_height_m", "W_absmax")]
+    return all(math.isfinite(v) for v in values), (
+        f"train returns {[round(st['mean_return'], 4) for st in rec['steps']]}, evaluation "
+        f"{rec['eval_return_mean']:.4f} +- {rec['eval_return_std']:.4f}, apex "
+        f"{rec['eval_max_height_m']:.3f} m, max |W| {rec['W_absmax']:.4f}")
+
+
+def check_examples(results, kind):
+    """Phase 23: every run of EXAMPLE_JOBS at its default size, each held to
+    its example's bars (example_passed) and to exact launches: the
+    environment's runs one env_substeps per settle and control step and one
+    contact per reset; the iLQR runs ilqr_launches of `actuation` and
+    `contact` and their tangents a solve; MPPI one planner_rollout per
+    rollout (2 + 2 x iterations without the fused accept)."""
+    from quadruped_springs_tpu_torch import examples
+    from quadruped_springs_tpu_torch.solver import ilqr
+
+    by_path, failed = {}, []
+    for (run, kw), res in zip(EXAMPLE_JOBS, results):
+        rec = res["record"]
+        name = run + "".join(f"_{k}" for k in kw)
+        zero = dict.fromkeys(COUNTERS, 0)
+        if run == "mpc" and kw.get("mppi"):
+            want = {**zero, "planner_rollout": 2 + 2 * examples.MPPI_ITERATIONS}
+        elif run in ("mpc", "backflip"):
+            horizon, its = ((examples.MPC_HORIZON, examples.MPC_ITERATIONS) if run == "mpc"
+                            else (examples.BACKFLIP_HORIZON, examples.BACKFLIP_ITERATIONS))
+            want = {**zero}
+            # the example's solve of one problem, and with --batch its batch
+            for b in (1, kw["batch"]) if kw.get("batch") else (1,):
+                blocks = math.ceil(horizon / ilqr.linearization_blocks(b, horizon, N_TANGENTS))
+                primal, tangent = ilqr_launches(horizon, its, blocks)
+                for k, v in (("actuation", primal), ("contact", primal),
+                             ("actuation_jvp", tangent), ("contact_jvp", tangent)):
+                    want[k] += v
+        else:
+            want = {**zero, **res["want"]}
+        check_counts(res["launches"], want, 23)
+        by_path[f"example_{name}"] = res["launches"]
+        ok, kpis = example_passed(run, kw, rec)
+        if not ok:
+            failed.append(name)
+        print(f"phase 23: example {name}: {kpis}; {res['seconds']:.2f} s on {kind}; launches "
+              f"{ {k: v for k, v in res['launches'].items() if v} }", flush=True)
+        print(json.dumps({f"example_{name}": rec}))
+    if failed:
+        raise AssertionError(f"phase 23: {failed} miss their examples' bars")
     return by_path
 
 
@@ -2809,11 +3340,12 @@ def main():
     fidelity_checks = check_fidelity_widths(torch, act, dyn, model)
     fidelity_checks["env_substeps"] = check_fidelity_substeps(torch, ss, kind)
     transfer_checks = check_transfer_block(torch, act, dyn, ilqr, prob)
+    example_checks = check_example_widths(torch, act, dyn, ilqr, model)
     by_path.update(run_host_bound_paths(policy_replay, kind))
     by_path["train"] = run_train(torch, train_bench, act, dyn, kind)
     by_path["autopilot_adapters"] = run_adapters(torch, act, dyn, kind)
     by_path["sharded_solve"] = run_sharded(torch, act, dyn, ilqr, kind)
-    for extra in (fidelity_checks, width_checks, transfer_checks):
+    for extra in (fidelity_checks, width_checks, transfer_checks, example_checks):
         for name, by_setting in extra.items():
             checks[name].update(by_setting)
     profile_kernels(torch, checks)

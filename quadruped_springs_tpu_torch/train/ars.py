@@ -118,13 +118,15 @@ class ARSTrainer:
 
     @torch.no_grad()
     def evaluate(self, ts: ARSState, n_episodes: int = 8,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None, bank=None):
         """Deterministic episodes on fresh scenarios, from a generator of
         its own (seeded by the iteration) unless one is given, so evaluating
-        does not move the training stream."""
+        does not move the training stream. `bank` (states, obs) replaces
+        the draw of the n_episodes starts."""
         if generator is None:
             generator = torch.Generator(self.env.device).manual_seed(123 + ts.iteration)
-        states, obs = ro.make_reset_bank(self.env, generator, n_episodes)
+        states, obs = (ro.make_reset_bank(self.env, generator, n_episodes) if bank is None
+                       else bank)
         rets, info = ro.episode_returns(self.env, self._policy(ts.W, ts.obs_norm), states,
                                         obs, self.config.episode_steps, generator)
         return {"return_mean": rets.mean(), "return_std": rets.std(unbiased=False),

@@ -246,15 +246,18 @@ def _default_env(device=None):
         obs_noise=False), device=device)
 
 
-def fidelity_env(task: str, enable_springs: bool = True, device=None) -> QuadrupedEnv:
+def fidelity_env(task: str, enable_springs: bool = True, device=None,
+                 settling_steps: int = EnvConfig.settling_steps) -> QuadrupedEnv:
     """Deterministic env for physics-fidelity traces on `device` (the card
     unless the caller names another): no randomization (mu=1.0, nominal
     masses and springs, the oracle's setup), no observation noise;
-    `enable_springs` picks the PEA robot or the rigid baseline."""
+    `enable_springs` picks the PEA robot or the rigid baseline.
+    `settling_steps` cuts the env's settle (a test at a reduced size)."""
     return QuadrupedEnv(EnvConfig(
         enable_springs=enable_springs, task_env=task,
         observation_space_mode="ARS_BASIC", action_space_mode="SYMMETRIC",
-        env_randomizer_mode="NONE", obs_noise=False), device=device)
+        env_randomizer_mode="NONE", obs_noise=False, settling_steps=settling_steps),
+        device=device)
 
 
 def _ramped_script(knots, horizon, device):

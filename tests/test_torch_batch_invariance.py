@@ -1,7 +1,9 @@
 """A problem's answer does not depend on how many problems share its batch.
 
 The planner knot, its 43 basis tangents (the iLQR linearization), a short
-BACKFLIP solve_batch and a short MPPI solve of the bench's problem are run
+BACKFLIP solve_batch and short MPPI solves of the bench's problem (its
+headline row and its full-rate row) and of the planned springs-vs-rigid
+comparison's (both robots) are run
 on the first rows of a batch of ROWS problems, alone and in the whole batch,
 and must agree bitwise: the small products, sums and the Cholesky solve on
 these paths are elementwise ops summed in a fixed order (models/spatial.py),
@@ -81,24 +83,53 @@ def test_solve_batch_is_batch_invariant(problems, k):
         assert torch.equal(getattr(part, field), getattr(whole, field)[:k]), field
 
 
-@pytest.mark.parametrize("k", [1, 2])
-def test_solve_mppi_is_batch_invariant(k):
-    """The headline's MPPI (JUMPING_IN_PLACE on the relaxed model, fused
-    accept) with its standard-normal draws given, the rows' draws the same
-    at every batch size."""
-    prob = MPCProblem(MPCConfig(task="JUMPING_IN_PLACE", horizon=HORIZON,
-                                iterations=ITERATIONS), "cpu")
-    cfg = MPPIConfig(horizon=HORIZON, iterations=ITERATIONS, n_samples=8, fused_accept=True)
-    scen = rnd.sample_scenario(prob.cfg, "TEST_RANDOMIZER",
-                               torch.Generator("cpu").manual_seed(1), n=ROWS)
+def _mppi_setting(setting):
+    """The MPPI problem, its config and scenarios of one setting: the
+    headline's (JUMPING_IN_PLACE on the relaxed model, fused accept,
+    TEST_RANDOMIZER scenarios); the full-rate row's (planned on the 1 kHz
+    execution model: H = 25, 10 substeps a knot at 180 kN/m, the damping
+    clamp on; fused accept); the planned springs-vs-rigid comparison's for
+    each robot (compare_springs.planned_rows: the nominal robot,
+    MPPIConfig's defaults, K = 64 and the accept rollout every iteration,
+    not fused)."""
+    gen = torch.Generator("cpu").manual_seed(1)
+    if setting == "headline":
+        prob = MPCProblem(MPCConfig(task="JUMPING_IN_PLACE", horizon=HORIZON,
+                                    iterations=ITERATIONS), "cpu")
+        cfg = MPPIConfig(horizon=HORIZON, iterations=ITERATIONS, n_samples=8, fused_accept=True)
+    elif setting == "full_rate":
+        prob = MPCProblem(MPCConfig.full_rate(task="JUMPING_IN_PLACE", horizon=25,
+                                              iterations=ITERATIONS), "cpu")
+        assert prob.config.solver_substeps == 10 and prob.sim_params.clamp_damping
+        cfg = MPPIConfig(horizon=25, iterations=ITERATIONS, n_samples=8, fused_accept=True)
+        gen = torch.Generator("cpu").manual_seed(3)
+    else:
+        prob = MPCProblem(MPCConfig(task="JUMPING_IN_PLACE", horizon=HORIZON,
+                                    iterations=ITERATIONS, n_alphas=8,
+                                    enable_springs=setting == "compare_springs"), "cpu")
+        cfg = MPPIConfig(horizon=HORIZON, iterations=ITERATIONS)
+        assert (cfg.n_samples, cfg.fused_accept) == (64, False)
+        return prob, cfg, None
+    return prob, cfg, rnd.sample_scenario(prob.cfg, "TEST_RANDOMIZER", gen, n=ROWS)
+
+
+@pytest.mark.parametrize("k,setting", [
+    pytest.param(k, setting, id=str(k) if setting == "headline" else f"{setting}-{k}")
+    for setting in ("headline", "full_rate", "compare_springs", "compare_rigid")
+    for k in (1, 2)])
+def test_solve_mppi_is_batch_invariant(k, setting):
+    """An MPPI solve with its standard-normal draws given, the rows' draws
+    the same at every batch size (_mppi_setting): rows 0-k-1 of 8 bitwise
+    those of a batch of k."""
+    prob, cfg, scen = _mppi_setting(setting)
     x0 = prob.default_x0().expand(ROWS, -1)
     u0 = prob.task_warm_start().expand(ROWS, -1, -1)
-    noise = torch.randn((ITERATIONS, ROWS, cfg.n_samples, HORIZON, prob.action_dim),
+    noise = torch.randn((ITERATIONS, ROWS, cfg.n_samples, cfg.horizon, prob.action_dim),
                         generator=torch.Generator("cpu").manual_seed(2))
 
     def solve(k):
-        return prob.solve_mppi(x0[:k], u0[:k], config=cfg, scenario=take(scen, torch.arange(k)),
-                               noise=noise[:, :k])
+        return prob.solve_mppi(x0[:k], u0[:k], config=cfg, noise=noise[:, :k],
+                               scenario=None if scen is None else take(scen, torch.arange(k)))
 
     whole, part = solve(ROWS), solve(k)
     assert bool(torch.isfinite(whole.cost).all())

@@ -2,7 +2,7 @@
 
     python tests/torch_path_profile.py [--root DIR] [--label NAME] [--headline]
         [--paths knot,substep,lin_block,control_step,env_bench,train,oracle,mppi_rollout,
-                 full_rate,closed_loop]
+                 full_rate,closed_loop,examples]
 
 Imports quadruped_springs_tpu_torch from DIR (default: this checkout), so that
 one call to the card can profile two commits in turn (an unpacked
@@ -35,6 +35,15 @@ Prints one JSON line per path:
     such solve profiled as mppi_solve is;
   * closed_loop: closed_loop.run at its defaults (40 knots), the iLQR and
     the full-rate MPPI loop: wall seconds and the executed apex;
+  * examples: each run of quadruped_springs_tpu_torch.examples at its
+    default size (example_episode, example_cpg, example_cartesian_jump,
+    example_mpc, example_mpc_mppi, example_mpc_batch (--batch 4),
+    example_backflip, example_quickstart: each also a path of its own), the
+    planned comparison of each robot at one seed (compare_planned:
+    compare_springs.planned_rows) and one iteration of the learned one
+    (compare_learned, springs): one untraced run for the wall, one traced
+    (the traced runs of the CPG's and the iLQR examples' millions of
+    launches take minutes each);
   * headline (--headline): bench.run's MPPI solve at full width, one warm-up
     and one timed solve.
 --paths picks the paths (default: knot, substep, lin_block).
@@ -227,6 +236,30 @@ def main(argv=None):
                                  "seconds": time.perf_counter() - t0,
                                  "executed_apex_m": out["executed_apex_m"],
                                  "planned_apex_max_m": out["planned_apex_max_m"]})
+
+    example_runs = {"example_episode": ("episode", {}), "example_cpg": ("cpg", {}),
+                    "example_cartesian_jump": ("cartesian_jump", {}),
+                    "example_mpc": ("mpc", {}), "example_mpc_mppi": ("mpc", {"mppi": True}),
+                    "example_mpc_batch": ("mpc", {"batch": 4}),
+                    "example_backflip": ("backflip", {}),
+                    "example_quickstart": ("quickstart", {})}
+    pick = lambda path: path in paths or "examples" in paths
+    if any(pick(p) for p in (*example_runs, "compare_planned", "compare_learned")):
+        from quadruped_springs_tpu_torch import compare_springs, examples
+
+        for path, (run, kw) in example_runs.items():
+            if pick(path):
+                emit(path, profile(torch, lambda run=run, kw=kw: examples.RUNS[run](
+                    device="cuda", **kw), calls=1, reps=1))
+        for label, springs in compare_springs.CONFIGS.items():
+            if pick("compare_planned"):
+                emit(f"compare_planned_{label}", profile(
+                    torch, lambda springs=springs: compare_springs.planned_rows(
+                        springs, torch.device("cuda")), calls=1, reps=1))
+        if pick("compare_learned"):
+            emit("compare_learned_iteration", profile(
+                torch, lambda: compare_springs.run_config(True, 1, 0, "cuda"), calls=1,
+                reps=1))
 
     if a.headline:
         rec = bench.run(batch=1024, runs=1, device="cuda")
