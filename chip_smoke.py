@@ -109,11 +109,16 @@ Phases (any failure raises, so the script exits non-zero):
      through the flattened autopilot, the continuous-jumping policy over 410
      steps; `env_substeps` launches once per settle and per env step of
      each replay, `contact` once per reset, `actuation` and
-     `contact_anchored` never;
+     `contact_anchored` never; and `env_substeps` against its plain version
+     at the two-stage trainers' widths and interfaces (TWO_STAGE_WIDTHS:
+     2-256 lanes, the BACKFLIP interface's commands), to phase 5's bound;
  14. two ARSTrainer.train_steps and two PPOTrainer.train_steps (one untimed
      warm-up, one timed) at the widths of the JAX package's training runs
-     (quadruped_springs_tpu_torch.train_bench): every metric finite; every
-     PPO step changed the actor; every ARS step rolled live steps and changed
+     (quadruped_springs_tpu_torch.train_bench), and two of the imitation
+     stage's (the BC-anchored polish on JUMPING_IN_PLACE_DEMO from the
+     committed demos, after one timed bc.fit of 3,000 iterations): every
+     metric finite; every PPO step changed the actor (the polish's kept its
+     frozen statistics); every ARS step rolled live steps and changed
      W unless its top returns were all equal (the update is then 0 by the
      algorithm); the observation statistics grew by the live steps; launches
      exact (one env_substeps per settle and per control step); the host
@@ -218,7 +223,15 @@ Phases (any failure raises, so the script exits non-zero):
      runs) every run of quadruped_springs_tpu_torch.examples at its default
      size (EXAMPLE_JOBS: episode, cpg, cartesian_jump, mpc, mpc --mppi, mpc
      --batch 4, backflip, quickstart), each held to its example's bars
-     (example_passed), launches exact.
+     (example_passed), launches exact;
+ 24. (with the host-bound runs) the two-stage trainers
+     (quadruped_springs_tpu_torch.train_two_stage --task in_place and
+     forward, train_two_stage_backflip) at their --smoke budgets, one
+     process each: every number of the results finite, their key set the
+     JAX script's (TWO_STAGE_JOBS), the no-op flags consistent with their
+     gates and the warm-start stage with the polish's flag; no learning
+     bar; launches exact, env_substeps launched; each stage's seconds
+     printed.
 Phase 11 also holds both loops to the transfer band of the JAX gate
 (executed apex > 0.45 m, upright, within LOOP_BAND of the largest planned
 apex; the JAX package's own loops meet 10% on the CPU).
@@ -227,8 +240,8 @@ solve (was 3). Phase 6's 3 segments and phase 7's 2,500-substep settle,
 cut while the environment ran ~500 launches a substep, are back since its
 physics is one env_substeps launch a control step. The host-bound runs of phases 11, 13, 16 and 17
 (the two loops, the six replays, the six oracle traces, the transfer gate),
-phase 20's three drivers and phases 21-23's comparisons and examples go at
-once in HOST_PROCESSES spawned processes
+phase 20's three drivers, phases 21-23's comparisons and examples and phase
+24's trainers go at once in HOST_PROCESSES spawned processes
 on the one card, after the
 kernel checks of phases 13, 16 and 17, and phase 18's six small solves one
 process each. Phases 13-18 run before phase 12 (the profiler's). Most phases are bound by
@@ -298,10 +311,29 @@ LEARNING_WIDTHS = {"replay": (64, "BACKFLIP"), "replay_forward": (64, "JUMPING_F
                    "ppo_bank": (16, "JUMPING_IN_PLACE_PPO"),
                    "ppo": (32, "JUMPING_IN_PLACE_PPO")}
 ADAPTER_LANES, ADAPTER_KNOTS = 64, 20
+# phase 13 holds env_substeps at the two-stage trainers' widths (lanes, the
+# task whose interface turns actions into commands): the PPO segments (32;
+# the *_DEMO and *_PPO tasks share the JUMPING_* interface, and the task
+# changes nothing else the kernel reads), the landing and the jump ARS
+# rollouts (128, 256), the dense probe and the wide evaluation (16), the demo
+# evaluation (8), the jump demos (6), ARS's evaluation (4); the flip's demos
+# (12), probe (8) and nominal gate (2) under the BACKFLIP interface, whose
+# raised rear-thigh limits change the commands. Their settles (600 substeps
+# at these widths) run the kernel's settle path, held at 1 x 2,500 in phase 16
+TWO_STAGE_WIDTHS = {"ppo_segment": (32, "JUMPING_IN_PLACE"), "ars_land": (128, "JUMPING_IN_PLACE"),
+                    "ars_jump": (256, "JUMPING_IN_PLACE"), "probe": (16, "JUMPING_IN_PLACE"),
+                    "demo_eval": (8, "JUMPING_IN_PLACE"), "jump_demos": (6, "JUMPING_IN_PLACE"),
+                    "ars_eval": (4, "JUMPING_IN_PLACE"), "flip_demos": (12, "BACKFLIP"),
+                    "flip_probe": (8, "BACKFLIP"), "flip_nominal": (2, "BACKFLIP")}
+# phase 24: the two-stage trainers at their --smoke budgets in the host-bound
+# pool, the longest first, each results' key set held to the JAX artifact's
+TWO_STAGE_JOBS = {"forward": "two_stage_forward_results.json",
+                  "in_place": "two_stage_forward_results.json",
+                  "backflip": "two_stage_backflip_results.json"}
 # phase 16 and 17 run the environment's kernels at 1 and 2 lanes; their
 # checks build the hand-placed regimes on SMALL_INPUT_LANES lanes
 FIDELITY_LANES, SMALL_INPUT_LANES = (1, 2), 8
-# phases 11, 13, 16, 17 and 20-23 run their host-bound paths in this many processes
+# phases 11, 13, 16, 17 and 20-24 run their host-bound paths in this many processes
 HOST_PROCESSES = 8
 # phase 21: the planned springs-vs-rigid comparison (compare_springs.planned_rows,
 # scripts/compare_springs.py's configuration) over PLANNED_SEEDS, seed 1 the
@@ -969,6 +1001,46 @@ def check_learning_widths(torch, act, dyn, model, landing_gains):
     return checks
 
 
+def check_two_stage_substeps(torch, ss, kind):
+    """Phase 13, after the per-substep kernels: env_substeps against its plain
+    version at the two-stage trainers' widths (TWO_STAGE_WIDTHS): settled
+    environments of each interface, every 4th lane lifted 15 cm and rising at
+    1 m/s, under a random command held for a control step (10 substeps), to
+    phase 5's bound."""
+    from quadruped_springs_tpu_torch.control import interfaces as ci
+    from quadruped_springs_tpu_torch.env.env import EnvConfig, QuadrupedEnv, take
+
+    gen = torch.Generator("cuda").manual_seed(24)
+    starts = {}
+    for task in sorted({task for _, task in TWO_STAGE_WIDTHS.values()}):
+        env = QuadrupedEnv(EnvConfig(
+            enable_springs=True, task_env=task, action_space_mode="SYMMETRIC",
+            observation_space_mode="ARS_BACKFLIP" if task == "BACKFLIP" else "ARS_BASIC",
+            iface_task=task, settling_steps=ENV_SETTLE), device="cuda")
+        n = max(n for n, t in TWO_STAGE_WIDTHS.values() if t == task)
+        state, _ = env.reset(gen, n)
+        pos, lin_vel = state.robot.pos.clone(), state.robot.lin_vel.clone()
+        pos[::4, 2] += 0.15
+        lin_vel[::4, 2] = 1.0
+        state = dataclasses.replace(state, robot=dataclasses.replace(
+            state.robot, pos=pos, lin_vel=lin_vel))
+        action = 2.0 * torch.rand((n, env.action_dim), generator=gen, device="cuda") - 1.0
+        starts[task] = (env, state, ci.action_to_command(env.iface, action).contiguous())
+    checks = {}
+    for path, (n, task) in TWO_STAGE_WIDTHS.items():
+        env, state, q_des = starts[task]
+        idx = torch.arange(n, device="cuda")
+        r = check_env_substeps(torch, ss, env_substeps_args(
+            env, take(state, idx), q_des[:n].contiguous(), 10))
+        checks[f"two_stage_{path}_{n}"] = r
+        print(f"phase 13: env_substeps ({path}, {n} x 10, {task} interface): max_abs_err "
+              f"{r['max_abs_err']:.3e} ({r['spread_used']:.2f} spreads used), kernel "
+              f"{r['ms']:.4f} ms through its wrapper, {r['kernel_ms'] * 1e3:.2f} µs on the card, "
+              f"plain {r['plain_ms']:.2f} ms; bound {r['bound_ms'] * 1e3:.3f} µs on {kind}",
+              flush=True)
+    return checks
+
+
 def check_actuation_jvp(torch, act, prob, n, dtype=None):
     """Phase 8: the `actuation_jvp` kernel (the total torque's tangent)
     against torch.func.jvp of act.actuation_plain at n lanes x N_TANGENTS
@@ -1336,8 +1408,9 @@ def _replay_worker(name):
 
 
 def run_host_bound_paths(policy_replay, kind):
-    """Phases 11, 13, 16 and 17 at once: the two closed loops, the replays of
-    the committed policies, the six oracle traces and the transfer gate are
+    """Phases 11, 13, 16, 17 and 20-24 at once: the two closed loops, the
+    replays of the committed policies, the six oracle traces, the transfer
+    gate, the behaviours, comparisons, examples and two-stage trainers are
     bound by the host's launches, so they run as HOST_PROCESSES spawned
     processes on the one card, the longest first. Each process counts its
     own kernels' launches."""
@@ -1349,7 +1422,8 @@ def run_host_bound_paths(policy_replay, kind):
     added = ([(_learned_worker, r) for r in robots] + [(_example_worker, job)
                                                        for job in EXAMPLE_JOBS]
              + [(_planned_worker, r) for r in robots])
-    jobs = ([(_behaviour_worker, job) for job in BEHAVIOUR_JOBS]
+    jobs = ([(_two_stage_worker, job) for job in TWO_STAGE_JOBS]
+            + [(_behaviour_worker, job) for job in BEHAVIOUR_JOBS]
             + [(_closed_loop_worker, True), (_transfer_gate_worker, None),
                (_closed_loop_worker, False)] + added[:2] + [(_replay_worker, n)
                                                            for n in replays]
@@ -1359,13 +1433,13 @@ def run_host_bound_paths(policy_replay, kind):
         pending = [pool.apply_async(fn, (arg,)) for fn, arg in jobs]
         results = [r.get() for r in pending]
     wall = time.perf_counter() - t0
-    print(f"phases 11, 13, 16, 17 and 20-23: {len(jobs)} host-bound paths in {wall:.2f} s "
+    print(f"phases 11, 13, 16, 17 and 20-24: {len(jobs)} host-bound paths in {wall:.2f} s "
           f"({HOST_PROCESSES} processes on one card)", flush=True)
     by_fn = {}
     for (fn, arg), res in zip(jobs, results):
         by_fn.setdefault(fn, []).append((arg, res))
     results = [res for (fn, _), res in zip(jobs, results) if fn not in (
-        _learned_worker, _example_worker, _planned_worker)]
+        _learned_worker, _example_worker, _planned_worker, _two_stage_worker)]
     behaviours, results = results[:len(BEHAVIOUR_JOBS)], results[len(BEHAVIOUR_JOBS):]
     by_path = {"closed_loop_full_rate": check_closed_loop(results[0], kind, True),
                "closed_loop": check_closed_loop(results[2], kind, False)}
@@ -1377,6 +1451,7 @@ def run_host_bound_paths(policy_replay, kind):
     by_path.update(check_planned(dict(by_fn[_planned_worker]), kind))
     by_path.update(check_learned(dict(by_fn[_learned_worker]), kind))
     by_path.update(check_examples([res for _, res in by_fn[_example_worker]], kind))
+    by_path.update(check_two_stage(dict(by_fn[_two_stage_worker]), kind))
     return by_path
 
 
@@ -1631,8 +1706,9 @@ def run_train(torch, train_bench, act, dyn, kind):
     rec = train_bench.run(steps=TRAIN_STEPS, device="cuda")
     torch.cuda.synchronize()
     counts = read_counts(act, dyn)
-    ars, ppo = rec["ars"], rec["ppo"]
+    ars, ppo, im = rec["ars"], rec["ppo"], rec["imitation"]
     a_cfg, p_cfg = train_bench.ARS_CONFIG, train_bench.PPO_CONFIG
+    i_cfg = train_bench.st.POLISH_PPO
     all_steps = train_bench.WARMUP_STEPS + TRAIN_STEPS
     # env_substeps launches: an ARS step settles its reset bank once and rolls
     # episode_steps control steps; a PPO step rolls segment_len
@@ -1644,11 +1720,17 @@ def run_train(torch, train_bench, act, dyn, kind):
     check_counts(ppo["launches"], {"env_substeps": TRAIN_STEPS * ppo_env, "contact": 0,
                                    **none}, 14)
     check_counts(ppo["init_launches"], {"env_substeps": 1, "contact": 1, **none}, 14)
-    # the bench's last segment, rolled alone to time it, adds one segment
-    total = all_steps * (ars_env + ppo_env) + 1 + ppo_env
-    check_counts(counts, {"env_substeps": total, "contact": all_steps + 1,
+    # the polish: its RSI bank's reset settles nothing
+    check_counts(im["launches"], {"env_substeps": TRAIN_STEPS * i_cfg.segment_len,
+                                  "contact": 0, **none}, 14)
+    check_counts(im["init_launches"], {"env_substeps": 0, "contact": 1, **none}, 14)
+    # the bench's last segment, rolled alone to time it, adds one segment; the
+    # BC pairs of each demo take a settled reset and a reset at its rows
+    n_demos = im["demos"]
+    total = (all_steps * (ars_env + ppo_env + i_cfg.segment_len) + 1 + ppo_env + n_demos)
+    check_counts(counts, {"env_substeps": total, "contact": all_steps + 2 + 2 * n_demos,
                           "actuation_jvp": 0, "contact_jvp": 0, **none}, 14)
-    for algo in (ars, ppo):
+    for algo in (ars, ppo, im):
         for m in algo["metrics"]:
             bad = {k: v for k, v in m.items() if v != v or abs(v) == float("inf")}
             if bad:
@@ -1696,10 +1778,26 @@ def run_train(torch, train_bench, act, dyn, kind):
           f"the segment rollout), {ppo['env_steps_per_s']:.1f} env steps/s, max actor "
           f"change per step {ppo_dw}, host syncs per step {ppo['host_syncs']} "
           f"{ppo['host_syncs_at']}, on {kind}; launches {counts}", flush=True)
+    im_dw = [m["max_weight_change"] for m in im["metrics"]]
+    actor1 = [p for n, p in im["state"].net.named_parameters() if not n.startswith("vf_")]
+    if not (all(d > 0 for d in im_dw) and all(bool(torch.isfinite(p).all()) for p in actor1)
+            and im["state"].obs_norm is im["state0"].obs_norm):
+        raise AssertionError(f"phase 14: a polish step left the actor unchanged ({im_dw}), a "
+                             "parameter non-finite, or moved the frozen statistics")
+    print(f"phase 14: the imitation stage (the BC-anchored polish, bc_coef "
+          f"{i_cfg.bc_coef}): bc.fit of {im['bc_iters']} iterations on {im['bc_rows']} rows of "
+          f"{im['demos']} demos in {im['bc_seconds']:.3f} s (mse {im['bc_mse']:.3e}); "
+          f"{all_steps} PPO train_steps on JUMPING_IN_PLACE_DEMO, the last {TRAIN_STEPS} "
+          f"timed ({i_cfg.n_envs} envs x {i_cfg.segment_len} steps from the RSI bank): "
+          f"{im['steps_per_s']:.3f} steps/s ({im['seconds_per_step']:.3f} s per step), "
+          f"{im['env_steps_per_s']:.1f} env steps/s, max actor change per step {im_dw}, "
+          f"host syncs per step {im['host_syncs']} {im['host_syncs_at']} on {kind}",
+          flush=True)
     print(json.dumps({"train_bench": train_bench.public(rec)}))
-    if ars["host_syncs"][-1] or ppo["host_syncs"][-1]:
+    if ars["host_syncs"][-1] or ppo["host_syncs"][-1] or im["host_syncs"][-1]:
         raise AssertionError("phase 14: a warm train_step synchronised the host: "
-                             f"{ars['host_syncs_at']} {ppo['host_syncs_at']}")
+                             f"{ars['host_syncs_at']} {ppo['host_syncs_at']} "
+                             f"{im['host_syncs_at']}")
     return counts
 
 
@@ -3058,6 +3156,80 @@ def check_learned(results, kind):
     return by_path
 
 
+def _two_stage_worker(job):
+    """Phase 24, in a process of its own: one two-stage trainer
+    (train_two_stage --task job, or train_two_stage_backflip) at its --smoke
+    budgets on the card, writing under runs/chip_smoke/. Returns its
+    results and stage timing, the kernels' launches, those its resets and
+    env steps call for, and the wall time."""
+    import torch
+
+    from quadruped_springs_tpu_torch import train_two_stage, train_two_stage_backflip
+    from quadruped_springs_tpu_torch.env.env import QuadrupedEnv
+    from quadruped_springs_tpu_torch.models import dynamics as dyn
+    from quadruped_springs_tpu_torch.ops import actuation as act
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = f"runs/chip_smoke/two_stage_{job}"
+    reset_counts(act, dyn)
+    t0 = time.perf_counter()
+    with EnvCalls(QuadrupedEnv) as calls:
+        if job == "backflip":
+            results, timing = train_two_stage_backflip.run(
+                "cuda", out, **train_two_stage_backflip.SMOKE)
+        else:
+            results, timing = train_two_stage.run(job, "cuda", out, **train_two_stage.SMOKE)
+    torch.cuda.synchronize()
+    return {"results": results, "timing": timing, "launches": read_counts(act, dyn),
+            "want": calls.launches(), "seconds": time.perf_counter() - t0}
+
+
+def _all_finite(x):
+    if isinstance(x, dict):
+        return all(_all_finite(v) for v in x.values())
+    if isinstance(x, list):
+        return all(_all_finite(v) for v in x)
+    return not isinstance(x, float) or math.isfinite(x)
+
+
+def check_two_stage(results, kind):
+    """Phase 24: each two-stage trainer at its smoke budgets. Held, with no
+    learning bar: every number of its results finite; their key set the JAX
+    script's (TWO_STAGE_JOBS' committed artifact); the consistency invariants
+    of tests/test_artifacts.py that are no bar (the polish's no-op flag
+    against its two gates and the warm-start stage, the fine-tune's no-op
+    flag against its gate); launches exact, env_substeps launched."""
+    by_path, failed = {}, []
+    for job, res in results.items():
+        r, timing = res["results"], res["timing"]
+        check_counts(res["launches"], {**res["want"], "planner_rollout": 0,
+                                       **dict.fromkeys(BF16_KERNELS, 0)}, 24)
+        by_path[f"two_stage_{job}"] = res["launches"]
+        with open(f"examples/out/{TWO_STAGE_JOBS[job]}") as f:
+            keys = set(json.load(f))
+        if set(r) != keys:
+            failed.append(f"{job}: keys {sorted(set(r) ^ keys)} differ from the JAX script's")
+        if not _all_finite(r):
+            failed.append(f"{job}: a non-finite number in its results")
+        if res["launches"]["env_substeps"] == 0:
+            failed.append(f"{job}: env_substeps never launched")
+        if r["finetune_is_noop"] != (not r["finetune_improves_on_initializer"]):
+            failed.append(f"{job}: finetune_is_noop against finetune_improves_on_initializer")
+        if job != "backflip":
+            noop = not (r["ppo_imitate_demo_held"] and r["ppo_imitate_transfer_held"])
+            if (r["ppo_imitate_is_noop"] != noop or r["warmstart_stage"]
+                    != ("bc" if noop else "ppo_imitate")):
+                failed.append(f"{job}: the polish's no-op flag or warm-start stage")
+        stages = {k: round(v, 2) for k, v in timing["stage_seconds"].items()}
+        print(f"phase 24: two-stage {job} at its smoke budgets in {res['seconds']:.2f} s on "
+              f"{kind}: stages {stages} s, env_substeps by stage "
+              f"{timing['env_substeps_launches']}; {len(r)} keys (the JAX script's: "
+              f"{set(r) == keys}); launches {res['launches']}", flush=True)
+    if failed:
+        raise AssertionError(f"phase 24: {failed}")
+    return by_path
+
+
 def _example_worker(job):
     """Phase 23, in a process of its own: one run of
     quadruped_springs_tpu_torch.examples at its default size on the card,
@@ -3337,6 +3509,7 @@ def main():
     by_path["ilqr_solve_bf16"] = run_ilqr_bf16(torch, bench, ilqr, act, dyn, kind,
                                                exact_cost)
     width_checks = check_learning_widths(torch, act, dyn, model, landing)
+    width_checks["env_substeps"] = check_two_stage_substeps(torch, ss, kind)
     fidelity_checks = check_fidelity_widths(torch, act, dyn, model)
     fidelity_checks["env_substeps"] = check_fidelity_substeps(torch, ss, kind)
     transfer_checks = check_transfer_block(torch, act, dyn, ilqr, prob)

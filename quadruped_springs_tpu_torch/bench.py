@@ -30,6 +30,7 @@ import time
 import torch
 
 from quadruped_springs_tpu_torch.env import randomizers as rnd
+from quadruped_springs_tpu_torch.env_bench import device_name, resolve_device
 from quadruped_springs_tpu_torch.solver import ilqr as ilqr_solver
 from quadruped_springs_tpu_torch.solver.mpc import MPCConfig, MPCProblem
 from quadruped_springs_tpu_torch.solver.mppi import MPPIConfig
@@ -41,10 +42,6 @@ from quadruped_springs_tpu_torch.solver.mppi import MPPIConfig
 PER_CHIP_TARGET = 10000.0 / 16.0
 # the JAX bench's default iLQR row (bench.py without --exact)
 ILQR_LIN_DTYPE, ILQR_RELIN_EVERY = "bf16", 3
-
-
-def device_name(device: torch.device) -> str:
-    return torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
 
 
 def run(batch: int = 1024, horizon: int = 50, iterations: int = 10,
@@ -60,10 +57,8 @@ def run(batch: int = 1024, horizon: int = 50, iterations: int = 10,
     per stage (`stage_times`), the mean cost of the warm start's rollout
     (`warm_start_mean_cost`, one more rollout of H knots before the solves)
     and the solved problem (`problem`: the MPCProblem, x0, u0, scenarios)."""
-    device = torch.device(device)
+    device = resolve_device(device)
     if device.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError("CUDA requested but torch.cuda.is_available() is False")
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
     mk = MPCConfig.full_rate if full_rate else MPCConfig

@@ -36,6 +36,7 @@ import torch
 
 from quadruped_springs_tpu_torch.control import interfaces as ci
 from quadruped_springs_tpu_torch.env import randomizers as rnd
+from quadruped_springs_tpu_torch.env_bench import device_name, resolve_device
 from quadruped_springs_tpu_torch.models import dynamics as dyn
 from quadruped_springs_tpu_torch.solver.mpc import (
     MPCConfig,
@@ -92,9 +93,7 @@ def run(n_steps: int = 40, replan_every: int = 5, horizon: int | None = None,
     (the largest planned apex against the apex the executor reached) and
     the number of solves. The horizon defaults to 20 knots (25 with
     full_rate)."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("CUDA requested but torch.cuda.is_available() is False")
+    device = resolve_device(device)
     if full_rate:
         horizon = FULL_RATE_HORIZON if horizon is None else horizon
         prob = MPCProblem(MPCConfig.full_rate(task="JUMPING_IN_PLACE", horizon=horizon,
@@ -131,7 +130,7 @@ def run(n_steps: int = 40, replan_every: int = 5, horizon: int | None = None,
     return {
         "planner": prob.config.planner_desc,
         "solver": "mppi" if full_rate else "ilqr",
-        "device": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
+        "device": device_name(device),
         "knots": n_steps,
         "solves": len(planned),
         "planned_apex_max_m": float(planned.max()),

@@ -47,7 +47,7 @@ import numpy as np
 import torch
 
 from quadruped_springs_tpu_torch.env.env import EnvConfig, QuadrupedEnv
-from quadruped_springs_tpu_torch.mpc_behaviours import _device
+from quadruped_springs_tpu_torch.env_bench import device_name, resolve_device
 from quadruped_springs_tpu_torch.solver.mpc import MPCConfig, MPCProblem, state_to_vec
 from quadruped_springs_tpu_torch.solver.mppi import MPPIConfig
 from quadruped_springs_tpu_torch.train.ars import ARSConfig, ARSTrainer
@@ -61,10 +61,6 @@ PLANNED_SEED = 1      # the JAX script's PRNGKey(1)
 G = 9.81
 # the JAX package's committed results, never written by the port
 COMMITTED = ("springs_vs_rigid.json", "springs_vs_rigid_learned.json")
-
-
-def device_name(device: torch.device) -> str:
-    return torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
 
 
 def ballistic_apex(xs: torch.Tensor) -> torch.Tensor:
@@ -184,7 +180,7 @@ def planned(device=None, horizon: int = 50, iterations: int = 10, n_samples: int
     summary; both robots take the draws of seed PLANNED_SEED (or `draws`),
     as the JAX script gives both its keys. The keyword arguments cut the
     script's sizes (a test)."""
-    device = _device(device)
+    device = resolve_device(device)
     out = {label: rounded(planned_rows(CONFIGS[label], device, (PLANNED_SEED,), horizon,
                                        iterations, n_samples, n_solves, draws, landing_knots,
                                        settle)[0])
@@ -234,7 +230,7 @@ def run_config(enable_springs: bool, iters: int, seed: int, device=None, draws=N
     iteration (deltas, bank, eval_bank) to replace the trainer's draws;
     `ars_config` and `env_overrides` replace the script's configuration (a
     test at a reduced size)."""
-    device = _device(device)
+    device = resolve_device(device)
     env = learned_env(enable_springs, device, **(env_overrides or {}))
     ars = ARSTrainer(env, ars_config)
     ts = ars.init(torch.Generator(device).manual_seed(seed))
@@ -271,7 +267,7 @@ def learned(iters: int = 150, seed: int = 0, device=None, configs=tuple(CONFIGS)
     """scripts/compare_springs_learned.py main: one run_config per robot
     (each record without its final W) and, with both, the springs'
     advantage in best apex."""
-    device = _device(device)
+    device = resolve_device(device)
     results = {"task": "JUMPING_IN_PLACE", "trainer": "ARS (stage 1a of "
                "examples/train_two_stage.py, identical budget, no early stop)",
                "iters": iters, "seed": seed}

@@ -238,3 +238,16 @@ def load_flat_mlp_policy(path, device=None):
         else:
             tree.setdefault(key[0], {})[key[1]] = d[f"leaf_{i}"]
     return mlp_policy({"params": tree}, device), _norm_from(d, "on_", device)
+
+
+def save_flat_mlp_policy(path, net: MLPPolicy, obs_norm: RunningNorm) -> None:
+    """Write an MLPPolicy and its statistics as flattened flax leaves, the
+    layout `load_flat_mlp_policy` (and the JAX package's loader) reads."""
+    sd = {k: v.detach().cpu().numpy() for k, v in net.state_dict().items()}
+    leaves = [sd["log_std"] if key == "log_std" else
+              (sd[f"{key[0]}.bias"] if key[1] == "bias" else sd[f"{key[0]}.weight"].T)
+              for key in _FLAT_LEAVES]
+    np.savez(path, n_leaves=np.asarray(len(leaves)),
+             **{f"leaf_{i}": np.ascontiguousarray(x) for i, x in enumerate(leaves)},
+             on_mean=obs_norm.mean.cpu().numpy(), on_var=obs_norm.var.cpu().numpy(),
+             on_count=obs_norm.count.cpu().numpy())

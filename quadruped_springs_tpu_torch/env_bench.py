@@ -37,6 +37,15 @@ def bench_config(settling_steps: int = 600) -> EnvConfig:
                      settling_steps=settling_steps)
 
 
+def resolve_device(device) -> torch.device:
+    """The entry points' device: `device`, CUDA when None; a CUDA device
+    that is not available is an error, not a fallback."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("CUDA requested but torch.cuda.is_available() is False")
+    return device
+
+
 def device_name(device: torch.device) -> str:
     return torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
 
@@ -49,9 +58,7 @@ def run(batch: int = 1024, steps: int = 100, segments: int = 3, settle: int = 60
     each segment outside the timed region (i = 0 is the warm-up). Returns the
     JSON record plus the reset state (`reset_state`), the last state
     (`state`) and the env (`env`)."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("CUDA requested but torch.cuda.is_available() is False")
+    device = resolve_device(device)
     sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
     env = QuadrupedEnv(bench_config(settle), device=device)
     gen = torch.Generator(device).manual_seed(seed)

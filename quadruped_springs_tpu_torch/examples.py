@@ -41,12 +41,12 @@ import time
 import numpy as np
 import torch
 
-from quadruped_springs_tpu_torch.compare_springs import ballistic_apex, device_name
+from quadruped_springs_tpu_torch.compare_springs import ballistic_apex
 from quadruped_springs_tpu_torch.control import cpg as cpg_mod
 from quadruped_springs_tpu_torch.env import wrappers as wr
 from quadruped_springs_tpu_torch.env.env import EnvConfig, QuadrupedEnv
+from quadruped_springs_tpu_torch.env_bench import device_name, resolve_device
 from quadruped_springs_tpu_torch.models import spatial as sp
-from quadruped_springs_tpu_torch.mpc_behaviours import _device
 from quadruped_springs_tpu_torch.solver.mpc import MPCConfig, MPCProblem
 from quadruped_springs_tpu_torch.solver.mppi import MPPIConfig
 from quadruped_springs_tpu_torch.train.ars import ARSConfig, ARSTrainer
@@ -95,7 +95,7 @@ def episode(device=None, scenario=None, settle: int | None = None,
     switch. `scenario` replaces the reset's draw of the ground; `settle`
     and `max_steps` cut the env's 2,500 settling substeps and the
     episode's 120 control steps (a test)."""
-    device, t0 = _device(device), time.perf_counter()
+    device, t0 = resolve_device(device), time.perf_counter()
     kw = {} if settle is None else {"settling_steps": settle}
     env = QuadrupedEnv(EnvConfig(
         enable_springs=True, motor_control_mode="PD", action_space_mode="SYMMETRIC",
@@ -130,7 +130,7 @@ def cpg(gait: str = "TROT", seconds: float = 3.0, device=None, X0=None,
     """examples/run_cpg.py: forward travel, mean and least height, the final
     base position over seconds x 1,000 steps (n_steps where given) of 1 kHz
     CPG locomotion. X0 (2, 4) replaces the CPG's random start."""
-    device, t0 = _device(device), time.perf_counter()
+    device, t0 = resolve_device(device), time.perf_counter()
     env = cpg_env(device)
     params = cpg_mod.HopfParams(gait=gait, omega_swing=8 * math.pi,
                                 omega_stance=4 * math.pi, des_step_len=0.05)
@@ -159,7 +159,7 @@ def cartesian_jump(device=None, scenario=None, max_steps: int = 120) -> dict:
     the trunk's up axis, upright, controller switch, steps). `scenario`
     replaces the reset's draw of the ground; `max_steps` cuts the
     episode's 120 control steps (a test)."""
-    device, t0 = _device(device), time.perf_counter()
+    device, t0 = resolve_device(device), time.perf_counter()
     env = QuadrupedEnv(EnvConfig(
         enable_springs=True, motor_control_mode="CARTESIAN_PD", action_space_mode="SYMMETRIC",
         task_env="JUMPING_IN_PLACE", observation_space_mode="CARTESIAN_NO_IMU",
@@ -200,7 +200,7 @@ def mpc(device=None, horizon: int = MPC_HORIZON, iterations: int = MPC_ITERATION
     (mppi_iterations, 1, K, H, m)); with batch, `batch` copies solved as
     one batch, their least and largest cost. `horizon`, `iterations` and
     `mppi_iterations` cut the example's solves (a test)."""
-    device, t0 = _device(device), time.perf_counter()
+    device, t0 = resolve_device(device), time.perf_counter()
     prob = MPCProblem(MPCConfig(
         task="JUMPING_IN_PLACE", enable_springs=True, horizon=horizon, iterations=iterations,
         n_alphas=MPC_ALPHAS, backward="parallel" if parallel_riccati else "sequential"), device)
@@ -229,7 +229,7 @@ def backflip(device=None, horizon: int = BACKFLIP_HORIZON,
     """examples/run_backflip.py: one iLQR solve of BACKFLIP from the default
     start and the task's warm start; the cost trace's ends and whether it
     is monotone, the pitch rotation the plan spans (unwrapped), its apex."""
-    device, t0 = _device(device), time.perf_counter()
+    device, t0 = resolve_device(device), time.perf_counter()
     prob = MPCProblem(MPCConfig(task="BACKFLIP", horizon=horizon, iterations=iterations,
                                 n_alphas=BACKFLIP_ALPHAS), device)
     sol = prob.solve(prob.default_x0(), prob.task_warm_start())
@@ -255,7 +255,7 @@ def quickstart(device=None, steps: int = 3, draws=None, env_overrides=None,
     where given, holds per step (deltas, bank) and last the evaluation's
     bank, replacing the trainer's draws; `env_overrides` and
     `episode_steps` cut the example's episodes (a test)."""
-    device, t0 = _device(device), time.perf_counter()
+    device, t0 = resolve_device(device), time.perf_counter()
     env = QuadrupedEnv(EnvConfig(**{
         "enable_springs": True, "task_env": "JUMPING_IN_PLACE",
         "observation_space_mode": "ARS_BASIC", "action_space_mode": "SYMMETRIC",

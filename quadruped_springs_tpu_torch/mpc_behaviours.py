@@ -47,6 +47,7 @@ import torch
 from quadruped_springs_tpu_torch.env import randomizers as rnd
 from quadruped_springs_tpu_torch.env import wrappers as wr
 from quadruped_springs_tpu_torch.env.env import EnvConfig, QuadrupedEnv
+from quadruped_springs_tpu_torch.env_bench import device_name, resolve_device
 from quadruped_springs_tpu_torch.models import spatial as sp
 from quadruped_springs_tpu_torch.solver.mpc import MPCConfig, MPCProblem, state_to_vec
 from quadruped_springs_tpu_torch.solver.mppi import MPPIConfig
@@ -72,13 +73,6 @@ PLANNERS = {
     "backflip": Planner("BACKFLIP", 24, 8, 64, 0.3, 6),
     "continuous": Planner("CONTINUOUS_JUMPING_FORWARD", 40, 4, 32, 0.25, 6),
 }
-
-
-def _device(device) -> torch.device:
-    device = torch.device("cuda" if device is None else device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("CUDA requested but torch.cuda.is_available() is False")
-    return device
 
 
 def planner(name: str, device, horizon=None, iterations=None, n_samples=None):
@@ -110,7 +104,7 @@ class _Solver:
 
 
 def _finish(rec: dict, device: torch.device, seed: int, solves: int) -> dict:
-    name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
+    name = device_name(device)
     return {**rec, "seed": seed, "device": name, "solves": solves}
 
 
@@ -122,7 +116,7 @@ def jumping_forward(seed: int = 0, device=None, draws=None, settle: int = 2500,
     settled state, executed through LandingWrapper for up to max_steps policy
     steps. Gate (tests/test_closed_loop_behaviors.py): fwd_distance_m >= 0.30,
     apex_rel_m >= 0.10, final_z > 0.15."""
-    device = _device(device)
+    device = resolve_device(device)
     env = QuadrupedEnv(EnvConfig(
         enable_springs=True, task_env="JUMPING_FORWARD", observation_space_mode="ARS_BASIC",
         action_space_mode="SYMMETRIC", obs_noise=False, env_randomizer_mode="NONE",
@@ -163,7 +157,7 @@ def backflip(seed: int = 0, device=None, draws=None, settle: int = 2500,
     where given, replaces the drawn friction (a check injects the JAX
     example's scenario of a seed). The example's docstring: the plan
     completes the rotation but lands tilted (`upright` is reported)."""
-    device = _device(device)
+    device = resolve_device(device)
     env = QuadrupedEnv(EnvConfig(
         enable_springs=True, task_env="BACKFLIP", observation_space_mode="ARS_BACKFLIP",
         action_space_mode="SYMMETRIC", obs_noise=False, max_ep_len=4.0,
@@ -209,7 +203,7 @@ def continuous(seed: int = 0, device=None, draws=None, seconds: float = 6.0,
     shifted plan; the plan's first action is executed. Gate: sim_seconds >=
     5, good_jumps >= 4, at least 2 per-jump performances >= 0.85,
     total_fwd_m > 4.0. max_steps cuts the seconds * 100 control steps."""
-    device = _device(device)
+    device = resolve_device(device)
     env = QuadrupedEnv(EnvConfig(
         enable_springs=True, task_env="CONTINUOUS_JUMPING_FORWARD3",
         observation_space_mode="PPO_CONTINUOUS_JUMPING_FORWARD",

@@ -46,6 +46,7 @@ from quadruped_springs_tpu_torch.env import randomizers as rnd
 from quadruped_springs_tpu_torch.env import wrappers as wr
 from quadruped_springs_tpu_torch.env.continuous_autopilot import ContinuousAutopilotEnv
 from quadruped_springs_tpu_torch.env.env import EnvConfig, QuadrupedEnv, select
+from quadruped_springs_tpu_torch.env_bench import resolve_device
 from quadruped_springs_tpu_torch.models import spatial as sp
 from quadruped_springs_tpu_torch.tasks.tasks import continuous_jump_stats
 from quadruped_springs_tpu_torch.train import normalize as vnorm
@@ -66,13 +67,6 @@ GATE_FRICTION = 0.8758191466331482
 UPRIGHT_FRICTION_EDGE = 0.611
 FLIP_KNOTS = 140                 # 1.4 s flattened episode (the flip ends by ~1.0 s)
 CONTINUOUS_STEPS = 410
-
-
-def _device(device) -> torch.device:
-    device = torch.device("cuda" if device is None else device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("CUDA requested but torch.cuda.is_available() is False")
-    return device
 
 
 def _flip_env(device, settle, **kw) -> QuadrupedEnv:
@@ -117,7 +111,7 @@ def backflip(lanes: int = 64, device=None, seed: int = 0, settle: int = 2500,
     """Lane 0 runs the scenario of the JAX gate (GATE_FRICTION), the other
     lanes keep their GROUND_RANDOMIZER draws; `gated` marks the lanes whose
     friction the policy can be held to (UPRIGHT_FRICTION_EDGE and above)."""
-    device = _device(device)
+    device = resolve_device(device)
     env = _flip_env(device, settle, obs_noise=False)
     w = wr.LandingWrapperBackflip(env, variant="hold")
     W, on = convert.load_linear_policy(POLICY_DIR / "backflip_ars.npz", device)
@@ -141,7 +135,7 @@ def backflip(lanes: int = 64, device=None, seed: int = 0, settle: int = 2500,
 @torch.no_grad()
 def backflip_robust(lanes: int = 64, nominal: bool = False, device=None, seed: int = 0,
                     settle: int = 2500, max_steps: int = 120) -> dict:
-    device = _device(device)
+    device = resolve_device(device)
     env = _flip_env(device, settle, obs_noise=not nominal,
                     env_randomizer_mode="GROUND_RANDOMIZER" if nominal
                     else "TEST_RANDOMIZER")
@@ -171,7 +165,7 @@ def forward(lanes: int = 64, device=None, seed: int = 0, settle: int = 2500,
             max_steps: int = 60) -> dict:
     """Jumping forward in the gate's own configuration: no randomizer, every
     lane the same nominal scenario."""
-    device = _device(device)
+    device = resolve_device(device)
     env = QuadrupedEnv(EnvConfig(
         enable_springs=True, task_env="JUMPING_FORWARD", observation_space_mode="ARS_BASIC",
         action_space_mode="SYMMETRIC", obs_noise=False, env_randomizer_mode="NONE",
@@ -202,7 +196,7 @@ def two_stage(lanes: int = 64, device=None, seed: int = 0, settle: int = 600,
     """The two-stage-trained flip policy on the deployed surface: the policy
     launches, the flattened autopilot finishes; no read on the host inside
     the episode."""
-    device = _device(device)
+    device = resolve_device(device)
     env = _flip_env(device, settle, obs_noise=False)
     net, on = convert.load_flat_mlp_policy(POLICY_DIR / "backflip_two_stage.npz", device)
     landing = env.get_landing_action()
@@ -220,7 +214,7 @@ def continuous(lanes: int = 64, device=None, seed: int = 0, settle: int = 600,
     """The learned continuous-jumping policy through the per-jump autopilot
     adapter, scored by the task's own per-jump statistics; no read on the
     host inside the episode."""
-    device = _device(device)
+    device = resolve_device(device)
     env = ContinuousAutopilotEnv(QuadrupedEnv(EnvConfig(
         enable_springs=True, task_env="CONTINUOUS_JUMPING_FORWARD3",
         observation_space_mode="PPO_CONTINUOUS_JUMPING_FORWARD",

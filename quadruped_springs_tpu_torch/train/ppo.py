@@ -229,6 +229,11 @@ class PPOTrainer:
         where `halted`, a 0-d bool on the device, holds after this
         minibatch's KL estimate: a masked update, with no read on the host."""
         cfg, net, opt = self.config, ts.net, ts.optimizer
+        # the step size is the trainer's, the moments the state's: a critic
+        # warm-up trainer (its own lr) and the stage's trainer share a state,
+        # as optax's transforms share an opt_state in the JAX package
+        for group in opt.param_groups:
+            group["lr"] = cfg.lr
         loss, aux = self._loss(net, sl)
         opt.zero_grad(set_to_none=True)
         loss.backward()

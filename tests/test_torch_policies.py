@@ -9,6 +9,7 @@ package.
 """
 
 import ast
+import dataclasses
 import importlib
 import json
 import os
@@ -187,9 +188,13 @@ def test_backflip_replay_sets_the_gate_lane_and_scores_by_the_bars():
     assert rec["gated_passed"] == 0
 
 
-def test_train_bench_main_tiny_on_cpu():
+def test_train_bench_main_tiny_on_cpu(monkeypatch):
     """`train_bench.run` at a few lanes and steps with narrow nets, one
-    warm-up and two timed steps, printed as `main` prints it."""
+    warm-up and two timed steps, printed as `main` prints it; the polish's
+    config and BC fit cut by the constants the bench reads."""
+    monkeypatch.setattr(train_bench.st, "POLISH_PPO", dataclasses.replace(
+        train_bench.st.POLISH_PPO, n_envs=3, segment_len=4, reset_bank_size=2))
+    monkeypatch.setattr(train_bench.st, "BC_ITERS", 20)
     rec = train_bench.run(
         steps=2, device="cpu", settle=20,
         ars_config=ARSConfig(n_directions=2, top_directions=1, episode_steps=4,
@@ -199,7 +204,7 @@ def test_train_bench_main_tiny_on_cpu():
     line = json.loads(json.dumps(train_bench.public(rec)))
     assert line["device"] == "cpu" and "on cpu" in line["metric"]
     assert line["steps"] == 2 and line["warmup_steps"] == 1
-    for algo in ("ars", "ppo"):
+    for algo in ("ars", "ppo", "imitation"):
         r = line[algo]
         assert r["steps_per_s"] > 0 and r["env_steps_per_s"] > 0
         assert r["launches"] == {"env_substeps": 0, "actuation": 0, "contact_anchored": 0,
@@ -214,4 +219,11 @@ def test_train_bench_main_tiny_on_cpu():
     assert all(m["max_weight_change"] > 0 or m["sigma_r"] < 1e-7
                for m in rec["ars"]["metrics"])
     assert all(m["max_weight_change"] > 0 for m in rec["ppo"]["metrics"])
+    # the polish: the BC fit on the six committed demos, its frozen statistics
+    # and anchor; every step moves the actor and keeps the statistics
+    im = rec["imitation"]
+    assert im["demos"] == 6 and im["bc_rows"] == 6 * 185 and im["bc_iters"] == 20
+    assert im["bc_seconds"] > 0 and np.isfinite(im["bc_mse"]) and im["lanes"] == 3
+    assert all(m["max_weight_change"] > 0 and m["bc_mse"] > 0 for m in im["metrics"])
+    assert im["state"].obs_norm is im["state0"].obs_norm and im["state"].iteration == 3
     assert os.environ.get("JAX_PLATFORMS") == "cpu"

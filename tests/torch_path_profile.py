@@ -2,7 +2,7 @@
 
     python tests/torch_path_profile.py [--root DIR] [--label NAME] [--headline]
         [--paths knot,substep,lin_block,control_step,env_bench,train,oracle,mppi_rollout,
-                 full_rate,closed_loop,examples]
+                 full_rate,closed_loop,examples,ars_step,ppo_polish_step,ppo_finetune_step]
 
 Imports quadruped_springs_tpu_torch from DIR (default: this checkout), so that
 one call to the card can profile two commits in turn (an unpacked
@@ -44,6 +44,14 @@ Prints one JSON line per path:
     (compare_learned, springs): one untraced run for the wall, one traced
     (the traced runs of the CPG's and the iLQR examples' millions of
     launches take minutes each);
+  * ars_step, ppo_polish_step, ppo_finetune_step: one train_step of each
+    trainer of the two-stage pipeline at the JAX widths: ARS on the sparse
+    jump (train_two_stage.JUMP_ARS: 256 lanes x 110 control steps and the
+    bank's settle), the BC-anchored polish on JUMPING_IN_PLACE_DEMO
+    (two_stage.POLISH_PPO from a 300-iteration BC fit on the
+    committed demos), the dense fine-tune through RestTruncationWrapper
+    (two_stage.FINETUNE_PPO); each also with its env_substeps
+    launches a step;
   * headline (--headline): bench.run's MPPI solve at full width, one warm-up
     and one timed solve.
 --paths picks the paths (default: knot, substep, lin_block).
@@ -260,6 +268,45 @@ def main(argv=None):
             emit("compare_learned_iteration", profile(
                 torch, lambda: compare_springs.run_config(True, 1, 0, "cuda"), calls=1,
                 reps=1))
+
+    if paths & {"ars_step", "ppo_polish_step", "ppo_finetune_step"}:
+        from quadruped_springs_tpu_torch import train_bench, train_two_stage as tts
+        from quadruped_springs_tpu_torch.env import substeps as ss
+        from quadruped_springs_tpu_torch.env.env import QuadrupedEnv
+        from quadruped_springs_tpu_torch.env.wrappers import RestTruncationWrapper
+        from quadruped_springs_tpu_torch.train import bc, two_stage
+        from quadruped_springs_tpu_torch.train.ars import ARSTrainer
+        from quadruped_springs_tpu_torch.train.ppo import PPOTrainer
+
+        def substeps_per_call(fn):
+            n = ss.env_substeps.launches
+            fn()
+            torch.cuda.synchronize()
+            return ss.env_substeps.launches - n
+
+        gen = torch.Generator("cuda").manual_seed(0)
+        steps = {}
+        if "ars_step" in paths:
+            ars = ARSTrainer(QuadrupedEnv(tts.env_config("JUMPING_IN_PLACE", 1.0), device="cuda"),
+                             tts.JUMP_ARS)
+            ts = ars.init(gen)
+            steps["ars_step"] = (lambda: ars.train_step(ts), {"lanes": 256, "control_steps": 110})
+        if "ppo_polish_step" in paths:
+            trainer, obs, acts = train_bench.imitation_trainer("cuda")
+            net, norm, _ = bc.fit(trainer.make_net(two_stage.BC_SEED), obs, acts, iters=300,
+                                  log_std=two_stage.BC_LOG_STD)
+            ps = train_bench.imitation_state(trainer, obs, acts, net, norm, gen)
+            steps["ppo_polish_step"] = (lambda: trainer.train_step(ps),
+                                        {"lanes": 32, "control_steps": 64})
+        if "ppo_finetune_step" in paths:
+            ft = PPOTrainer(RestTruncationWrapper(QuadrupedEnv(
+                tts.env_config("JUMPING_IN_PLACE_PPO", 2.0), device="cuda")), two_stage.FINETUNE_PPO)
+            fs = ft.init(gen)
+            steps["ppo_finetune_step"] = (lambda: ft.train_step(fs),
+                                          {"lanes": 32, "control_steps": 64})
+        for path, (fn, shape) in steps.items():
+            emit(path, {**shape, "env_substeps": substeps_per_call(fn),
+                        **profile(torch, fn, calls=1, reps=2)})
 
     if a.headline:
         rec = bench.run(batch=1024, runs=1, device="cuda")
