@@ -111,7 +111,10 @@ Phases (any failure raises, so the script exits non-zero):
      each replay, `contact` once per reset, `actuation` and
      `contact_anchored` never; and `env_substeps` against its plain version
      at the two-stage trainers' widths and interfaces (TWO_STAGE_WIDTHS:
-     2-256 lanes, the BACKFLIP interface's commands), to phase 5's bound;
+     2-256 lanes, the BACKFLIP interface's commands) and at the behaviour
+     trainers' (BEHAVIOUR_WIDTHS: 4-768 lanes and the touchdown bank's
+     first chunk, the BACKFLIP interface under TEST_RANDOMIZER), to phase
+     5's bound;
  14. two ARSTrainer.train_steps and two PPOTrainer.train_steps (one untimed
      warm-up, one timed) at the widths of the JAX package's training runs
      (quadruped_springs_tpu_torch.train_bench), and two of the imitation
@@ -231,7 +234,19 @@ Phases (any failure raises, so the script exits non-zero):
      JAX script's (TWO_STAGE_JOBS), the no-op flags consistent with their
      gates and the warm-start stage with the polish's flag; no learning
      bar; launches exact, env_substeps launched; each stage's seconds
-     printed.
+     printed;
+ 25. (with the host-bound runs) the behaviour trainers at smoke budgets,
+     one process each (BEHAVIOUR_TRAINERS: train_behavior_policies --task
+     backflip, --robust and --task forward, train_backflip_landing_mlp and
+     train_backflip_robust_joint from the committed lander at their full
+     runs' ARS widths, 768 and 512 lanes,
+     validate_backflip_robust --n 4 on the committed pair): every npz's
+     key set the JAX artifact's, every number finite, launches exact,
+     env_substeps launched, the committed pair's full rotation on all of
+     its 4 seeds; and the observation-noise repair on the card: ARS's r+
+     and r− bitwise equal per bank entry at δ = 0 on the noisy forward task
+     at its 256 lanes, and one candidate's flattened-flip score bitwise the
+     same alone as among 32.
 Phase 11 also holds both loops to the transfer band of the JAX gate
 (executed apex > 0.45 m, upright, within LOOP_BAND of the largest planned
 apex; the JAX package's own loops meet 10% on the CPU).
@@ -240,8 +255,8 @@ solve (was 3). Phase 6's 3 segments and phase 7's 2,500-substep settle,
 cut while the environment ran ~500 launches a substep, are back since its
 physics is one env_substeps launch a control step. The host-bound runs of phases 11, 13, 16 and 17
 (the two loops, the six replays, the six oracle traces, the transfer gate),
-phase 20's three drivers, phases 21-23's comparisons and examples and phase
-24's trainers go at once in HOST_PROCESSES spawned processes
+phase 20's three drivers, phases 21-23's comparisons and examples and phases
+24-25's trainers go at once in HOST_PROCESSES spawned processes
 on the one card, after the
 kernel checks of phases 13, 16 and 17, and phase 18's six small solves one
 process each. Phases 13-18 run before phase 12 (the profiler's). Most phases are bound by
@@ -325,6 +340,44 @@ TWO_STAGE_WIDTHS = {"ppo_segment": (32, "JUMPING_IN_PLACE"), "ars_land": (128, "
                     "demo_eval": (8, "JUMPING_IN_PLACE"), "jump_demos": (6, "JUMPING_IN_PLACE"),
                     "ars_eval": (4, "JUMPING_IN_PLACE"), "flip_demos": (12, "BACKFLIP"),
                     "flip_probe": (8, "BACKFLIP"), "flip_nominal": (2, "BACKFLIP")}
+# phase 13 also holds env_substeps at the behaviour trainers' widths, the
+# BACKFLIP interface under TEST_RANDOMIZER: the flip's evaluation (4), the
+# landing probe (10), the held-out seeds (12), ARS's ± episodes (24), the joint
+# trainer's training scenarios (64), the landing bank's training split (72),
+# the joint (512) and landing (768) ARS batches, the bank's first chunk (192)
+BEHAVIOUR_WIDTHS = {"flip_eval": (4, "BACKFLIP"), "landing_probe": (10, "BACKFLIP"),
+                    "held_out": (12, "BACKFLIP"), "flip_ars": (24, "BACKFLIP"),
+                    "joint_train": (64, "BACKFLIP"), "landing_train": (72, "BACKFLIP"),
+                    "bank_chunk": (192, "BACKFLIP"), "joint_ars": (512, "BACKFLIP"),
+                    "landing_ars": (768, "BACKFLIP")}
+# phase 25: the behaviour trainers at smoke budgets in the host-bound pool,
+# each entry point's argv (besides --out) and the committed artifacts whose
+# keys its npz files carry. Few iterations, a small bank and few probe
+# seeds, but the lander's and the joint trainer's ARS batches at the widths
+# of their full runs: 2 x 16 directions x 24 touchdown states = 768 lanes
+# over a 100-step horizon (train-states at most 0.75 of the bank), and
+# 2 x 16 x 16 scenarios = 512 lanes over 160 knots
+BEHAVIOUR_TRAINERS = {
+    "landing": ("train_backflip_landing_mlp",
+                ["--iters", "1", "--bank", "32", "--train-states", "24", "--n-dir", "16",
+                 "--probe-every", "1", "--n-probe", "2", "--horizon", "100",
+                 "--no-save-gate"],
+                {"backflip_landing_mlp.npz": "backflip_landing_mlp.npz"}),
+    "robust": ("train_behavior_policies", ["--task", "backflip", "--robust", "--iters", "1"],
+               {"backflip_ars_robust.npz": "backflip_ars.npz"}),
+    "backflip": ("train_behavior_policies", ["--task", "backflip", "--iters", "1"],
+                 {"backflip_ars.npz": "backflip_ars.npz"}),
+    "joint": ("train_backflip_robust_joint",
+              ["--iters", "1", "--n-train", "16", "--n-probe", "2", "--train-scen", "16",
+               "--n-dir", "16", "--knots", "160", "--probe-every", "1", "--no-save-gate",
+               "--lander-init", "examples/policies/backflip_landing_mlp.npz"],
+              {"backflip_launch_robust.npz": "backflip_launch_robust.npz",
+               "backflip_landing_mlp.npz": "backflip_landing_mlp.npz"}),
+    "forward": ("train_behavior_policies", ["--task", "forward", "--iters", "1"],
+                {"forward_ars.npz": "forward_ars.npz"}),
+    "validate": ("validate_backflip_robust", ["--n", "4"], {}),
+}
+REPAIR_KNOTS, REPAIR_CANDIDATES = 60, 32
 # phase 24: the two-stage trainers at their --smoke budgets in the host-bound
 # pool, the longest first, each results' key set held to the JAX artifact's
 TWO_STAGE_JOBS = {"forward": "two_stage_forward_results.json",
@@ -333,7 +386,7 @@ TWO_STAGE_JOBS = {"forward": "two_stage_forward_results.json",
 # phase 16 and 17 run the environment's kernels at 1 and 2 lanes; their
 # checks build the hand-placed regimes on SMALL_INPUT_LANES lanes
 FIDELITY_LANES, SMALL_INPUT_LANES = (1, 2), 8
-# phases 11, 13, 16, 17 and 20-24 run their host-bound paths in this many processes
+# phases 11, 13, 16, 17 and 20-25 run their host-bound paths in this many processes
 HOST_PROCESSES = 8
 # phase 21: the planned springs-vs-rigid comparison (compare_springs.planned_rows,
 # scripts/compare_springs.py's configuration) over PLANNED_SEEDS, seed 1 the
@@ -1001,23 +1054,26 @@ def check_learning_widths(torch, act, dyn, model, landing_gains):
     return checks
 
 
-def check_two_stage_substeps(torch, ss, kind):
+def check_two_stage_substeps(torch, ss, kind, widths=TWO_STAGE_WIDTHS,
+                             randomizer="GROUND_RANDOMIZER", tag="two_stage"):
     """Phase 13, after the per-substep kernels: env_substeps against its plain
-    version at the two-stage trainers' widths (TWO_STAGE_WIDTHS): settled
-    environments of each interface, every 4th lane lifted 15 cm and rising at
-    1 m/s, under a random command held for a control step (10 substeps), to
-    phase 5's bound."""
+    version at the two-stage trainers' widths (TWO_STAGE_WIDTHS), or at
+    `widths` drawn under `randomizer`: settled environments of each
+    interface, every 4th lane lifted 15 cm and rising at 1 m/s, under a
+    random command held for a control step (10 substeps), to phase 5's
+    bound."""
     from quadruped_springs_tpu_torch.control import interfaces as ci
     from quadruped_springs_tpu_torch.env.env import EnvConfig, QuadrupedEnv, take
 
     gen = torch.Generator("cuda").manual_seed(24)
     starts = {}
-    for task in sorted({task for _, task in TWO_STAGE_WIDTHS.values()}):
+    for task in sorted({task for _, task in widths.values()}):
         env = QuadrupedEnv(EnvConfig(
             enable_springs=True, task_env=task, action_space_mode="SYMMETRIC",
             observation_space_mode="ARS_BACKFLIP" if task == "BACKFLIP" else "ARS_BASIC",
-            iface_task=task, settling_steps=ENV_SETTLE), device="cuda")
-        n = max(n for n, t in TWO_STAGE_WIDTHS.values() if t == task)
+            iface_task=task, settling_steps=ENV_SETTLE, env_randomizer_mode=randomizer),
+            device="cuda")
+        n = max(n for n, t in widths.values() if t == task)
         state, _ = env.reset(gen, n)
         pos, lin_vel = state.robot.pos.clone(), state.robot.lin_vel.clone()
         pos[::4, 2] += 0.15
@@ -1027,13 +1083,14 @@ def check_two_stage_substeps(torch, ss, kind):
         action = 2.0 * torch.rand((n, env.action_dim), generator=gen, device="cuda") - 1.0
         starts[task] = (env, state, ci.action_to_command(env.iface, action).contiguous())
     checks = {}
-    for path, (n, task) in TWO_STAGE_WIDTHS.items():
+    for path, (n, task) in widths.items():
         env, state, q_des = starts[task]
         idx = torch.arange(n, device="cuda")
         r = check_env_substeps(torch, ss, env_substeps_args(
             env, take(state, idx), q_des[:n].contiguous(), 10))
-        checks[f"two_stage_{path}_{n}"] = r
-        print(f"phase 13: env_substeps ({path}, {n} x 10, {task} interface): max_abs_err "
+        checks[f"{tag}_{path}_{n}"] = r
+        print(f"phase 13: env_substeps ({path}, {n} x 10, {task} interface, {randomizer}): "
+              f"max_abs_err "
               f"{r['max_abs_err']:.3e} ({r['spread_used']:.2f} spreads used), kernel "
               f"{r['ms']:.4f} ms through its wrapper, {r['kernel_ms'] * 1e3:.2f} µs on the card, "
               f"plain {r['plain_ms']:.2f} ms; bound {r['bound_ms'] * 1e3:.3f} µs on {kind}",
@@ -1408,9 +1465,10 @@ def _replay_worker(name):
 
 
 def run_host_bound_paths(policy_replay, kind):
-    """Phases 11, 13, 16, 17 and 20-24 at once: the two closed loops, the
+    """Phases 11, 13, 16, 17 and 20-25 at once: the two closed loops, the
     replays of the committed policies, the six oracle traces, the transfer
-    gate, the behaviours, comparisons, examples and two-stage trainers are
+    gate, the behaviours, comparisons, examples, two-stage and behaviour
+    trainers are
     bound by the host's launches, so they run as HOST_PROCESSES spawned
     processes on the one card, the longest first. Each process counts its
     own kernels' launches."""
@@ -1423,6 +1481,8 @@ def run_host_bound_paths(policy_replay, kind):
                                                        for job in EXAMPLE_JOBS]
              + [(_planned_worker, r) for r in robots])
     jobs = ([(_two_stage_worker, job) for job in TWO_STAGE_JOBS]
+            + [(_behaviour_trainer_worker, job) for job in BEHAVIOUR_TRAINERS]
+            + [(_noise_repair_worker, None)]
             + [(_behaviour_worker, job) for job in BEHAVIOUR_JOBS]
             + [(_closed_loop_worker, True), (_transfer_gate_worker, None),
                (_closed_loop_worker, False)] + added[:2] + [(_replay_worker, n)
@@ -1433,13 +1493,14 @@ def run_host_bound_paths(policy_replay, kind):
         pending = [pool.apply_async(fn, (arg,)) for fn, arg in jobs]
         results = [r.get() for r in pending]
     wall = time.perf_counter() - t0
-    print(f"phases 11, 13, 16, 17 and 20-24: {len(jobs)} host-bound paths in {wall:.2f} s "
+    print(f"phases 11, 13, 16, 17 and 20-25: {len(jobs)} host-bound paths in {wall:.2f} s "
           f"({HOST_PROCESSES} processes on one card)", flush=True)
     by_fn = {}
     for (fn, arg), res in zip(jobs, results):
         by_fn.setdefault(fn, []).append((arg, res))
     results = [res for (fn, _), res in zip(jobs, results) if fn not in (
-        _learned_worker, _example_worker, _planned_worker, _two_stage_worker)]
+        _learned_worker, _example_worker, _planned_worker, _two_stage_worker,
+        _behaviour_trainer_worker, _noise_repair_worker)]
     behaviours, results = results[:len(BEHAVIOUR_JOBS)], results[len(BEHAVIOUR_JOBS):]
     by_path = {"closed_loop_full_rate": check_closed_loop(results[0], kind, True),
                "closed_loop": check_closed_loop(results[2], kind, False)}
@@ -1452,6 +1513,8 @@ def run_host_bound_paths(policy_replay, kind):
     by_path.update(check_learned(dict(by_fn[_learned_worker]), kind))
     by_path.update(check_examples([res for _, res in by_fn[_example_worker]], kind))
     by_path.update(check_two_stage(dict(by_fn[_two_stage_worker]), kind))
+    by_path.update(check_behaviour_trainers(dict(by_fn[_behaviour_trainer_worker]), kind))
+    by_path.update(check_noise_repair(by_fn[_noise_repair_worker][0][1], kind))
     return by_path
 
 
@@ -3230,6 +3293,201 @@ def check_two_stage(results, kind):
     return by_path
 
 
+def _behaviour_trainer_worker(job):
+    """Phase 25, in a process of its own: one behaviour trainer entry point
+    (BEHAVIOUR_TRAINERS[job]) at its smoke budgets on the card, writing
+    under runs/chip_smoke/behaviour_<job>/. Returns its exit code, printed
+    record, the key sets and finiteness of the npz files it wrote, the
+    kernels' launches, those its resets and env steps call for, and the wall
+    time."""
+    import contextlib
+    import importlib
+    import io
+
+    import numpy as np
+    import torch
+
+    from quadruped_springs_tpu_torch.env.env import QuadrupedEnv
+    from quadruped_springs_tpu_torch.models import dynamics as dyn
+    from quadruped_springs_tpu_torch.ops import actuation as act
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    module, argv, files = BEHAVIOUR_TRAINERS[job]
+    out = f"runs/chip_smoke/behaviour_{job}"
+    entry = importlib.import_module(f"quadruped_springs_tpu_torch.{module}")
+    reset_counts(act, dyn)
+    printed = io.StringIO()
+    t0 = time.perf_counter()
+    with EnvCalls(QuadrupedEnv) as calls, contextlib.redirect_stdout(printed):
+        code = entry.main([*argv, "--out", out])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    written = {}
+    for name in files:
+        try:
+            with np.load(f"{out}/{name}") as z:
+                written[name] = {"keys": sorted(z.files), "finite": all(
+                    bool(np.isfinite(z[k]).all()) for k in z.files if z[k].dtype.kind == "f")}
+        except FileNotFoundError:
+            written[name] = None
+    if job == "validate":
+        with open(f"{out}/backflip_robust_validation.json") as f:
+            code, record = 0, json.load(f)
+    else:
+        record = json.loads(printed.getvalue().strip().splitlines()[-1])
+    return {"code": code, "record": record, "written": written,
+            "launches": read_counts(act, dyn), "want": calls.launches(), "seconds": seconds}
+
+
+def check_behaviour_trainers(results, kind):
+    """Phase 25: each behaviour trainer at its smoke budgets. Held, with no
+    learning bar: every npz it wrote carries the JAX artifact's key set
+    (BEHAVIOUR_TRAINERS) and finite numbers, its record is finite, its exit
+    code the script's rule (1 when its gate fails; the robust fine-tune
+    saves nothing then); launches exact, env_substeps launched; the
+    committed robust pair completes the rotation on all of the validation's
+    seeds (its rotation bar)."""
+    import numpy as np
+
+    by_path, failed = {}, []
+    for job, res in results.items():
+        rec, code = res["record"], res["code"]
+        check_counts(res["launches"], {**res["want"], "planner_rollout": 0,
+                                       **dict.fromkeys(BF16_KERNELS, 0)}, 25)
+        by_path[f"behaviour_{job}"] = res["launches"]
+        if res["launches"]["env_substeps"] == 0:
+            failed.append(f"{job}: env_substeps never launched")
+        if not _all_finite(rec):
+            failed.append(f"{job}: a non-finite number in its record")
+        for name, committed in BEHAVIOUR_TRAINERS[job][2].items():
+            got = res["written"][name]
+            if got is None:
+                if not (job == "robust" and not rec["gate_ok"]):
+                    failed.append(f"{job}: {name} not written")
+                continue
+            with np.load(f"examples/policies/{committed}") as z:
+                keys = sorted(z.files)
+            if got["keys"] != keys or not got["finite"]:
+                failed.append(f"{job}: {name} keys {got['keys']} (JAX {keys}), finite "
+                              f"{got['finite']}")
+        if job == "validate":
+            with open("examples/out/backflip_robust_validation.json") as f:
+                jax_keys = set(json.load(f))
+            if set(rec) != jax_keys or rec["full_rotation"] != rec["n"]:
+                failed.append(f"validate: keys {sorted(set(rec) ^ jax_keys)} differ or "
+                              f"rotation {rec['full_rotation']}/{rec['n']}")
+            summary = (f"rotation {rec['full_rotation']}/{rec['n']}, strict upright "
+                       f"{rec['strict_upright']}/{rec['n']}")
+        else:
+            if code != (0 if rec.get("gate_ok", True) else 1):
+                failed.append(f"{job}: exit code {code} against gate_ok {rec.get('gate_ok')}")
+            summary = {k: rec[k] for k in ("gate_ok", "stage_seconds", "env_substeps_launches",
+                                           "nominal", "rotation", "upright", "ret")
+                       if k in rec}
+        print(f"phase 25: {BEHAVIOUR_TRAINERS[job][0]} ({job}) at its smoke budgets in "
+              f"{res['seconds']:.2f} s on {kind}, exit {code}: {summary}; launches "
+              f"{res['launches']}", flush=True)
+    if failed:
+        raise AssertionError(f"phase 25: {failed}")
+    return by_path
+
+
+def _noise_repair_worker(_):
+    """Phase 25, in a process of its own: the observation-noise repair on the
+    card. ARS's train_step at δ = 0 on the noisy JUMPING_FORWARD task at
+    train_behavior_policies' forward width (16 directions x a bank of 8 x 2
+    signs = 256 lanes, 200 steps): the per-lane returns, r+ against r−; and
+    the joint trainer's flattened-flip score of one candidate alone against
+    the same candidate among REPAIR_CANDIDATES (REPAIR_KNOTS control steps,
+    two seeded TEST_RANDOMIZER scenarios with noise)."""
+    import numpy as np
+    import torch
+
+    from quadruped_springs_tpu_torch import convert
+    from quadruped_springs_tpu_torch import train_behavior_policies as tbp
+    from quadruped_springs_tpu_torch.env.env import EnvConfig, QuadrupedEnv, take
+    from quadruped_springs_tpu_torch.models import dynamics as dyn
+    from quadruped_springs_tpu_torch.ops import actuation as act
+    from quadruped_springs_tpu_torch.train import ars as tars
+    from quadruped_springs_tpu_torch.train import behaviour as bh
+    from quadruped_springs_tpu_torch.train import rollout as ro
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    reset_counts(act, dyn)
+    t0 = time.perf_counter()
+    env = QuadrupedEnv(EnvConfig(
+        enable_springs=True, task_env="JUMPING_FORWARD", observation_space_mode="ARS_BASIC",
+        action_space_mode="SYMMETRIC", settling_steps=tbp.FORWARD_SETTLE,
+        max_ep_len=tbp.FORWARD_EP_LEN), device="cuda")
+    cfg = tbp.FORWARD_ARS
+    trainer = tars.ARSTrainer(env, cfg)
+    ts = trainer.init(torch.Generator("cuda").manual_seed(0))
+    ts = dataclasses.replace(ts, W=0.3 * torch.randn(
+        ts.W.shape, generator=torch.Generator("cuda").manual_seed(1), device="cuda"))
+    seen = {}
+    orig = ro.episode_returns
+
+    def spy(*a, **k):
+        seen["rets"], info = orig(*a, **k)
+        return seen["rets"], info
+
+    tars.ro.episode_returns = spy
+    ts2, metrics = trainer.train_step(
+        ts, deltas=torch.zeros(cfg.n_directions, *ts.W.shape, device="cuda"))
+    tars.ro.episode_returns = orig
+    r = seen["rets"].view(2, cfg.n_directions, cfg.reset_bank_size)
+    ars = {"lanes": int(seen["rets"].numel()), "bitwise_equal": bool(torch.equal(r[0], r[1])),
+           "max_abs_diff": float((r[0] - r[1]).abs().max()),
+           "w_unchanged": bool(torch.equal(ts2.W, ts.W)),
+           "entries_differ": bool(r[0, 0].unique().numel() > 1)}
+
+    flip = bh.flip_env("cuda", "TEST_RANDOMIZER", obs_noise=True)
+    state, obs, noise = ro.seeded_reset(flip, [0, 1])
+    W, norm = convert.load_linear_policy("examples/policies/backflip_ars.npz", "cuda")
+    lander = np.load("examples/policies/backflip_landing_mlp.npz")
+    params = {"W": W.cpu().numpy(),
+              "mlp": {k: np.asarray(lander[k], np.float32) for k in ("W1", "b1", "W2", "b2")}}
+    layout = bh.FlatLayout(params)
+    rng = np.random.default_rng(0)
+    cand = (layout.ravel(params)[None] + 0.02 * rng.standard_normal(
+        (REPAIR_CANDIDATES, layout.size))).astype(np.float32)
+
+    def score(c_idx, ent):
+        p = bh.lanes_params(cand, layout, torch.as_tensor(c_idx, device="cuda"), "cuda")
+        ent = torch.as_tensor(ent, device="cuda")
+        sc, _ = bh.episode_score(flip, bh.linear_act(p["W"], norm), bh.mlp_act(p["mlp"], norm),
+                                 take(state, ent), obs[ent], noise.take(ent), REPAIR_KNOTS)
+        return sc
+
+    c = REPAIR_CANDIDATES // 2 + 1
+    many = score(np.repeat(np.arange(REPAIR_CANDIDATES), 2), np.tile([0, 1], REPAIR_CANDIDATES))
+    alone = score([c], [1])
+    torch.cuda.synchronize()
+    flat = {"lanes": int(many.numel()), "bitwise_equal": bool(torch.equal(alone[0],
+                                                                          many[2 * c + 1])),
+            "alone": float(alone[0]), "among": float(many[2 * c + 1])}
+    return {"ars": ars, "flat": flat, "sigma_r": float(metrics["sigma_r"]),
+            "launches": read_counts(act, dyn), "seconds": time.perf_counter() - t0}
+
+
+def check_noise_repair(res, kind):
+    """Phase 25: the repair holds on the card (see _noise_repair_worker)."""
+    ars, flat = res["ars"], res["flat"]
+    print(f"phase 25: observation noise per scenario on {kind}: ARS at delta = 0, "
+          f"{ars['lanes']} lanes: r+ == r- bitwise {ars['bitwise_equal']} (max |r+ - r-| "
+          f"{ars['max_abs_diff']:.3e}), W unchanged {ars['w_unchanged']}, sigma_r "
+          f"{res['sigma_r']:.3e}, entries differ {ars['entries_differ']}; the flattened flip's "
+          f"score alone {flat['alone']!r} and among {REPAIR_CANDIDATES} candidates "
+          f"({flat['lanes']} lanes) {flat['among']!r}: bitwise {flat['bitwise_equal']}; "
+          f"{res['seconds']:.2f} s", flush=True)
+    if not (ars["bitwise_equal"] and ars["w_unchanged"] and ars["entries_differ"]
+            and flat["bitwise_equal"]):
+        raise AssertionError(f"phase 25: the noise repair does not hold: {ars}, {flat}")
+    if res["launches"]["env_substeps"] == 0:
+        raise AssertionError("phase 25: the repair's paths never launched env_substeps")
+    return {"noise_repair": res["launches"]}
+
+
 def _example_worker(job):
     """Phase 23, in a process of its own: one run of
     quadruped_springs_tpu_torch.examples at its default size on the card,
@@ -3510,6 +3768,8 @@ def main():
                                                exact_cost)
     width_checks = check_learning_widths(torch, act, dyn, model, landing)
     width_checks["env_substeps"] = check_two_stage_substeps(torch, ss, kind)
+    width_checks["env_substeps"].update(check_two_stage_substeps(
+        torch, ss, kind, BEHAVIOUR_WIDTHS, "TEST_RANDOMIZER", "behaviour"))
     fidelity_checks = check_fidelity_widths(torch, act, dyn, model)
     fidelity_checks["env_substeps"] = check_fidelity_substeps(torch, ss, kind)
     transfer_checks = check_transfer_block(torch, act, dyn, ilqr, prob)

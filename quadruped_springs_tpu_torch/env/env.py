@@ -21,13 +21,16 @@ On CUDA tensors a control step's physics (all action_repeat substeps) is
 one launch of the fused `env_substeps` kernel (``env/substeps.py``), and so
 is reset's settle; reset's contact priming launches the memoryless
 `contact` kernel once. Randomness comes only from the ``torch.Generator``
-passed in, on the env's device. Nothing in reset or step reads a device
-value on the host.
+passed in, on the env's device, or from ``NoiseStreams``: observation noise
+that belongs to the scenario a lane replays, as a JAX EnvState's key does
+(a lane's noise at env step t is its stream's row t, whatever the batch).
+Nothing in reset or step reads a device value on the host.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 
@@ -85,6 +88,47 @@ class EnvState:
     invalid_contact: torch.Tensor       # (N,) bool
     sim_step_counter: torch.Tensor      # (N,) int32
     env_step_counter: torch.Tensor      # (N,) int32
+
+
+@dataclasses.dataclass(frozen=True)
+class NoiseStreams:
+    """Observation noise per scenario, passed where a generator is passed.
+
+    The JAX env keeps a PRNG key in its state and splits it at every step,
+    so every replay of one start state sees one noise sequence, in any batch
+    (``quadruped_springs_tpu/env/env.py:387-388, 406-409``). Here lane i's
+    standard-normal draw at env step t (its own ``env_step_counter``: an
+    autopilot takes a varying number of env steps per call) is
+    ``draws[rows[i], min(t, T)]``; the reset's observation is row 0.
+    """
+    draws: torch.Tensor   # (streams, T + 1, obs_dim) standard normals
+    rows: torch.Tensor    # (N,) int64: the stream of each lane
+
+    def take(self, idx: torch.Tensor) -> "NoiseStreams":
+        """The streams of lanes idx (M,): lane j replays lane idx[j]'s."""
+        return NoiseStreams(self.draws, self.rows[idx])
+
+    def at(self, step: torch.Tensor) -> torch.Tensor:
+        """(N, obs_dim) draws at each lane's env step (N,); past the last
+        row the last row again (only lanes whose episode has ended get
+        there, and their observation is dropped)."""
+        t = torch.clamp(step.to(torch.int64), max=self.draws.shape[1] - 1)
+        return self.draws[self.rows, t]
+
+
+def max_env_steps(env) -> int:
+    """Env steps an episode of `env` can take before its timeout ends it."""
+    return math.ceil(env.config.max_ep_len / env.env_time_step) + 1
+
+
+def draw_noise(env, generator: torch.Generator, n: int, steps: int):
+    """n streams of steps + 1 rows from `generator`, one per lane; None when
+    the env has no observation noise (the generator is then not drawn)."""
+    if not env.config.obs_noise:
+        return None
+    draws = torch.randn((n, steps + 1, env.obs_dim), generator=generator,
+                        device=env.device)
+    return NoiseStreams(draws, torch.arange(n, device=env.device))
 
 
 def select(mask: torch.Tensor, new, old):
@@ -226,11 +270,13 @@ class QuadrupedEnv:
               desired_robot_state: dyn.RobotState | None = None,
               curriculum_level: float | None = None,
               demo_start_idx: torch.Tensor | int | None = None,
-              scenario: rnd.ScenarioParams | None = None):
+              scenario: rnd.ScenarioParams | None = None,
+              noise: NoiseStreams | None = None):
         """Reset N environments; returns (state, obs (N, obs_dim)).
 
         `generator` (on the env's device) draws the scenarios and the
-        observation noise. `scenario` gives N scenarios instead of drawing
+        observation noise; `noise` gives the noise instead (row 0 of each
+        lane's stream). `scenario` gives N scenarios instead of drawing
         them (N then comes from it, as it does from `desired_robot_state`,
         which skips the settle: the reference-state-initialisation path).
         `curriculum_level` overrides EnvConfig.curriculum_level for the
@@ -286,7 +332,7 @@ class QuadrupedEnv:
             feet_in_contact=cinfo["feet_in_contact"], feet_forces=cinfo["foot_forces"],
             invalid_contact=cinfo["invalid_contact"], sim_step_counter=counter,
             env_step_counter=counter.clone())
-        return state, self._observe(state, generator)
+        return state, self._observe(state, generator if noise is None else noise)
 
     def _task_ctx0(self, robot, cinfo) -> tk.TaskCtx:
         n = robot.q.shape[0]
@@ -312,8 +358,8 @@ class QuadrupedEnv:
         action: (N, action_dim). kp, kd: optional (12,) gains replacing the
         motor gains (the landing wrappers' soft gains). ext_force_world:
         optional (N,3) or (3,) world force at the trunk origin in every
-        substep. `generator` draws the observation noise (needed when
-        EnvConfig.obs_noise). Returns (state, obs, reward, done, info).
+        substep. `generator`, a torch.Generator or NoiseStreams, gives the
+        observation noise (needed when EnvConfig.obs_noise). Returns (state, obs, reward, done, info).
         """
         cfgc, cfg = self.config, self.cfg
         model = rnd.model_from_params(state.scenario)
@@ -383,8 +429,10 @@ class QuadrupedEnv:
         if self.config.obs_noise:
             if generator is None:
                 raise ValueError("obs_noise is on: pass a generator for the noise")
-            return sn.add_obs_noise(sn.read_obs(self.suite, ctx), self._obs_noise_std,
-                                    generator)
+            clean = sn.read_obs(self.suite, ctx)
+            if isinstance(generator, NoiseStreams):
+                return clean + generator.at(state.env_step_counter) * self._obs_noise_std
+            return sn.add_obs_noise(clean, self._obs_noise_std, generator)
         return sn.read_obs(self.suite, ctx)
 
     # ------------------------------------------------------------------

@@ -40,7 +40,6 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
-import math
 
 import torch
 
@@ -48,13 +47,11 @@ from quadruped_springs_tpu_torch.env import randomizers as rnd
 from quadruped_springs_tpu_torch.env import wrappers as wr
 from quadruped_springs_tpu_torch.env.env import EnvConfig, QuadrupedEnv
 from quadruped_springs_tpu_torch.env_bench import device_name, resolve_device
-from quadruped_springs_tpu_torch.models import spatial as sp
 from quadruped_springs_tpu_torch.solver.mpc import MPCConfig, MPCProblem, state_to_vec
 from quadruped_springs_tpu_torch.solver.mppi import MPPIConfig
 from quadruped_springs_tpu_torch.tasks.tasks import continuous_jump_stats
+from quadruped_springs_tpu_torch.train.two_stage import flip_lanes
 
-ROT_BAR = 2 * math.pi - 0.1      # full rotation: max unwrapped pitch
-UP_Z_BAR, Z_BAR = 0.85, 0.15     # upright: R[2,2] and base height
 
 
 @dataclasses.dataclass(frozen=True)
@@ -177,20 +174,18 @@ def backflip(seed: int = 0, device=None, draws=None, settle: int = 2500,
         state = out.state
         if bool(out.done[0]):
             break
-    pitch = float(state.task.max_pitch_bf[0])
-    up_z = float(sp.quat_to_mat(state.robot.quat)[0, 2, 2])
-    z = float(state.robot.pos[0, 2])
+    g = {k: v[0].item() for k, v in flip_lanes(state).items()}
     return _finish({
         "launch": "mpc",
-        "pitch_unwrapped_rad": pitch,
-        "full_rotation": pitch >= ROT_BAR,
-        "apex_rel_m": float(state.task.relative_max_height[0]),
-        "final_z": z,
-        "upright": up_z > UP_Z_BAR and z > Z_BAR,
+        "pitch_unwrapped_rad": g["pitch_rad"],
+        "full_rotation": g["rotation"],
+        "apex_rel_m": g["apex"],
+        "final_z": g["z"],
+        "upright": g["upright"],
         "steps": i,
         "sim_s": float(env.sim_time(state)[0]),
         "friction": float(scenario.friction[0]),
-        "up_z": up_z,
+        "up_z": g["up_z"],
     }, device, seed, solve.solves)
 
 

@@ -35,7 +35,6 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
-import math
 from pathlib import Path
 
 import torch
@@ -47,14 +46,14 @@ from quadruped_springs_tpu_torch.env import wrappers as wr
 from quadruped_springs_tpu_torch.env.continuous_autopilot import ContinuousAutopilotEnv
 from quadruped_springs_tpu_torch.env.env import EnvConfig, QuadrupedEnv, select
 from quadruped_springs_tpu_torch.env_bench import resolve_device
-from quadruped_springs_tpu_torch.models import spatial as sp
 from quadruped_springs_tpu_torch.tasks.tasks import continuous_jump_stats
+from quadruped_springs_tpu_torch.train import behaviour as bh
 from quadruped_springs_tpu_torch.train import normalize as vnorm
+from quadruped_springs_tpu_torch.train import rollout as ro
 from quadruped_springs_tpu_torch.train.networks import linear_policy_apply
+from quadruped_springs_tpu_torch.train.two_stage import ROT_BAR, UP_Z_BAR, Z_BAR, flip_lanes
 
 POLICY_DIR = Path(__file__).resolve().parents[1] / "examples" / "policies"
-ROT_BAR = 2 * math.pi - 0.1      # full rotation: max unwrapped pitch
-UP_Z_BAR, Z_BAR = 0.85, 0.15     # upright: R[2,2] and base height
 FWD_BAR, APEX_BAR = 0.30, 0.10   # jumping forward: distance and apex
 GOOD_JUMPS_BAR, MEAN_PERF_BAR = 4, 0.6
 # `backflip_ars.npz` is gated by the JAX package on one scenario, the friction
@@ -77,32 +76,18 @@ def _flip_env(device, settle, **kw) -> QuadrupedEnv:
 
 
 def _flip_result(state) -> dict:
-    """The backflip gates' KPIs of a final EnvState, per lane."""
-    pitch = state.task.max_pitch_bf
-    up_z = sp.quat_to_mat(state.robot.quat)[:, 2, 2]
-    z = state.robot.pos[:, 2]
-    rot = pitch >= ROT_BAR
-    ok = rot & (up_z > UP_Z_BAR) & (z > Z_BAR)
+    """The backflip gates' KPIs of a final EnvState, per lane
+    (``two_stage.flip_lanes``): `rotation`, `upright` (the pose alone) and
+    `ok` (both)."""
+    g = flip_lanes(state)
+    ok = g["rotation"] & g["upright"]
     return {"lanes": int(ok.shape[0]), "passed": int(ok.sum()),
-            "full_rotation": int(rot.sum()),
+            "full_rotation": int(g["rotation"].sum()),
             "bars": {"pitch_rad": ROT_BAR, "up_z": UP_Z_BAR, "final_z": Z_BAR},
-            "pitch_rad": pitch.tolist(), "up_z": up_z.tolist(), "final_z": z.tolist(),
-            "apex_rel_m": state.task.relative_max_height.tolist(), "ok": ok.tolist()}
-
-
-def _wrapper_episode(step, state, obs, max_steps):
-    """Drive policy steps until every lane is done (at most max_steps); a
-    finished lane keeps its last state, as a single episode stops there.
-    `step(state, obs) -> StepOut`. One host read per policy step."""
-    done = torch.zeros(obs.shape[0], dtype=torch.bool, device=obs.device)
-    for _ in range(max_steps):
-        out = step(state, obs)
-        state = select(done, state, out.state)
-        obs = torch.where(done[:, None], obs, out.obs)
-        done = done | out.done
-        if bool(done.all()):
-            break
-    return state
+            "pitch_rad": g["pitch_rad"].tolist(), "up_z": g["up_z"].tolist(),
+            "final_z": g["z"].tolist(), "apex_rel_m": g["apex"].tolist(),
+            "rotation": g["rotation"].tolist(), "upright": g["upright"].tolist(),
+            "ok": ok.tolist()}
 
 
 @torch.no_grad()
@@ -121,9 +106,9 @@ def backflip(lanes: int = 64, device=None, seed: int = 0, settle: int = 2500,
     friction[0] = GATE_FRICTION
     scenario = dataclasses.replace(scenario, friction=friction)
     state, obs = env.reset(gen, scenario=scenario)
-    state = _wrapper_episode(
-        lambda s, o: w.step(s, linear_policy_apply(W, vnorm.normalize(on, o)), gen),
-        state, obs, max_steps)
+    state, _ = bh.wrapper_episode(
+        w, lambda o, armed: linear_policy_apply(W, vnorm.normalize(on, o)), state, obs, gen,
+        max_steps)
     rec = _flip_result(state)
     gated = (friction >= UPRIGHT_FRICTION_EDGE).tolist()
     return {"behavior": "backflip", "friction": friction.tolist(), "gated": gated,
@@ -134,27 +119,30 @@ def backflip(lanes: int = 64, device=None, seed: int = 0, settle: int = 2500,
 
 @torch.no_grad()
 def backflip_robust(lanes: int = 64, nominal: bool = False, device=None, seed: int = 0,
-                    settle: int = 2500, max_steps: int = 120) -> dict:
+                    settle: int = 2500, max_steps: int = 120, seeds=None,
+                    launch=POLICY_DIR / "backflip_launch_robust.npz",
+                    lander=POLICY_DIR / "backflip_landing_mlp.npz") -> dict:
+    """The launch policy flies until the autopilot has fired in a lane, the
+    landing policy after it. Every lane draws from one generator seeded
+    `seed`, or, with `seeds`, lane i replays seed i's own scenario and
+    noise stream (``rollout.seeded_reset``: validate_backflip_robust's
+    one episode per seed). `launch`, `lander`: the policy files."""
     device = resolve_device(device)
     env = _flip_env(device, settle, obs_noise=not nominal,
                     env_randomizer_mode="GROUND_RANDOMIZER" if nominal
                     else "TEST_RANDOMIZER")
     w = wr.LandingWrapperBackflip(env, variant="until_grounded")
-    W, on = convert.load_linear_policy(POLICY_DIR / "backflip_launch_robust.npz", device)
-    lander, _ = convert.load_small_mlp(POLICY_DIR / "backflip_landing_mlp.npz", device)
-    gen = torch.Generator(device).manual_seed(seed)
-    state, obs = env.reset(gen, lanes)
-    wstate = [w.init_state(lanes)]
-
-    def step(s, o):
-        # the launch policy flies until the autopilot has fired in a lane,
-        # the landing policy after it
-        o = vnorm.normalize(on, o)
-        a = torch.where(wstate[0].armed[:, None], linear_policy_apply(W, o), lander(o))
-        out, wstate[0] = w.step(s, a, gen, wstate[0])
-        return out
-
-    state = _wrapper_episode(step, state, obs, max_steps)
+    W, on = convert.load_linear_policy(launch, device)
+    lander_fn, _ = convert.load_small_mlp(lander, device)
+    if seeds is None:
+        noise = torch.Generator(device).manual_seed(seed)
+        state, obs = env.reset(noise, lanes)
+    else:
+        state, obs, noise = ro.seeded_reset(env, seeds)
+    state, _ = bh.wrapper_episode(
+        w, bh.launch_then_lander(lambda o: linear_policy_apply(W, vnorm.normalize(on, o)),
+                                 lambda o: lander_fn(vnorm.normalize(on, o))),
+        state, obs, noise, max_steps)
     return {"behavior": "backflip_nominal" if nominal else "backflip_robust",
             "randomizer": env.config.env_randomizer_mode, "obs_noise": not nominal,
             **_flip_result(state)}
@@ -175,9 +163,9 @@ def forward(lanes: int = 64, device=None, seed: int = 0, settle: int = 2500,
     gen = torch.Generator(device).manual_seed(seed)
     state, obs = env.reset(gen, lanes)
     x_start = state.robot.pos[:, 0]
-    state = _wrapper_episode(
-        lambda s, o: w.step(s, linear_policy_apply(W, vnorm.normalize(on, o)), gen),
-        state, obs, max_steps)
+    state, _ = bh.wrapper_episode(
+        w, lambda o, armed: linear_policy_apply(W, vnorm.normalize(on, o)), state, obs, gen,
+        max_steps)
     # forward distance is the base's x-displacement over the run: the
     # task's max_forward_distance is zeroed on grounded steps
     fwd = state.robot.pos[:, 0] - x_start

@@ -5,7 +5,10 @@ observations, top-b direction averaging; Mania, Guy, Recht 2018). The JAX
 package vmaps an episode rollout over the 2·D perturbed policies; here they
 are folded into the environment axis: one rollout of N = 2·D·bank lanes,
 each lane carrying its own W by gather and its action a batched product
-clipped to ±1.
+clipped to ±1. With observation noise each bank entry draws one noise
+stream, and every (sign, direction) lane of that entry replays it: r+ and
+r− of a direction see the same scenario and the same noise, the common
+random numbers of JAX's vmap over one bank of keyed states.
 """
 
 from __future__ import annotations
@@ -15,7 +18,7 @@ import warnings
 
 import torch
 
-from quadruped_springs_tpu_torch.env.env import take
+from quadruped_springs_tpu_torch.env.env import draw_noise, take
 from quadruped_springs_tpu_torch.train import normalize as vnorm
 from quadruped_springs_tpu_torch.train import rollout as ro
 from quadruped_springs_tpu_torch.train.networks import linear_policy_apply
@@ -82,19 +85,24 @@ class ARSTrainer:
     def train_step(self, ts: ARSState, deltas: torch.Tensor | None = None, bank=None):
         """One learner iteration; returns (new state, metrics of 0-d tensors).
         `deltas` (D, A, obs_dim), already scaled by delta_std, and `bank`
-        (states, obs) of reset_bank_size entries replace the draws."""
+        (states, obs) of reset_bank_size entries replace the draws. With
+        observation noise the generator then draws one noise stream per
+        bank entry (the drawn bank's first observations come from it)."""
         cfg, gen = self.config, ts.generator
         D, B = cfg.n_directions, cfg.reset_bank_size
         if deltas is None:
             deltas = torch.randn((D, *ts.W.shape), generator=gen,
                                  device=ts.W.device) * cfg.delta_std
+        noise = draw_noise(self.env, gen, B, cfg.episode_steps)
         if bank is None:
-            bank = ro.make_reset_bank(self.env, gen, B, curriculum_level=ts.curriculum_level)
+            bank = ro.make_reset_bank(self.env, gen, B, curriculum_level=ts.curriculum_level,
+                                      noise=noise)
         # lanes ordered (sign, direction, bank entry)
         W_lanes = torch.cat([ts.W + deltas, ts.W - deltas]).repeat_interleave(B, dim=0)
-        lanes = take(bank, torch.arange(B, device=ts.W.device).repeat(2 * D))
+        entry = torch.arange(B, device=ts.W.device).repeat(2 * D)
         rets, info = ro.episode_returns(self.env, self._policy(W_lanes, ts.obs_norm),
-                                        *lanes, cfg.episode_steps, gen)
+                                        *take(bank, entry), cfg.episode_steps,
+                                        gen if noise is None else noise.take(entry))
         r_plus, r_minus = rets.view(2, D, B).mean(-1)
 
         # top-b directions by max(r+, r-)
@@ -122,12 +130,16 @@ class ARSTrainer:
         """Deterministic episodes on fresh scenarios, from a generator of
         its own (seeded by the iteration) unless one is given, so evaluating
         does not move the training stream. `bank` (states, obs) replaces
-        the draw of the n_episodes starts."""
+        the draw of the n_episodes starts. Each episode has a noise stream
+        of its own, as in train_step."""
         if generator is None:
             generator = torch.Generator(self.env.device).manual_seed(123 + ts.iteration)
-        states, obs = (ro.make_reset_bank(self.env, generator, n_episodes) if bank is None
-                       else bank)
+        n = n_episodes if bank is None else bank[1].shape[0]
+        noise = draw_noise(self.env, generator, n, self.config.episode_steps)
+        states, obs = (ro.make_reset_bank(self.env, generator, n_episodes, noise=noise)
+                       if bank is None else bank)
         rets, info = ro.episode_returns(self.env, self._policy(ts.W, ts.obs_norm), states,
-                                        obs, self.config.episode_steps, generator)
+                                        obs, self.config.episode_steps,
+                                        generator if noise is None else noise)
         return {"return_mean": rets.mean(), "return_std": rets.std(unbiased=False),
                 "max_height": info["max_height"].max(), "max_fwd": info["max_fwd"].max()}

@@ -11,24 +11,57 @@ reads nothing on the host:
 Auto-reset swaps in states gathered from a pre-settled *reset bank* instead
 of settling again inside the rollout: same distribution, O(1) per step.
 `env` is a QuadrupedEnv or anything with its reset/step surface
-(RestTruncationWrapper, ContinuousAutopilotEnv).
+(RestTruncationWrapper, ContinuousAutopilotEnv). Where a generator is
+passed for the observation noise, ``env.NoiseStreams`` may be passed
+instead: each bank entry's noise then follows it into every lane that
+replays it, as the JAX state's key does.
 """
 
 from __future__ import annotations
 
-from typing import Callable
+import dataclasses
+from typing import Callable, Sequence
 
 import torch
 
-from quadruped_springs_tpu_torch.env.env import select, take
+from quadruped_springs_tpu_torch.env import randomizers as rnd
+from quadruped_springs_tpu_torch.env.env import NoiseStreams, max_env_steps, select, take
 from quadruped_springs_tpu_torch.utils import demo as demo_util
 
 
-def make_reset_bank(env, generator: torch.Generator, n: int, curriculum_level=None):
+def make_reset_bank(env, generator: torch.Generator, n: int, curriculum_level=None,
+                    noise: NoiseStreams | None = None):
     """n pre-settled reset states and their first observations, from one
     batched reset. `curriculum_level` (a Python number) widens the
-    randomisation ranges: the trainer-driven curriculum."""
-    return env.reset(generator, n, curriculum_level=curriculum_level)
+    randomisation ranges: the trainer-driven curriculum. `noise` gives the
+    first observations' noise (row 0 of each entry's stream)."""
+    kw = {} if noise is None else {"noise": noise}
+    return env.reset(generator, n, curriculum_level=curriculum_level, **kw)
+
+
+def seeded_reset(env, seeds: Sequence[int]):
+    """One lane per seed: its scenario and then its observation-noise stream
+    drawn from a generator of its own seeded by the seed, as
+    ``jax.random.PRNGKey(seed)`` decides both in the JAX package, so a
+    seed's lane is the same in any batch (the draws are the port's, not
+    JAX's). Returns (state, obs, noise): NoiseStreams of the env's episode
+    (``max_env_steps``) past the reset, None without observation noise."""
+    steps = max_env_steps(env)
+    scenarios, draws = [], []
+    for seed in seeds:
+        g = torch.Generator(env.device).manual_seed(int(seed))
+        scenarios.append(rnd.sample_scenario(env.cfg, env.config.env_randomizer_mode, g, 1,
+                                             env.config.curriculum_level))
+        if env.config.obs_noise:
+            draws.append(torch.randn((1, steps + 1, env.obs_dim), generator=g,
+                                     device=env.device))
+    scenario = dataclasses.replace(scenarios[0], **{
+        f.name: torch.cat([getattr(s, f.name) for s in scenarios])
+        for f in dataclasses.fields(scenarios[0])})
+    noise = (NoiseStreams(torch.cat(draws), torch.arange(len(draws), device=env.device))
+             if draws else None)
+    state, obs = env.reset(scenario=scenario, noise=noise)
+    return state, obs, noise
 
 
 def make_rsi_bank(env, demo: torch.Tensor, generator: torch.Generator, n: int):
@@ -42,7 +75,7 @@ def make_rsi_bank(env, demo: torch.Tensor, generator: torch.Generator, n: int):
 
 @torch.no_grad()
 def episode_returns(env, policy_fn: Callable, states, obs0: torch.Tensor, max_steps: int,
-                    generator: torch.Generator | None = None):
+                    generator: torch.Generator | NoiseStreams | None = None):
     """Roll full episodes from the given start states; returns the
     per-episode return (N,) and a dict: length, max_height, max_fwd (N,)
     and the observation moments obs_count (), obs_sum, obs_sumsq (d,) over

@@ -278,19 +278,26 @@ class FlipProbe:
         return flip_score_of(sf)
 
 
-def flip_outcome(sf):
-    """(rotated, upright) per lane of a final flip state."""
-    r22 = sp.quat_to_mat(sf.robot.quat)[:, 2, 2]
-    rot = sf.task.max_pitch_bf >= ROT_BAR
-    return rot, (r22 > UP_Z_BAR) & (sf.robot.pos[:, 2] > Z_BAR)
+def flip_lanes(sf) -> dict:
+    """The backflip gate per lane of a final state, (N,) tensors: the max
+    unwrapped pitch, R[2,2], the base height and the apex above the start,
+    `rotation` (pitch >= ROT_BAR) and `upright` (the pose alone, up_z and
+    z over their bars); a lane passes with both. Every backflip gate of
+    the port reads its verdict here."""
+    pitch = sf.task.max_pitch_bf
+    up_z = sp.quat_to_mat(sf.robot.quat)[:, 2, 2]
+    z = sf.robot.pos[:, 2]
+    return {"pitch_rad": pitch, "up_z": up_z, "z": z, "apex": sf.task.relative_max_height,
+            "rotation": pitch >= ROT_BAR, "upright": (up_z > UP_Z_BAR) & (z > Z_BAR)}
 
 
 def flip_score_of(sf) -> dict:
-    rot, up = flip_outcome(sf)
+    g = flip_lanes(sf)
+    rot, up = g["rotation"], g["upright"]
     return {"rotation_count": int(rot.sum()), "upright_count": int((rot & up).sum()),
             "n": int(rot.shape[0]),
-            "pitch_mean_rad": round(float(sf.task.max_pitch_bf.mean()), 3),
-            "apex_mean_m": round(float(sf.task.relative_max_height.mean()), 3)}
+            "pitch_mean_rad": round(float(g["pitch_rad"].mean()), 3),
+            "apex_mean_m": round(float(g["apex"].mean()), 3)}
 
 
 # -- stages -------------------------------------------------------------------
@@ -386,10 +393,10 @@ def collect_flip_demos(env, expert, n_demos: int, generator, path_of: Callable,
     landing = env.get_landing_action()
     sf, _, traj = fr.backflip_episode(env, expert, lambda o: landing.expand(o.shape[0], -1),
                                       state, obs, N_KNOTS, generator, record_rows=True)
-    rot, up = flip_outcome(sf)
+    g = flip_lanes(sf)
     rows = traj["row"].transpose(0, 1).cpu().numpy()
     valid = traj["row_valid"].transpose(0, 1).cpu().numpy()
-    picks, complete = keep_flip_demos(valid, (rot & up).cpu().numpy())
+    picks, complete = keep_flip_demos(valid, (g["rotation"] & g["upright"]).cpu().numpy())
     kept = save_demos(rows, valid, picks, path_of, env.device)
     entries = {"demo_episodes": n_demos, "demo_episodes_complete": complete,
                "demo_steps": int(sum(d.shape[0] for d in kept))}

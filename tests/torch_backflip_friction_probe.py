@@ -39,9 +39,9 @@ def run(frictions, device="cuda", lanes: int = 64, seed: int = 0, settle: int = 
     scenario = pr.dataclasses.replace(scenario, friction=torch.tensor(
         frictions, dtype=torch.float32, device=device))
     state, obs = env.reset(gen, scenario=scenario)
-    state = pr._wrapper_episode(
-        lambda s, o: w.step(s, pr.linear_policy_apply(W, pr.vnorm.normalize(on, o)), gen),
-        state, obs, max_steps)
+    state, _ = pr.bh.wrapper_episode(
+        w, lambda o, armed: pr.linear_policy_apply(W, pr.vnorm.normalize(on, o)), state, obs,
+        gen, max_steps)
     rec = pr._flip_result(state)
     return [{"friction": f, "ok": rec["ok"][i], "up_z": rec["up_z"][i],
              "pitch_rad": rec["pitch_rad"][i], "final_z": rec["final_z"][i],
