@@ -246,7 +246,26 @@ Phases (any failure raises, so the script exits non-zero):
      its 4 seeds; and the observation-noise repair on the card: ARS's r+
      and r− bitwise equal per bank entry at δ = 0 on the noisy forward task
      at its 256 lanes, and one candidate's flattened-flip score bitwise the
-     same alone as among 32.
+     same alone as among 32;
+ 26. the env step's reverse mode: right after phase 5, `env_substeps_vjp`
+     against autograd through env_substeps_plain on the card, on seeded
+     cotangents of every float output, at BPTT's width (BPTT_STATES
+     touchdown states of the lander's bank, BACKFLIP, TEST_RANDOMIZER),
+     phase 5's 1,024 x 10 (command interpolated with every 8th lane pushed,
+     held, TORQUE, on the rack, at the edges: lanes past their joint
+     limits, on the trunk's corners, on the knees) and
+     one environment: within phase 5's spread rule, by
+     env/substeps.py check_vjp, where an environment outside it passes only
+     within the same rule against the plain version taken along the
+     kernel's own substep starts (those at a kink, a branch taken apart by
+     the two forwards, are counted); rows 0-7 bitwise at
+     1,024, 8 and 2 environments; env_substeps's outputs bitwise with and
+     without requires_grad, autograd's backward one env_substeps_vjp launch
+     giving its cotangents bitwise; then (with the host-bound runs)
+     train_backflip_landing_mlp --optimizer bptt at its smoke budgets
+     (BEHAVIOUR_TRAINERS["landing_bptt"]): losses and gradient norms
+     finite, one env_substeps_vjp launch per control step of its
+     iterations, the npz's key set the JAX artifact's.
 Phase 11 also holds both loops to the transfer band of the JAX gate
 (executed apex > 0.45 m, upright, within LOOP_BAND of the largest planned
 apex; the JAX package's own loops meet 10% on the CPU).
@@ -376,6 +395,12 @@ BEHAVIOUR_TRAINERS = {
     "forward": ("train_behavior_policies", ["--task", "forward", "--iters", "1"],
                 {"forward_ars.npz": "forward_ars.npz"}),
     "validate": ("validate_backflip_robust", ["--n", "4"], {}),
+    # phase 26: the lander's --optimizer bptt at the smoke budgets
+    "landing_bptt": ("train_backflip_landing_mlp",
+                     ["--optimizer", "bptt", "--iters", "2", "--bank", "8", "--train-states",
+                      "4", "--horizon", "20", "--probe-every", "1", "--n-probe", "2",
+                      "--no-save-gate"],
+                     {"backflip_landing_mlp.npz": "backflip_landing_mlp.npz"}),
 }
 REPAIR_KNOTS, REPAIR_CANDIDATES = 60, 32
 # phase 24: the two-stage trainers at their --smoke budgets in the host-bound
@@ -475,15 +500,24 @@ F32_FLOPS_PER_S = 67e12          # float32 outside the tensor cores
 # float32 operations per (lane, motor or site[, tangent]), from the kernels' source
 FLOPS_PER_ELEM = {"actuation": 10, "contact": 20, "contact_anchored": 30,
                   "actuation_jvp": 6, "contact_jvp": 25,
-                  # per (environment, substep), counted by hand from
-                  # csrc/go1_dynamics.cuh and env_lane.cuh: ~2,350 per leg (its
+                  # per (environment, substep), counted by
+                  # tests/torch_env_opcount.py (csrc/env_lane.cuh's body on
+                  # the CPU with a counting float): the four legs' work (their
                   # kinematics, inertias, bias force, three sites' contact, 3x3
-                  # block and share of the base's Schur system) and ~650 for
-                  # the base (the trunk's bias, the 6x6 solve, the Euler update)
-                  "env_substeps": 10_000,
+                  # block and share of the base's Schur system), the base's
+                  # (the trunk's bias, the 6x6 solve, the Euler update) once,
+                  # though the four threads each do it, and the sum over the
+                  # legs once
+                  "env_substeps": 10_110,
                   # per (lane, substep): the same substep with the memoryless
                   # foot (csrc/env_lane.cuh lane_substep)
-                  "planner_rollout": 10_000}
+                  "planner_rollout": 10_000,
+                  # per (environment, substep) of env_substeps_vjp
+                  # (csrc/env_lane_vjp.cuh), counted as env_substeps's: one
+                  # forward and the adjoint; the kernel's second forward (its
+                  # recompute of each substep in the sweep) is its design's
+                  # choice, not work the function needs, and is not counted
+                  "env_substeps_vjp": 35_040}
 # env_substeps against its plain version: within ENV_SPREAD times the plain
 # version's own spread, plus REL_TOL of 1 + |plain|. The spread, per
 # environment and output field, is the larger of the plain version's change
@@ -502,6 +536,10 @@ ENV_GAP_ROWS, ENV_GAP_BLOCK = 8, 2
 # env_substeps_kernel's local memory a thread: the stack of sinf's and cosf's
 # reduction of huge arguments, off the common path; more is a spill
 ENV_LOCAL_BYTES = 32
+# env_substeps_vjp_kernel's: the adjoint's intermediates beyond its 255
+# registers (measured on an NVIDIA H100 80GB HBM3 at 700 W); more is a new
+# spill
+VJP_LOCAL_BYTES = 1528
 # planner_rollout against its plain version, both against the plain version
 # run in float64: per field and knot, and on the lanes' MPPI costs, these
 # quantiles over the lanes of the kernel's relative distance within
@@ -844,20 +882,6 @@ def substeps_rows(out):
     return {k: v.reshape(v.shape[0], -1).double() for k, v in parts.items()}
 
 
-def _float64_args(torch, args):
-    """env_substeps's arguments with every float32 tensor in float64 (the
-    model's too): the plain version runs in either."""
-    up = lambda t: t.double() if torch.is_tensor(t) and t.dtype == torch.float32 else t
-    robot, model, params = args[0], args[3], args[4]
-    return (dataclasses.replace(robot, **{f.name: up(getattr(robot, f.name))
-                                          for f in dataclasses.fields(robot)}),
-            up(args[1]), up(args[2]),
-            dataclasses.replace(model, **{f.name: up(getattr(model, f.name))
-                                          for f in dataclasses.fields(model)}),
-            dataclasses.replace(params, friction=up(params.friction)),
-            *(up(t) for t in args[5:13]), args[13], up(args[14]), args[15])
-
-
 def check_env_substeps(torch, ss, args, reps=30):
     """The `env_substeps` kernel against env_substeps_plain on the same
     arguments, within REL_TOL·(1 + |plain|) + ENV_SPREAD x the plain
@@ -883,7 +907,7 @@ def check_env_substeps(torch, ss, args, reps=30):
         return rows
 
     want, again = plain(args), plain(moved)
-    exact = substeps_rows(ss.env_substeps_plain(*_float64_args(torch, args)))
+    exact = substeps_rows(ss.env_substeps_plain(*ss.float64_args(args)))
     err, used = 0.0, 0.0
     for k, w in want.items():
         d = (got[k] - w).abs()
@@ -1525,15 +1549,16 @@ COUNTERS = {"env_substeps": ("ss", "launches"), "planner_rollout": ("ro", "launc
             "actuation_jvp": ("act", "jvp_launches"), "contact_jvp": ("dyn", "jvp_launches"),
             "actuation_bf16": ("act", "bf16_launches"), "contact_bf16": ("dyn", "bf16_launches"),
             "actuation_jvp_bf16": ("act", "bf16_jvp_launches"),
-            "contact_jvp_bf16": ("dyn", "bf16_jvp_launches")}
+            "contact_jvp_bf16": ("dyn", "bf16_jvp_launches"),
+            "env_substeps_vjp": ("vjp", "launches")}
 BF16_KERNELS = ("actuation_bf16", "contact_bf16", "actuation_jvp_bf16", "contact_jvp_bf16")
 
 
 def _counter_owner(act, dyn, which):
-    if which == "ss":
+    if which in ("ss", "vjp"):
         from quadruped_springs_tpu_torch.env import substeps
 
-        return substeps.env_substeps
+        return substeps.env_substeps if which == "ss" else substeps.env_substeps_vjp
     if which == "ro":
         from quadruped_springs_tpu_torch.solver import rollout
 
@@ -3065,8 +3090,6 @@ def check_example_widths(torch, act, dyn, ilqr, model):
         jvp = check_contact_jvp(torch, dyn, block)
         checks["contact_jvp"][tag], checks["contact_jvp"][tag + "_clamp"] = jvp[False], jvp[True]
     for name, by_setting in checks.items():
-        for r in by_setting.values():
-            r.pop("profile", None)
         worst = max(by_setting.values(), key=lambda r: r["max_abs_err"])
         ms = [r["ms"] for r in by_setting.values()]
         print(f"phase 23: {name} against its twin at the iLQR examples' widths "
@@ -3352,8 +3375,19 @@ def check_behaviour_trainers(results, kind):
     by_path, failed = {}, []
     for job, res in results.items():
         rec, code = res["record"], res["code"]
+        bptt = rec.get("bptt")
+        vjp = 0 if bptt is None else bptt["control_steps"]
         check_counts(res["launches"], {**res["want"], "planner_rollout": 0,
+                                       "env_substeps_vjp": vjp,
                                        **dict.fromkeys(BF16_KERNELS, 0)}, 25)
+        if bptt is not None:
+            if bptt["env_substeps_vjp_launches"] != vjp or vjp == 0:
+                failed.append(f"{job}: {bptt['env_substeps_vjp_launches']} env_substeps_vjp "
+                              f"launches for {vjp} control steps")
+            print(f"phase 26: {BEHAVIOUR_TRAINERS[job][0]} --optimizer bptt at its smoke "
+                  f"budgets in {res['seconds']:.2f} s on {kind}: losses {bptt['loss']}, "
+                  f"gradient norms {bptt['grad_norm']}, {vjp} env_substeps_vjp launches for "
+                  f"{vjp} control steps; stages {rec['stage_seconds']}", flush=True)
         by_path[f"behaviour_{job}"] = res["launches"]
         if res["launches"]["env_substeps"] == 0:
             failed.append(f"{job}: env_substeps never launched")
@@ -3605,6 +3639,206 @@ def check_examples(results, kind):
     return by_path
 
 
+# ---------------------------------------------------------------------------
+# Phase 26: the env step's reverse mode, env_substeps_vjp
+# ---------------------------------------------------------------------------
+VJP_SOURCE = "quadruped_springs_tpu_torch/csrc/env_step_vjp.cu"
+# the TPU side: jax.value_and_grad through the control step (XLA's reverse
+# mode of row 3's fusion) in the lander's --optimizer bptt
+VJP_REPLACES = "scripts/train_backflip_landing_mlp.py:387"
+BPTT_STATES = 24                  # the lander's --train-states: BPTT's width
+
+
+def vjp_cotangents(torch, ss, args, seed):
+    """Seeded standard-normal cotangents of env_substeps's float outputs on
+    `args`, one tensor per ss.GRAD_OUTPUTS field."""
+    out = ss.env_substeps(*args)
+    gen = torch.Generator("cuda").manual_seed(seed)
+    return [torch.randn(o.shape, generator=gen, device="cuda") for o in ss.output_fields(out)]
+
+
+def check_env_substeps_vjp(torch, ss, args, seed, reps=10):
+    """The `env_substeps_vjp` kernel against env_substeps_vjp_plain (autograd
+    through env_substeps_plain) on the same arguments and seeded cotangents,
+    by phase 5's rule (REL_TOL, ENV_SPREAD) as env/substeps.py check_vjp
+    holds it; raises on a failure. Times the kernel through
+    its wrapper and alone, and the plain version."""
+    from quadruped_springs_tpu_torch import kernels
+
+    cot = vjp_cotangents(torch, ss, args, seed)
+    got = ss.env_substeps_vjp(*args, cot)
+    torch.cuda.synchronize()
+    r = ss.check_vjp(args, cot, got, REL_TOL, ENV_SPREAD)
+    if r["failures"]:
+        raise AssertionError(f"env_substeps_vjp: {len(r['failures'])} of {args[0].q.shape[0]} "
+                             f"environments fail: {r['failures'][:3]}")
+    one = lambda: ss.env_substeps_vjp(*args, cot)
+    launch, grads, keep = ss.vjp_launch_args(*args, cot)
+    robot = args[0]
+    run, stream = kernels.library().env_substeps_vjp, kernels.stream_handle(robot.q.device)
+    n, substeps, ext = robot.q.shape[0], args[13], args[14]
+    friction = args[4].friction
+    inputs = [robot.pos, robot.quat, robot.lin_vel, robot.ang_vel, robot.q, robot.qd,
+              *args[1:3], *args[5:13], ss.pack_model(args[3]),
+              *(t for t in (friction, ext) if torch.is_tensor(t)), *cot]
+    return {**r, "ms": cuda_time_ms(torch, one, reps=reps),
+            "profile": (one, "env_substeps_vjp_kernel"),
+            "kernel_ms": cuda_time_ms(torch, lambda: run(*launch, stream), reps=reps, inner=5),
+            "plain_ms": cuda_time_ms(torch, lambda: ss.env_substeps_vjp_plain(*args, cot),
+                                     reps=2),
+            **roofline("env_substeps_vjp", n * substeps, inputs, list(grads))}
+
+
+def bptt_touchdown_states(torch, kind):
+    """BPTT_STATES post-touchdown BACKFLIP states under TEST_RANDOMIZER with
+    observation noise, as the lander's bank holds them: the committed launch
+    through the "until_grounded" autopilot (train_backflip_landing_mlp
+    collect_bank). Returns (env, states)."""
+    from quadruped_springs_tpu_torch import convert
+    from quadruped_springs_tpu_torch import train_backflip_landing_mlp as lander
+    from quadruped_springs_tpu_torch.env import wrappers as wr
+    from quadruped_springs_tpu_torch.policy_replay import POLICY_DIR
+    from quadruped_springs_tpu_torch.train import behaviour as bh
+
+    env = bh.flip_env("cuda", "TEST_RANDOMIZER", obs_noise=True, max_ep_len=lander.EP_LEN)
+    w = wr.LandingWrapperBackflip(env, variant="until_grounded")
+    W, on = convert.load_linear_policy(str(POLICY_DIR / "backflip_ars.npz"), "cuda")
+    states, _, _, tries, rot = lander.collect_bank(env, w, bh.linear_act(W, on), BPTT_STATES,
+                                                   lambda m: None)
+    print(f"phase 26: {BPTT_STATES} touchdown states of the lander's bank ({tries} seeds, "
+          f"{rot} full rotations) on {kind}", flush=True)
+    return env, states
+
+
+def env_substeps_vjp_settings(torch, env_bench, landing, kind):
+    """Phase 26's settings: BPTT's width (BPTT_STATES touchdown states, the
+    lander's random action held for 10 substeps); phase 5's 1,024
+    environments x 10 substeps with the command interpolated and every 8th
+    lane pushed ("env"), the same command held, TORQUE mode, on the rack and
+    at the edges (ss.edge_states: every 4th lane past its joint limits,
+    every 8th on its back on the trunk's corners and every 8th folded onto
+    its knees); and one environment (lane 3 of "env": pushed, command
+    interpolated).
+    Returns ({setting: env_substeps's arguments}, (env, state, q_des, ext)
+    of "env")."""
+    from quadruped_springs_tpu_torch.control import interfaces as ci
+    from quadruped_springs_tpu_torch.env import substeps as ss
+    from quadruped_springs_tpu_torch.env.env import take
+
+    settings5, (env, state, q_des, ext) = env_substeps_settings(torch, env_bench, landing)
+    flip, bank = bptt_touchdown_states(torch, kind)
+    gen = torch.Generator("cuda").manual_seed(26)
+    action = 2.0 * torch.rand((BPTT_STATES, flip.action_dim), generator=gen,
+                              device="cuda") - 1.0
+    lane = torch.arange(3, 4, device="cuda")
+    settings = {
+        f"bptt_{BPTT_STATES}": env_substeps_args(
+            flip, bank, ci.action_to_command(flip.iface, action).contiguous(), 10),
+        "env": settings5["env"],
+        "env_held": env_substeps_args(env, state, q_des[:, -1].contiguous(), 10),
+        "env_torque": settings5["env_torque"],
+        "env_on_rack": settings5["env_on_rack"],
+        "env_edges": ss.edge_states(settings5["env"], limits=range(1, ENVS, 4),
+                                    upside_down=range(6, ENVS, 8), folded=range(7, ENVS, 8)),
+        "env_1": env_substeps_args(env, take(state, lane), q_des[lane].contiguous(), 10,
+                                   ext=ext[lane].contiguous())}
+    return settings, (env, state, q_des, ext)
+
+
+def check_env_substeps_vjp_batching(torch, ss, env, state, q_des, ext):
+    """Rows 0-ENV_GAP_ROWS-1 of one env_substeps_vjp launch at N
+    environments, at ENV_GAP_ROWS and in blocks of ENV_GAP_BLOCK, on the same
+    rows of the cotangents: bitwise equal. Returns max |d| per batching."""
+    from quadruped_springs_tpu_torch.env.env import take
+
+    n = state.robot.q.shape[0]
+    full_args = env_substeps_args(env, state, q_des, 10, ext=ext)
+    cot = vjp_cotangents(torch, ss, full_args, 27)
+
+    def rows(a, b):
+        idx = torch.arange(a, b, device="cuda")
+        return ss.vjp_rows(ss.env_substeps_vjp(
+            *env_substeps_args(env, take(state, idx), q_des[idx].contiguous(), 10,
+                               ext=ext[idx].contiguous()),
+            [c[idx].contiguous() for c in cot]))
+
+    full, whole = rows(0, n), rows(0, ENV_GAP_ROWS)
+    blocks = [rows(i, i + ENV_GAP_BLOCK) for i in range(0, ENV_GAP_ROWS, ENV_GAP_BLOCK)]
+    gap = {}
+    for name, sol in ((str(n), full), (f"{ENV_GAP_ROWS // ENV_GAP_BLOCK} x {ENV_GAP_BLOCK}",
+                                       None)):
+        gap[name] = max(float(((torch.cat([b[k] for b in blocks]) if sol is None
+                                else sol[k][:ENV_GAP_ROWS]) - whole[k]).abs().max())
+                        for k in whole)
+    return gap
+
+
+def check_forward_under_grad(torch, ss, args):
+    """env_substeps's outputs on `args` with and without requires_grad on
+    the state, anchors and command: bitwise equal (the forward kernel runs
+    unchanged under _EnvSubsteps); the backward of those outputs through
+    autograd launches env_substeps_vjp once and gives env_substeps_vjp's
+    cotangents bitwise. Returns the launches of the backward."""
+    plain_out = ss.env_substeps(*args)
+    robot = args[0]
+    leaves = [t.detach().clone().requires_grad_() for t in (
+        *(getattr(robot, f) for f in ss.ROBOT_FIELDS), args[1], args[2])]
+    grad_args = (dataclasses.replace(robot, **dict(zip(ss.ROBOT_FIELDS, leaves[:6]))),
+                 leaves[6], leaves[7], *args[3:])
+    with torch.enable_grad():
+        out = ss.env_substeps(*grad_args)
+        for a, b in zip(ss.output_fields(plain_out) + [plain_out.feet_in_contact,
+                                                       plain_out.invalid_contact],
+                        ss.output_fields(out) + [out.feet_in_contact, out.invalid_contact]):
+            if not torch.equal(a, b.detach()):
+                raise AssertionError("phase 26: env_substeps's outputs differ under grad")
+        cot = vjp_cotangents(torch, ss, args, 28)
+        before = ss.env_substeps_vjp.launches
+        grads = torch.autograd.grad(ss.output_fields(out), leaves, cot)
+        launches = ss.env_substeps_vjp.launches - before
+    direct = ss.env_substeps_vjp(*args, cot)
+    for k, a, b in zip(ss.VJP_FIELDS, grads, direct):
+        if not torch.equal(a, b):
+            raise AssertionError(f"phase 26: autograd's d_{k} differs from env_substeps_vjp's")
+    if launches != 1:
+        raise AssertionError(f"phase 26: the backward launched env_substeps_vjp {launches} "
+                             f"times, expected 1")
+    return launches
+
+
+def check_env_substeps_vjp_shapes(torch, ss, env_bench, landing, kind):
+    """Phase 26, kernel part: env_substeps_vjp against its plain version at
+    env_substeps_vjp_settings; rows 0-7 bitwise at 1,024, 8 and 2
+    environments; env_substeps's outputs bitwise with and without grad."""
+    settings, (env, state, q_des, ext) = env_substeps_vjp_settings(torch, env_bench, landing,
+                                                                   kind)
+    checks = {}
+    for i, (setting, args) in enumerate(settings.items()):
+        r = checks[setting] = check_env_substeps_vjp(torch, ss, args, seed=260 + i)
+        print(f"phase 26: env_substeps_vjp ({setting}) at {args[0].q.shape[0]} environments x "
+              f"10 substeps: max_abs_err {r['max_abs_err']:.3e} (bound {REL_TOL}·(1+|plain|) + "
+              f"{ENV_SPREAD} x the plain version's spread; {r['spread_used']:.2f} spreads "
+              f"used; {len(r['along'])} environments held along the kernel's own substep "
+              f"starts, of them at a proven kink {r['kinks']}), kernel "
+              f"{r['ms']:.4f} ms through its wrapper, "
+              f"{r['kernel_ms'] * 1e3:.2f} µs on the card (back-to-back launches between two "
+              f"CUDA events), plain (autograd) {r['plain_ms']:.2f} ms; bound "
+              f"{r['bound_ms'] * 1e3:.3f} µs ({r['bytes']} bytes, by {r['bound_by']}) on {kind}",
+              flush=True)
+    gap = check_env_substeps_vjp_batching(torch, ss, env, state, q_des, ext)
+    print(f"phase 26: env_substeps_vjp rows 0-{ENV_GAP_ROWS - 1} of {ENVS} environments against "
+          f"the same rows launched as {ENV_GAP_ROWS} and in blocks of {ENV_GAP_BLOCK}: max |d| "
+          f"{gap} (0: bitwise equal)", flush=True)
+    if any(v != 0.0 for v in gap.values()):
+        raise AssertionError(f"phase 26: env_substeps_vjp rows depend on the batch: {gap}")
+    for setting in (f"bptt_{BPTT_STATES}", "env", "env_torque", "env_on_rack"):
+        check_forward_under_grad(torch, ss, settings[setting])
+    print("phase 26: env_substeps's outputs bitwise equal with and without requires_grad "
+          "(4 settings); autograd's backward launched env_substeps_vjp once each and gave its "
+          "cotangents bitwise", flush=True)
+    return checks, gap
+
+
 def main():
     import torch
 
@@ -3637,12 +3871,15 @@ def main():
     print(f"phase 2: built and loaded {kernels.build().name} in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     log = kernels.build_log().splitlines()
-    for kernel in ("env_substeps_kernel", "planner_rollout_kernel"):
+    for kernel in ("env_substeps_kernel", "planner_rollout_kernel", "env_substeps_vjp_kernel"):
         i = next(i for i, line in enumerate(log)
                  if "Compiling entry function" in line and kernel in line)
         usage = " | ".join(x.strip() for x in log[i + 2:i + 4])
         print(f"phase 2: {kernel} (nvcc -Xptxas -v): {usage}", flush=True)
-        if "0 bytes spill stores, 0 bytes spill loads" not in usage:
+        # the two forward kernels must not spill; the adjoint's
+        # intermediates outgrow 255 registers (its stack is gated below)
+        if ("0 bytes spill stores, 0 bytes spill loads" not in usage
+                and kernel != "env_substeps_vjp_kernel"):
             raise AssertionError(f"phase 2: {kernel} spills to local memory: {usage}")
     occ = ss.occupancy()
     print(f"phase 2: env_substeps_kernel: {occ['registers']} registers and "
@@ -3650,6 +3887,15 @@ def main():
           f"threads a block, {occ['blocks_per_sm']} blocks ({occ['warps_per_sm']} warps) an SM "
           f"(env_substeps_occupancy: cudaFuncGetAttributes, "
           f"cudaOccupancyMaxActiveBlocksPerMultiprocessor)", flush=True)
+    vocc = ss.occupancy("env_substeps_vjp")
+    print(f"phase 2: env_substeps_vjp_kernel: {vocc['registers']} registers and "
+          f"{vocc['local_bytes']} bytes of local memory a thread (the adjoint's spilled "
+          f"intermediates), {vocc['threads_per_block']} threads a block, "
+          f"{vocc['blocks_per_sm']} blocks ({vocc['warps_per_sm']} warps) an SM", flush=True)
+    if vocc["local_bytes"] > VJP_LOCAL_BYTES:
+        raise AssertionError(f"phase 2: env_substeps_vjp_kernel holds {vocc['local_bytes']} "
+                             f"bytes of local memory a thread, more than its "
+                             f"{VJP_LOCAL_BYTES}")
     if occ["local_bytes"] > ENV_LOCAL_BYTES:
         raise AssertionError(f"phase 2: env_substeps_kernel holds {occ['local_bytes']} bytes of "
                              f"local memory a thread, more than the {ENV_LOCAL_BYTES} of "
@@ -3735,6 +3981,8 @@ def main():
         checks.setdefault(name, {}).update(by_setting)
     checks["env_substeps"], env_gap = check_env_substeps_shapes(torch, ss, env_bench, landing,
                                                                 kind)
+    checks["env_substeps_vjp"], vjp_gap = check_env_substeps_vjp_shapes(torch, ss, env_bench,
+                                                                        landing, kind)
 
     by_path["env_rollout"], step_syncs, env_breakdown = run_env_bench(
         torch, env_bench, act, dyn, rnd, spatial, kind)
@@ -3796,14 +4044,16 @@ def main():
     replaces = {name: "scripts/pallas_microbench.py:" + ("96" if name.startswith("actuation")
                                                           else "153") for name in checks}
     replaces["env_substeps"] = replaces["planner_rollout"] = "scripts/pallas_microbench.py:96,153"
-    sources = {"env_substeps": ENV_SOURCE, "planner_rollout": ROLLOUT_SOURCE}
-    gaps = {"env_substeps": env_gap, "planner_rollout": rollout_gap}
+    replaces["env_substeps_vjp"] = VJP_REPLACES
+    sources = {"env_substeps": ENV_SOURCE, "planner_rollout": ROLLOUT_SOURCE,
+               "env_substeps_vjp": VJP_SOURCE}
+    gaps = {"env_substeps": env_gap, "planner_rollout": rollout_gap, "env_substeps_vjp": vjp_gap}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",
          "source": sources.get(name, SOURCE),
          "replaces": replaces[name],
-         "launches": sum(c[name] for c in by_path.values()),
-         "launches_by_path": {p: c[name] for p, c in by_path.items()},
+         "launches": sum(c.get(name, 0) for c in by_path.values()),
+         "launches_by_path": {p: c.get(name, 0) for p, c in by_path.items()},
          "max_abs_err": max(r["max_abs_err"] for r in by_setting.values()),
          **{k: next(iter(by_setting.values()))[k]
             for k in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by")},

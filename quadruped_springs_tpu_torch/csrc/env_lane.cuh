@@ -27,6 +27,17 @@
 
 #include "go1_dynamics.cuh"
 
+// Marks around the base's work, which the four threads of a robot do alike,
+// and (QS_RECOMPUTE) around the adjoint's recompute of a substep's forward:
+// empty in the kernels. tests/env_substeps_opcount.cpp defines them to count
+// the function's operations, the base's once a robot and the recompute not.
+#ifndef QS_BASE_WORK
+#define QS_BASE_WORK(on)
+#endif
+#ifndef QS_RECOMPUTE
+#define QS_RECOMPUTE(on)
+#endif
+
 namespace qs {
 
 // Floats per scenario of the packed model (env/substeps.py pack_model, the
@@ -70,8 +81,11 @@ struct EnvArgs {
 // The argument list of the extern "C" entry points (env_step.cu's
 // launcher and the host build of tests/env_substeps_host.cpp): the consts
 // as a host float array of sizeof(EnvConsts) / 4, then EnvArgs's members in
-// order, then the stream. Both fill the same structures through these.
-#define QS_ENV_SUBSTEPS_PARAMS                                                  \
+// order (QS_ENV_SUBSTEPS_ARGS), then the stream. Both fill the same
+// structures through these; env_step_vjp.cu's entry point takes the same
+// arguments before its own.
+#define QS_ENV_SUBSTEPS_PARAMS QS_ENV_SUBSTEPS_ARGS, void *stream
+#define QS_ENV_SUBSTEPS_ARGS                                                    \
   const float *consts, int n_consts, const float *pos, const float *quat,      \
       const float *lin_vel, const float *ang_vel, const float *q,              \
       const float *qd, const float *anchor, const float *q_des,                \
@@ -87,8 +101,7 @@ struct EnvArgs {
       float *q_out, float *qd_out, float *anchor_out, float *tau_out,          \
       float *tau_m_out, float *tau_m_sum_out, float *foot_force_out,           \
       bool *feet_in_contact_out, bool *invalid_contact_out, int64_t n,         \
-      int substeps, int on_rack, int clamp_damping, int torque_mode,           \
-      void *stream
+      int substeps, int on_rack, int clamp_damping, int torque_mode
 
 #define QS_ENV_ARGS_FROM_PARAMS                                                 \
   qs::EnvArgs{pos, quat, lin_vel, ang_vel, q, qd, anchor, q_des, q_des_env,        \
@@ -301,8 +314,10 @@ QS_FN void lane_substep(const EnvConsts& k, const LegModel& c, const float* cmd,
   }
 
   // ---- the base's motion and the leg's articulated quantities -------------
+  QS_BASE_WORK(true);
   M3 R = quat_to_m3(s.quat);
   V3 w_b = mul_t(R, s.ang_vel), v_b = mul_t(R, s.lin_vel), g_b = mul_t(R, c.g);
+  QS_BASE_WORK(false);
   Leg L = leg_kinematics(k, c.hip, c.thigh, s.q, c.bodies);
   V3 f0t, f0b;
   float h[3];
@@ -382,6 +397,7 @@ QS_FN void lane_substep(const EnvConsts& k, const LegModel& c, const float* cmd,
     quad.sum(share);
 
     // ---- the base: trunk + the legs' shares, solved by every thread -------
+    QS_BASE_WORK(true);
     V3 ht, hb;
     trunk_bias(c.trunk, w_b, v_b, g_b, &ht, &hb);
     V3 fe = mul_t(R, f_ext);
@@ -395,6 +411,7 @@ QS_FN void lane_substep(const EnvConsts& k, const LegModel& c, const float* cmd,
       if (has_ext && i >= 3) t6[i] = t6[i] + at(fe, i - 3);
     }
     chol6_solve(S, t6, eps, a0);
+    QS_BASE_WORK(false);
     float rj[3];
 #pragma unroll
     for (int j = 0; j < 3; ++j)
@@ -407,8 +424,10 @@ QS_FN void lane_substep(const EnvConsts& k, const LegModel& c, const float* cmd,
   }
 
   // ---- semi-implicit Euler (dynamics.step) --------------------------------
+  QS_BASE_WORK(true);
   V3 w_new = add(w_b, scale(k.dt, v3(a0[0], a0[1], a0[2])));
   V3 v_new = add(v_b, scale(k.dt, v3(a0[3], a0[4], a0[5])));
+  QS_BASE_WORK(false);
 #pragma unroll
   for (int j = 0; j < 3; ++j) {
     s.qd[j] = clip(s.qd[j] + k.dt * qdd[j], -c.vlim[j], c.vlim[j]);
@@ -418,10 +437,12 @@ QS_FN void lane_substep(const EnvConsts& k, const LegModel& c, const float* cmd,
     w_new = v3(0.0f, 0.0f, 0.0f);
     v_new = v3(0.0f, 0.0f, 0.0f);
   }
+  QS_BASE_WORK(true);
   quat_integrate(s.quat, w_new, k.half_dt, k.half_dt2);
   s.lin_vel = mul(R, v_new);
   s.ang_vel = mul(R, w_new);
   s.pos = add(s.pos, scale(k.dt, s.lin_vel));
+  QS_BASE_WORK(false);
 }
 
 template <class Quad>

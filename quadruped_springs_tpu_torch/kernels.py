@@ -40,6 +40,9 @@ _I64 = ctypes.c_int64
 ENV_SUBSTEPS_ARGTYPES = ([_P, ctypes.c_int] + [_P] * 8 + [_I64, _I64] + [_P] * 14
                          + [_I64, _P, _I64] + [_P] * 13
                          + [_I64] + [ctypes.c_int] * 4 + [_P])
+# env_substeps's arguments but the stream, then the 11 output cotangents
+# (null: zero), the 8 input cotangents, the scratch and the stream
+ENV_SUBSTEPS_VJP_ARGTYPES = ENV_SUBSTEPS_ARGTYPES[:-1] + [_P] * 20 + [_P]
 PLANNER_ROLLOUT_ARGTYPES = ([_P, ctypes.c_int] + [_P] * 12 + [_I64, _P, _I64]
                             + [ctypes.c_int] * 4 + [_P])
 _SIGNATURES = {
@@ -75,6 +78,13 @@ _SIGNATURES = {
     # out (5 ints): env_substeps's blocks an SM, threads a block, registers
     # and local bytes a thread, shared bytes a block
     "env_substeps_occupancy": [_P],
+    # env_substeps's arguments but the stream; the cotangents of pos, quat,
+    # lin_vel, ang_vel, q, qd, anchor, tau, tau_m, tau_m_sum, foot_forces
+    # (each may be null); the results d_pos .. d_anchor, d_q_des; the scratch
+    # (4N, substeps, 21); stream (csrc/env_lane_vjp.cuh)
+    "env_substeps_vjp": ENV_SUBSTEPS_VJP_ARGTYPES,
+    # out (5 ints): as env_substeps_occupancy, of env_substeps_vjp's kernel
+    "env_substeps_vjp_occupancy": [_P],
     # consts (host float array), n_consts, x0, q_des, kp, kd, torque_limits,
     # velocity_limits, rest, sign, spring_k, spring_b, friction, model,
     # scenario_stride, xs, n_problems, repeats, horizon, substeps,

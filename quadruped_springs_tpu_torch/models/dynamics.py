@@ -365,7 +365,10 @@ def contact_forces_anchored_plain(phi, v_w, foot_xy, foot_anchor, mu, kn: float,
     f_trial = -kt * (foot_xy - foot_anchor) - ct * v_w[:, :4, :2]
     f_norm = sp.safe_norm(f_trial)        # >= 1e-6 through the floor
     fmax = (mu[..., None] if torch.is_tensor(mu) else mu) * fn[:, :4]
-    clip_scale = torch.clamp_max(fmax / f_norm, 1.0)
+    # min, not clamp_max: its derivative at a tie is one half, as
+    # jnp.minimum(1.0, ...)'s is (quadruped_springs_tpu/models/dynamics.py:364)
+    ratio = fmax / f_norm
+    clip_scale = torch.minimum(ratio, torch.ones_like(ratio))
     f_foot = f_trial * clip_scale[..., None]
     a_slid = foot_xy + f_foot / kt
     new_anchor = torch.where((clip_scale < 1.0)[..., None], a_slid, foot_anchor)
@@ -657,7 +660,8 @@ def step(model: Go1Model, params: SimParams, state: RobotState, tau,
     dt = params.dt
     w_b = w_b + dt * a0[:, :3]
     v_b = v_b + dt * a0[:, 3:]
-    qd = torch.clamp(state.qd + dt * qdd, -velocity_limits, velocity_limits)
+    # min(max()), not clamp: jnp.clip's derivative at a tie, one half
+    qd = torch.minimum(torch.maximum(state.qd + dt * qdd, -velocity_limits), velocity_limits)
     if params.on_rack:
         w_b = torch.zeros_like(w_b)
         v_b = torch.zeros_like(v_b)

@@ -152,12 +152,20 @@ def linear_act(W: torch.Tensor, on: vnorm.RunningNorm) -> Callable:
     return lambda o: torch.clamp(sp.mv(W, vnorm.normalize(on, o)), -1.0, 1.0)
 
 
+def clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
+    """x clipped to [lo, hi] as min(max(x, lo), hi): the values of
+    torch.clamp, and jnp.clip's derivative at a tie, one half (torch.clamp's
+    is one). The lander starts at W2 = 0 and b2 = the landing action, so an
+    action component exactly at ±1 is plausible where BPTT differentiates."""
+    return torch.minimum(torch.maximum(x, torch.full_like(x, lo)), torch.full_like(x, hi))
+
+
 def mlp_act(p: dict, on: vnorm.RunningNorm) -> Callable:
     """The scripts' one-hidden-layer lander, clip(W2 tanh(W1 o + b1) + b2)
     of the normalised observation; leaves shared or (N, ...) per lane."""
     def act(o):
         h = torch.tanh(sp.mv(p["W1"], vnorm.normalize(on, o)) + p["b1"])
-        return torch.clamp(sp.mv(p["W2"], h) + p["b2"], -1.0, 1.0)
+        return clip(sp.mv(p["W2"], h) + p["b2"], -1.0, 1.0)
     return act
 
 
@@ -290,12 +298,13 @@ def run_to_touchdown(w: wr.LandingWrapperBackflip, launch: Callable, state, obs,
 
 # -- shaped objectives --------------------------------------------------------
 
-@torch.no_grad()
-def stab_score(env, act: Callable, state0, obs0, noise, horizon: int):
+def stab_return(env, act: Callable, state0, obs0, noise, horizon: int):
     """The lander's shaped stabilisation return from touchdown states, per
     lane (train_backflip_landing_mlp.py `stab_score`): the env steps on
     after done as the script's scan does, the shaped terms stop. Returns
-    (total (N,), strict (N,) bool)."""
+    (total (N,), strict (N,) bool). Differentiable: under grad, the total's
+    gradient runs back through every env.step (the lander's --optimizer
+    bptt); `stab_score` is the same under no_grad."""
     state, obs = state0, obs0
     done_ever = torch.zeros(obs0.shape[0], dtype=torch.bool, device=obs0.device)
     rews = []
@@ -307,7 +316,7 @@ def stab_score(env, act: Callable, state0, obs0, noise, horizon: int):
         w2 = sp.sum_fixed(state2.robot.ang_vel ** 2)
         rews.append(torch.where(
             alive,
-            0.4 * torch.clamp(up_z, 0.0, 1.0) + 0.3 * torch.exp(-20.0 * (z - Z_STAND) ** 2)
+            0.4 * clip(up_z, 0.0, 1.0) + 0.3 * torch.exp(-20.0 * (z - Z_STAND) ** 2)
             + 0.1 * torch.exp(-0.3 * w2) + 0.3, 0.0) / horizon)
         done_ever = done_ever | d
         state, obs = state2, obs2
@@ -316,10 +325,14 @@ def stab_score(env, act: Callable, state0, obs0, noise, horizon: int):
     alive_f = (~done_ever).to(torch.float32)
     strict = ~done_ever & g["upright"]
     terminal = (torch.where(strict, 1.0, 0.0)
-                + 0.5 * alive_f * torch.clamp(up_f, 0.0, 1.0)
+                + 0.5 * alive_f * clip(up_f, 0.0, 1.0)
                 + 0.5 * alive_f * torch.sigmoid(30.0 * (up_f - UP_Z_BAR))
                 + 0.5 * alive_f * torch.sigmoid(200.0 * (rot_f - ROT_BAR)))
     return sp.sum_fixed(torch.stack(rews), 0) + terminal, strict
+
+
+stab_score = torch.no_grad()(stab_return)
+stab_score.__doc__ = """stab_return under no_grad: the ARS paths' scorer."""
 
 
 @torch.no_grad()

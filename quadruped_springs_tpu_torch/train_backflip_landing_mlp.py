@@ -28,10 +28,19 @@ script's keys and prints a JSON line with the script's keys (nominal,
 rotation, upright, bank_strict_val) and the run's seconds and env_substeps
 launches a phase; the exit code is the script's. ``--out`` is a directory
 (default ``runs/backflip_landing_mlp``), never under ``examples/``.
-``--optimizer bptt`` is refused: it differentiates through ``env.step``,
-and the card's ``env_substeps`` kernel has no reverse mode (ROADMAP queue
-1). The MLP's initial W1 is drawn by a torch generator seeded 3, not by
-``jax.random``; the ARS draws are the script's numpy ones.
+``--optimizer bptt`` replaces phase 2's ARS step by the script's analytic
+policy gradient: per iteration the minibatch's loss, minus the mean shaped
+return under one parameter set (`behaviour.stab_return`), is differentiated
+by autograd back through every ``env.step`` (on the card the backward of
+each control step is one launch of the ``env_substeps_vjp`` kernel), the
+gradient clipped to global norm 1 and applied by Adam at ``--lr`` (optax's
+``chain(clip_by_global_norm(1.0), adam(lr))``); the probes, the selection,
+validation and the save gate are ARS's; ``--save-every k`` keeps every k-th
+update's starting iterate and minibatch in
+``<out>/backflip_landing_mlp.iterates.npz`` (tests/torch_bptt_grad_probe.py
+reads it). The MLP's initial W1 is drawn by a
+torch generator seeded 3, not by ``jax.random``; the minibatch and ARS draws
+are the script's numpy ones.
 """
 
 from __future__ import annotations
@@ -48,8 +57,10 @@ import torch
 
 from quadruped_springs_tpu_torch import convert
 from quadruped_springs_tpu_torch.env import wrappers as wr
+from quadruped_springs_tpu_torch.env import substeps as ss
 from quadruped_springs_tpu_torch.env.env import NoiseStreams, take
 from quadruped_springs_tpu_torch.env_bench import device_name, resolve_device
+from quadruped_springs_tpu_torch.models import spatial as sp
 from quadruped_springs_tpu_torch.policy_replay import POLICY_DIR
 from quadruped_springs_tpu_torch.train import behaviour as bh
 from quadruped_springs_tpu_torch.train import rollout as ro
@@ -61,10 +72,6 @@ NOM_SEED0, PROBE_SEED0, VAL_SEED0 = 1000, 55000, 77000
 N_NOM, N_VAL, UPRIGHT_BAR = 4, 12, 10
 EARLY_STOP_ITER = 40
 MLP_KEYS = ("W1", "b1", "W2", "b2")
-BPTT_REFUSED = ("--optimizer bptt differentiates the shaped return through env.step; the "
-                "card's env_substeps kernel has no reverse mode, and this port runs no "
-                "path on the plain version in its place. See ROADMAP.md, queue 1: the env "
-                "step's reverse-mode kernel.")
 
 
 def parser() -> argparse.ArgumentParser:
@@ -85,6 +92,10 @@ def parser() -> argparse.ArgumentParser:
                     help="file caching the touchdown bank (made by the port)")
     ap.add_argument("--no-save-gate", action="store_true")
     ap.add_argument("--optimizer", choices=("ars", "bptt"), default="ars")
+    ap.add_argument("--lr", type=float, default=3e-3, help="bptt Adam lr")
+    ap.add_argument("--save-every", type=int, default=0,
+                    help="bptt: keep every k-th update's starting iterate and minibatch "
+                    "in backflip_landing_mlp.iterates.npz (0: none)")
     ap.add_argument("--launch", default=str(POLICY_DIR / "backflip_ars.npz"),
                     help="the frozen linear launch policy")
     ap.add_argument("--out", default=None, help="output directory (default "
@@ -148,12 +159,14 @@ def sample_minibatch(rng_s, fail_idx, n_train: int, train_states: int, hard_frac
     return np.concatenate([hard, rest])
 
 
-def ars_loop(flat0, a, n_train: int, returns_fn, probe_fn, failures_fn, save_fn, log):
-    """The script's phase 2 with its scorers given: returns_fn(cand (C, P),
-    idx) -> each candidate's mean shaped return; probe_fn(flat) -> the
-    selection key (nominal, probe, validation strict); failures_fn(flat) ->
-    the failing training entries; save_fn(flat) keeps the running best.
-    Returns (best (key, flat), iterations run)."""
+def train_loop(flat0, a, n_train: int, step_fn, probe_fn, failures_fn, save_fn, log,
+               tag: str = "ars"):
+    """The script's phase 2 with its step and scorers given: step_fn(flat,
+    idx, rng) -> the next flat iterate from the minibatch idx (drawing from
+    rng after it, as the script's ARS does); probe_fn(flat) -> the selection
+    key (nominal, probe, validation strict); failures_fn(flat) -> the failing
+    training entries; save_fn(flat) keeps the running best. Returns (best
+    (key, flat), iterations run)."""
     rng = np.random.default_rng(0)
     flat = np.asarray(flat0)
     fail_idx = failures_fn(flat) if a.hard_frac > 0 else np.array([], int)
@@ -162,11 +175,7 @@ def ars_loop(flat0, a, n_train: int, returns_fn, probe_fn, failures_fn, save_fn,
     for i in range(a.iters):
         it = i + 1
         idx = sample_minibatch(rng, fail_idx, n_train, a.train_states, a.hard_frac)
-        deltas = rng.normal(size=(a.n_dir, flat.size)).astype(np.float32)
-        cand = np.concatenate([flat[None] + a.delta_std * deltas,
-                               flat[None] - a.delta_std * deltas])
-        rets = returns_fn(cand, idx)
-        flat = bh.flat_update(flat, rets[:a.n_dir], rets[a.n_dir:], deltas, a.step_size)
+        flat = step_fn(flat, idx, rng)
         if (i + 1) % a.probe_every == 0:
             key = probe_fn(flat)
             if key > best[0]:
@@ -174,19 +183,79 @@ def ars_loop(flat0, a, n_train: int, returns_fn, probe_fn, failures_fn, save_fn,
                 save_fn(best[1])
             if a.hard_frac > 0:
                 fail_idx = failures_fn(flat)
-            log(f"[ars {i:03d}] probe nom {key[0]}/{N_NOM} e2e {key[1]}/{a.n_probe} "
+            log(f"[{tag} {i:03d}] probe nom {key[0]}/{N_NOM} e2e {key[1]}/{a.n_probe} "
                 f"val strict {key[2]:.2f} (best {best[0]})")
             if key[0] == N_NOM and key[1] == a.n_probe and i >= EARLY_STOP_ITER:
-                log("[ars] probes saturated, stopping early")
+                log(f"[{tag}] probes saturated, stopping early")
                 break
     return best, it
+
+
+def ars_loop(flat0, a, n_train: int, returns_fn, probe_fn, failures_fn, save_fn, log):
+    """train_loop with the script's ARS step: returns_fn(cand (C, P), idx) ->
+    each candidate's mean shaped return."""
+    def step(flat, idx, rng):
+        deltas = rng.normal(size=(a.n_dir, flat.size)).astype(np.float32)
+        cand = np.concatenate([flat[None] + a.delta_std * deltas,
+                               flat[None] - a.delta_std * deltas])
+        rets = returns_fn(cand, idx)
+        return bh.flat_update(flat, rets[:a.n_dir], rets[a.n_dir:], deltas, a.step_size)
+    return train_loop(flat0, a, n_train, step, probe_fn, failures_fn, save_fn, log)
+
+
+def bptt_loss(env, on, layout, bank, bank_obs, bank_noise, horizon: int):
+    """The script's bptt_loss over the bank: loss(flat (P,) tensor, idx) ->
+    minus the mean shaped return (behaviour.stab_return) of the one
+    parameter set over bank entries idx, differentiable in flat."""
+    def loss(flat_t, idx):
+        ent = torch.as_tensor(np.asarray(idx), device=bank_obs.device)
+        tot, _ = bh.stab_return(env, bh.mlp_act(layout.unravel(flat_t), on), take(bank, ent),
+                                bank_obs[ent], None if bank_noise is None
+                                else bank_noise.take(ent), horizon)
+        return -(sp.sum_fixed(tot, 0) / len(ent))
+    return loss
+
+
+class BpttStep:
+    """The script's BPTT update as a train_loop step: loss_fn(flat (P,)
+    tensor, idx) -> the minibatch's loss (minus its mean shaped return);
+    its gradient by autograd, clipped to global norm 1
+    (torch.nn.utils.clip_grad_norm_), then one Adam step (eps 1e-8) on the
+    flat parameters, which keep FlatLayout's order. Records each
+    iteration's loss and gradient norm (before the clip), and every
+    keep_every-th update's starting iterate and minibatch in `kept`
+    ({"flat_<n>", "idx_<n>"}, n counting the updates from 1)."""
+
+    def __init__(self, loss_fn, flat0, lr: float, device, keep_every: int = 0):
+        self.loss_fn = loss_fn
+        self.p = torch.nn.Parameter(torch.tensor(np.asarray(flat0), dtype=torch.float32,
+                                                 device=device))
+        self.opt = torch.optim.Adam([self.p], lr=lr, eps=1e-8)
+        self.losses, self.grad_norms = [], []
+        self.keep_every, self.kept = keep_every, {}
+
+    @property
+    def flat(self) -> np.ndarray:
+        """The current iterate, (P,) float32."""
+        return self.p.detach().cpu().numpy().copy()
+
+    def __call__(self, flat, idx, rng):
+        n = len(self.losses) + 1
+        if self.keep_every and n % self.keep_every == 0:
+            self.kept[f"flat_{n}"], self.kept[f"idx_{n}"] = self.flat, np.asarray(idx)
+        self.opt.zero_grad()
+        loss = self.loss_fn(self.p, idx)
+        loss.backward()
+        norm = torch.nn.utils.clip_grad_norm_([self.p], 1.0)
+        self.opt.step()
+        self.losses.append(float(loss.detach()))
+        self.grad_norms.append(float(norm))
+        return self.flat
 
 
 def main(argv=None) -> int:
     ap = parser()
     a = ap.parse_args(argv)
-    if a.optimizer == "bptt":
-        ap.error(BPTT_REFUSED)
     device = resolve_device(a.device)
     out = out_dir(a.out, "backflip_landing_mlp")
     log = functools.partial(print, flush=True)
@@ -264,9 +333,22 @@ def main(argv=None) -> int:
                  count=on.count.cpu().numpy())
 
     cand_path = out / "backflip_landing_mlp.npz.cand.npz"
-    best, iters = ars_loop(flat0, a, n_train, returns_fn, probe_fn, failures_fn,
-                           lambda f: save_candidate(f, cand_path), log)
-    clock.lap("ars")
+    save = lambda f: save_candidate(f, cand_path)
+    vjp0 = ss.env_substeps_vjp.launches
+    if a.optimizer == "bptt":
+        step = BpttStep(bptt_loss(env, on, layout, bank, bank_obs, bank_noise, a.horizon),
+                        flat0, a.lr, device, a.save_every)
+        best, iters = train_loop(flat0, a, n_train, step, probe_fn, failures_fn, save, log,
+                                 "bptt")
+        if step.kept:
+            np.savez(out / "backflip_landing_mlp.iterates.npz", **step.kept)
+        bptt = {"loss": step.losses, "grad_norm": step.grad_norms, "lr": a.lr,
+                "control_steps": iters * a.horizon,
+                "env_substeps_vjp_launches": ss.env_substeps_vjp.launches - vjp0}
+    else:
+        best, iters = ars_loop(flat0, a, n_train, returns_fn, probe_fn, failures_fn, save, log)
+        bptt = None
+    clock.lap(a.optimizer)
     flat_best = best[1]
     save_candidate(flat_best, cand_path)
 
@@ -296,7 +378,8 @@ def main(argv=None) -> int:
                       "bank_strict_val": list(best[0]), "gate_ok": gate_ok,
                       "saved": str(path) if (gate_ok or a.no_save_gate) else None,
                       "bank": n_bank, "bank_tries": n_try, "bank_full_rotations": n_rot,
-                      "iterations": iters, **clock.record(),
+                      "iterations": iters, "optimizer": a.optimizer,
+                      **({"bptt": bptt} if bptt is not None else {}), **clock.record(),
                       "device": device_name(device)}), flush=True)
     return 0 if gate_ok else 1
 

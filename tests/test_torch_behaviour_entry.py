@@ -6,9 +6,9 @@ its npz and JSON key sets are the JAX artifacts' (the committed
 ``examples/policies/*.npz`` and ``examples/out/backflip_robust_validation.json``),
 its numbers finite, its exit code the script's. The landing trainer's
 touchdown bank is held to the script's ``collect_bank`` keep order with a
-stub episode; the trainer itself runs on a cached bank. Then the refusals:
-no write under ``examples/``, no card without ``--device cpu``, and
-``--optimizer bptt`` with its pointer to ROADMAP.
+stub episode; the trainer itself runs on a cached bank, by ARS and by
+``--optimizer bptt``. Then the refusals: no write under ``examples/``, no
+card without ``--device cpu``.
 """
 
 import json
@@ -210,8 +210,30 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu(tmp_path):
             module.main([*argv, "--out", str(tmp_path)])
 
 
-def test_landing_trainer_refuses_bptt(capsys):
-    with pytest.raises(SystemExit) as e:
-        lm.main(["--optimizer", "bptt", *CPU])
-    assert e.value.code == 2
-    assert "ROADMAP.md" in capsys.readouterr().err
+def test_landing_trainer_refuses_bptt(cut, tmp_path, capsys):
+    """--optimizer bptt, once refused, now runs: at a cut budget on a cached
+    bank it writes the script's npz keys and prints the script's JSON keys,
+    its losses and gradient norms finite, one backward per control step
+    (through env_substeps_plain on the CPU: no kernel launches); with
+    --save-every 1 it keeps each update's starting iterate and minibatch."""
+    env = bh.flip_env("cpu", "TEST_RANDOMIZER", obs_noise=True, max_ep_len=lm.EP_LEN)
+    state, obs, noise = ro.seeded_reset(env, range(4))
+    cache = tmp_path / "bank.pt"
+    torch.save({"state": state, "obs": obs, "noise": noise}, cache)
+    out = tmp_path / "out"
+    code = lm.main(["--optimizer", "bptt", "--iters", "2", "--bank", "4", "--train-states",
+                    "2", "--probe-every", "1", "--n-probe", "1", "--horizon", "2", "--hidden",
+                    "4", "--bank-cache", str(cache), "--no-save-gate", "--save-every", "1",
+                    "--out", str(out), *CPU])
+    rec = _record(capsys)
+    assert {"nominal", "rotation", "upright", "bank_strict_val"} <= set(rec) and _finite(rec)
+    assert code == (0 if rec["gate_ok"] else 1) and rec["optimizer"] == "bptt"
+    bptt = rec["bptt"]
+    assert len(bptt["loss"]) == len(bptt["grad_norm"]) == rec["iterations"] == 2
+    assert bptt["control_steps"] == 4 and bptt["env_substeps_vjp_launches"] == 0
+    assert all(g > 0.0 for g in bptt["grad_norm"])
+    z = _npz(out / "backflip_landing_mlp.npz")
+    assert set(z) == _keys("backflip_landing_mlp.npz") and _finite(z)
+    kept = np.load(out / "backflip_landing_mlp.iterates.npz")
+    assert set(kept) == {"flat_1", "idx_1", "flat_2", "idx_2"}
+    assert kept["idx_1"].shape == (2,) and not np.array_equal(kept["flat_1"], kept["flat_2"])

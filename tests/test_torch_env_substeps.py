@@ -393,14 +393,16 @@ def test_settle_robot_by_pd_matches_the_inline_loop():
 
 
 def test_wrapper_rejects_what_the_kernel_does_not_take():
-    """Grad-requiring inputs raise on every device; launch_args (the CUDA
+    """Grad-requiring gains (the model, limits, springs and friction too:
+    only the state, anchors and commands are differentiated) raise on every
+    device, and not under no_grad; launch_args (the CUDA
     path's checks, device-agnostic) rejects a non-contiguous state, a
     wrong dtype, a model of neither 1 nor N rows, a model field that is
     not contiguous, of another dtype or of rows unlike the others, and
     q_des of another substep count, from metadata alone."""
     args = list(_torch_args("pd"))
     grad = list(args)
-    grad[2] = args[2].clone().requires_grad_()
+    grad[5] = args[5].clone().requires_grad_()
     with pytest.raises(ValueError, match="grad"):
         ss.env_substeps(*grad)
     with torch.no_grad():

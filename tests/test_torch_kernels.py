@@ -2,8 +2,10 @@
 their plain PyTorch twins on the card (the tangent kernels against
 torch.func.jvp of the twins), the env step's launch count (the fused
 `env_substeps`, held to its plain version in tests/test_torch_env_substeps.py),
-the planner's linearization through the kernels and the planner's rollout
-(`planner_rollout`; its CPU side is tests/test_torch_planner_rollout.py). Marked `gpu`: without a CUDA card they
+the planner's linearization through the kernels, the env step's reverse
+mode (`env_substeps_vjp` against autograd of its plain version) and the
+planner's rollout (`planner_rollout`; its CPU side is
+tests/test_torch_planner_rollout.py). Marked `gpu`: without a CUDA card they
 skip. On a card (torch only, no jax needed):
 
     python -m pytest --noconftest -m gpu tests/test_torch_kernels.py
@@ -380,7 +382,10 @@ def _env_substeps_args(dev, n, case="pd"):
     anchors 5 cm off (the feet slide on the friction cone), from lane 3
     pushed at the trunk; "pd": the command interpolated from the last action
     to a random one over 10 substeps; "torque": random torques held;
-    "on_rack": the command held, the base welded."""
+    "on_rack": the command held, the base welded; "edges": as "pd", with
+    every 8th from lane 5 lifted past its joint limits, from lane 6 on its
+    back on the trunk's corners and from lane 7 folded onto its knees
+    (env/substeps.py edge_states)."""
     import dataclasses
 
     from quadruped_springs_tpu_torch.control import interfaces as ci
@@ -400,7 +405,7 @@ def _env_substeps_args(dev, n, case="pd"):
     robot = dataclasses.replace(state.robot, pos=pos, lin_vel=lin_vel)
     action = 2.0 * torch.rand((n, env.action_dim), generator=gen, device=dev) - 1.0
     command = lambda a: ci.action_to_command(env.iface, a).contiguous()
-    if case == "pd":
+    if case in ("pd", "edges"):
         prev = state.last_action
         q_des = torch.stack([command(prev + ((i + 1.0) / 10) * (action - prev))
                              for i in range(10)], dim=1)
@@ -414,9 +419,15 @@ def _env_substeps_args(dev, n, case="pd"):
     params = dataclasses.replace(params, on_rack=case == "on_rack")
     k, b = env._springs(state.scenario)
     cfg = env.cfg
-    return (robot, anchor, q_des, rnd.model_from_params(state.scenario), params, cfg.motor_kp,
+    args = (robot, anchor, q_des, rnd.model_from_params(state.scenario), params, cfg.motor_kp,
             cfg.motor_kd, cfg.torque_limits, cfg.velocity_limits, k, b,
             cfg.spring_rest_angles, env.engage_sign, 10, ext, case == "torque")
+    if case == "edges":
+        from quadruped_springs_tpu_torch.env import substeps as ss
+
+        args = ss.edge_states(args, limits=range(5, n, 8), upside_down=range(6, n, 8),
+                              folded=range(7, n, 8))
+    return args
 
 
 def _substeps_rows(out):
@@ -499,6 +510,52 @@ def test_env_substeps_rows_do_not_depend_on_the_batch(cuda):
     full, eight = launch(0, 1024)[:8], launch(0, 8)
     pairs = torch.cat([launch(i, i + 2) for i in range(0, 8, 2)])
     assert torch.equal(full, eight) and torch.equal(eight, pairs)
+
+
+@pytest.mark.parametrize("case", ["pd", "torque", "on_rack", "edges"])
+def test_env_substeps_vjp_kernel_matches_plain_autograd(cuda, case):
+    """env_substeps_vjp against autograd of the plain version by
+    env/substeps.py check_vjp (chip_smoke.py phase 26's rule): the rule
+    above per environment and input cotangent, and an environment outside
+    it held to the same rule against the plain version taken along the
+    kernel's own substep starts."""
+    from quadruped_springs_tpu_torch.env import substeps as ss
+
+    args = _env_substeps_args(cuda, 256, case)
+    gen = torch.Generator(cuda).manual_seed(14)
+    cot = [torch.randn(o.shape, generator=gen, device=cuda)
+           for o in ss.output_fields(ss.env_substeps(*args))]
+    before = ss.env_substeps_vjp.launches
+    got = ss.env_substeps_vjp(*args, cot)
+    torch.cuda.synchronize()
+    assert ss.env_substeps_vjp.launches == before + 1
+    report = ss.check_vjp(args, cot, got, REL_TOL, ENV_SPREAD)
+    assert not report["failures"], report["failures"]
+
+
+def test_env_substeps_backward_launches_the_vjp_kernel_once(cuda):
+    """Under grad the forward is the same kernel (outputs bitwise); the
+    backward is one env_substeps_vjp launch, its cotangents bitwise the
+    wrapper's."""
+    import dataclasses
+
+    from quadruped_springs_tpu_torch.env import substeps as ss
+
+    args = _env_substeps_args(cuda, 64, "pd")
+    plain_out = ss.env_substeps(*args)
+    leaves = [t.detach().clone().requires_grad_() for t in (
+        *(getattr(args[0], f) for f in ss.ROBOT_FIELDS), args[1], args[2])]
+    grad_args = (dataclasses.replace(args[0], **dict(zip(ss.ROBOT_FIELDS, leaves[:6]))),
+                 leaves[6], leaves[7], *args[3:])
+    out = ss.env_substeps(*grad_args)
+    for a, b in zip(ss.output_fields(plain_out), ss.output_fields(out)):
+        assert torch.equal(a, b.detach())
+    cot = [torch.ones_like(o) for o in ss.output_fields(out)]
+    before = ss.env_substeps_vjp.launches
+    grads = torch.autograd.grad(ss.output_fields(out), leaves, cot)
+    assert ss.env_substeps_vjp.launches == before + 1
+    for a, b in zip(grads, ss.env_substeps_vjp(*args, cot)):
+        assert torch.equal(a, b)
 
 
 # --- planner_rollout: the MPPI rollout's knots and substeps in one launch -----
