@@ -266,6 +266,17 @@ Phases (any failure raises, so the script exits non-zero):
      (BEHAVIOUR_TRAINERS["landing_bptt"]): losses and gradient norms
      finite, one env_substeps_vjp launch per control step of its
      iterations, the npz's key set the JAX artifact's.
+ 27. (with the host-bound runs) the learned continuous-jumping trainer,
+     train_continuous_policy --smoke through its main (1.5 s episodes, 3
+     ARS, 1 warm-up and 2 PPO iterations): every number of the results
+     finite, their key set the committed JAX artifact's (each seed's entry
+     with task_terminated and timeout in place of crashed), env_substeps
+     once a control step and settle and contact once a reset (EnvCalls),
+     every other kernel never, nothing written (neither under examples/
+     nor its --out); and render_backflip's record mode at seed 0 through
+     its main: a finite trace whose controller switched, its steps and
+     maximum unwrapped pitch printed beside the JAX script's at its own
+     seed 0 on the CPU (JAX_RENDER).
 Phase 11 also holds both loops to the transfer band of the JAX gate
 (executed apex > 0.45 m, upright, within LOOP_BAND of the largest planned
 apex; the JAX package's own loops meet 10% on the CPU).
@@ -275,7 +286,7 @@ cut while the environment ran ~500 launches a substep, are back since its
 physics is one env_substeps launch a control step. The host-bound runs of phases 11, 13, 16 and 17
 (the two loops, the six replays, the six oracle traces, the transfer gate),
 phase 20's three drivers, phases 21-23's comparisons and examples and phases
-24-25's trainers go at once in HOST_PROCESSES spawned processes
+24-25's and 27's trainers and the recorder go at once in HOST_PROCESSES spawned processes
 on the one card, after the
 kernel checks of phases 13, 16 and 17, and phase 18's six small solves one
 process each. Phases 13-18 run before phase 12 (the profiler's). Most phases are bound by
@@ -408,10 +419,18 @@ REPAIR_KNOTS, REPAIR_CANDIDATES = 60, 32
 TWO_STAGE_JOBS = {"forward": "two_stage_forward_results.json",
                   "in_place": "two_stage_forward_results.json",
                   "backflip": "two_stage_backflip_results.json"}
+# phase 27: the continuous-jumping trainer's committed JAX artifact (its key
+# set) and the JAX script examples/render_backflip.py at its seed 0 on the
+# CPU (`python examples/render_backflip.py --cpu --out <dir>/backflip.gif`,
+# jax 0.9.0): 118 steps recorded, a maximum unwrapped pitch of 360 deg. The
+# port's seed 0 draws another scenario, so its numbers are printed beside
+# these, not held to them.
+CONTINUOUS_RESULTS = "examples/out/continuous_policy_results.json"
+JAX_RENDER = {"steps": 118, "max_pitch_deg": 360}
 # phase 16 and 17 run the environment's kernels at 1 and 2 lanes; their
 # checks build the hand-placed regimes on SMALL_INPUT_LANES lanes
 FIDELITY_LANES, SMALL_INPUT_LANES = (1, 2), 8
-# phases 11, 13, 16, 17 and 20-25 run their host-bound paths in this many processes
+# phases 11, 13, 16, 17, 20-25 and 27 run their host-bound paths in this many processes
 HOST_PROCESSES = 8
 # phase 21: the planned springs-vs-rigid comparison (compare_springs.planned_rows,
 # scripts/compare_springs.py's configuration) over PLANNED_SEEDS, seed 1 the
@@ -1489,10 +1508,10 @@ def _replay_worker(name):
 
 
 def run_host_bound_paths(policy_replay, kind):
-    """Phases 11, 13, 16, 17 and 20-25 at once: the two closed loops, the
+    """Phases 11, 13, 16, 17, 20-25 and 27 at once: the two closed loops, the
     replays of the committed policies, the six oracle traces, the transfer
-    gate, the behaviours, comparisons, examples, two-stage and behaviour
-    trainers are
+    gate, the behaviours, comparisons, examples, two-stage, behaviour and
+    continuous-jumping trainers and the backflip's recorder are
     bound by the host's launches, so they run as HOST_PROCESSES spawned
     processes on the one card, the longest first. Each process counts its
     own kernels' launches."""
@@ -1504,27 +1523,30 @@ def run_host_bound_paths(policy_replay, kind):
     added = ([(_learned_worker, r) for r in robots] + [(_example_worker, job)
                                                        for job in EXAMPLE_JOBS]
              + [(_planned_worker, r) for r in robots])
-    jobs = ([(_two_stage_worker, job) for job in TWO_STAGE_JOBS]
+    jobs = ([(_continuous_trainer_worker, None)]
+            + [(_two_stage_worker, job) for job in TWO_STAGE_JOBS]
             + [(_behaviour_trainer_worker, job) for job in BEHAVIOUR_TRAINERS]
             + [(_noise_repair_worker, None)]
             + [(_behaviour_worker, job) for job in BEHAVIOUR_JOBS]
             + [(_closed_loop_worker, True), (_transfer_gate_worker, None),
                (_closed_loop_worker, False)] + added[:2] + [(_replay_worker, n)
                                                            for n in replays]
-            + [(_oracle_trace_worker, job) for job in ORACLE_TRACES] + added[2:])
+            + [(_oracle_trace_worker, job) for job in ORACLE_TRACES] + added[2:]
+            + [(_render_backflip_worker, None)])
     t0 = time.perf_counter()
     with multiprocessing.get_context("spawn").Pool(HOST_PROCESSES) as pool:
         pending = [pool.apply_async(fn, (arg,)) for fn, arg in jobs]
         results = [r.get() for r in pending]
     wall = time.perf_counter() - t0
-    print(f"phases 11, 13, 16, 17 and 20-25: {len(jobs)} host-bound paths in {wall:.2f} s "
+    print(f"phases 11, 13, 16, 17, 20-25 and 27: {len(jobs)} host-bound paths in {wall:.2f} s "
           f"({HOST_PROCESSES} processes on one card)", flush=True)
     by_fn = {}
     for (fn, arg), res in zip(jobs, results):
         by_fn.setdefault(fn, []).append((arg, res))
     results = [res for (fn, _), res in zip(jobs, results) if fn not in (
         _learned_worker, _example_worker, _planned_worker, _two_stage_worker,
-        _behaviour_trainer_worker, _noise_repair_worker)]
+        _behaviour_trainer_worker, _noise_repair_worker, _continuous_trainer_worker,
+        _render_backflip_worker)]
     behaviours, results = results[:len(BEHAVIOUR_JOBS)], results[len(BEHAVIOUR_JOBS):]
     by_path = {"closed_loop_full_rate": check_closed_loop(results[0], kind, True),
                "closed_loop": check_closed_loop(results[2], kind, False)}
@@ -1539,6 +1561,10 @@ def run_host_bound_paths(policy_replay, kind):
     by_path.update(check_two_stage(dict(by_fn[_two_stage_worker]), kind))
     by_path.update(check_behaviour_trainers(dict(by_fn[_behaviour_trainer_worker]), kind))
     by_path.update(check_noise_repair(by_fn[_noise_repair_worker][0][1], kind))
+    by_path["continuous_policy_smoke"] = check_continuous_trainer(
+        by_fn[_continuous_trainer_worker][0][1], kind)
+    by_path["render_backflip"] = check_render_backflip(by_fn[_render_backflip_worker][0][1],
+                                                       kind)
     return by_path
 
 
@@ -3637,6 +3663,144 @@ def check_examples(results, kind):
     if failed:
         raise AssertionError(f"phase 23: {failed} miss their examples' bars")
     return by_path
+
+
+def _examples_stamp():
+    """(path, size, mtime) of every file under examples/."""
+    import os
+
+    return sorted((os.path.join(d, f), os.stat(os.path.join(d, f)).st_size,
+                   os.stat(os.path.join(d, f)).st_mtime_ns)
+                  for d, _, files in os.walk("examples") for f in files)
+
+
+def _continuous_trainer_worker(_):
+    """Phase 27, in a process of its own: train_continuous_policy --smoke on
+    the card through its main (stdout captured), --out under runs/chip_smoke/.
+    Returns its results, printed lines, the kernels' launches, those its
+    resets and env steps call for, whether examples/ and the --out directory
+    were left untouched, and the wall time."""
+    import contextlib
+    import io
+    import os
+
+    import torch
+
+    from quadruped_springs_tpu_torch import train_continuous_policy
+    from quadruped_springs_tpu_torch.env.env import QuadrupedEnv
+    from quadruped_springs_tpu_torch.models import dynamics as dyn
+    from quadruped_springs_tpu_torch.ops import actuation as act
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = "runs/chip_smoke/continuous_policy"
+    examples = _examples_stamp()
+    reset_counts(act, dyn)
+    printed = io.StringIO()
+    t0 = time.perf_counter()
+    with EnvCalls(QuadrupedEnv) as calls, contextlib.redirect_stdout(printed):
+        results = train_continuous_policy.main(["--smoke", "--out", out])
+    torch.cuda.synchronize()
+    return {"results": results, "printed": printed.getvalue().strip().splitlines(),
+            "launches": read_counts(act, dyn), "want": calls.launches(),
+            "examples_untouched": _examples_stamp() == examples,
+            "out_untouched": not os.path.exists(out),
+            "seconds": time.perf_counter() - t0}
+
+
+def check_continuous_trainer(res, kind):
+    """Phase 27: the continuous-jumping trainer at --smoke. Held, with no
+    learning bar: every number of its results finite; their key set the
+    committed JAX artifact's, each seed's entry the JAX one's less crashed
+    and with task_terminated and timeout; launches exact (env_substeps
+    launched); the script's summary lines printed, the timing line last;
+    nothing written."""
+    r, failed = res["results"], []
+    check_counts(res["launches"], {**res["want"], "planner_rollout": 0, "env_substeps_vjp": 0,
+                                   **dict.fromkeys(BF16_KERNELS, 0)}, 27)
+    with open(CONTINUOUS_RESULTS) as f:
+        jax_results = json.load(f)
+    if set(r) != set(jax_results):
+        failed.append(f"keys {sorted(set(r) ^ set(jax_results))} differ from the JAX script's")
+    seed_keys = (set(jax_results["gate_eval"]["per_seed"][0]) - {"crashed"}) | {
+        "task_terminated", "timeout"}
+    for stage in ("ars_eval", "bc_eval", "ppo_eval", "gate_eval"):
+        if any(set(s) != seed_keys for s in r[stage]["per_seed"]):
+            failed.append(f"{stage}: a seed's keys differ from {sorted(seed_keys)}")
+    if not _all_finite(r):
+        failed.append("a non-finite number in its results")
+    if res["launches"]["env_substeps"] == 0:
+        failed.append("env_substeps never launched")
+    if r["finetune_is_noop"] != (not r["finetune_improves_on_initializer"]):
+        failed.append("finetune_is_noop against finetune_improves_on_initializer")
+    if not (res["examples_untouched"] and res["out_untouched"]):
+        failed.append(f"wrote files: examples/ untouched {res['examples_untouched']}, --out "
+                      f"absent {res['out_untouched']}")
+    printed = res["printed"]
+    timing = json.loads(printed[-1])
+    if not (printed[-2].startswith("gate: ") and set(json.loads(printed[-3])) == {
+            "bc_rows", "bc_mse", "selected_stage", "ppo_improves_on_bc", "finetune_is_noop",
+            "policy_sustains_4_good_jumps", "wall_s"}):
+        failed.append(f"the summary lines: {printed[-3:]}")
+    stages = {k: round(v, 2) for k, v in timing["stage_seconds"].items()}
+    print(f"phase 27: train_continuous_policy --smoke in {res['seconds']:.2f} s on {kind}: "
+          f"stages {stages} s, env_substeps by stage {timing['env_substeps_launches']}; "
+          f"{printed[-3]}; {printed[-2]}; launches {res['launches']}", flush=True)
+    if failed:
+        raise AssertionError(f"phase 27: {failed}")
+    return res["launches"]
+
+
+def _render_backflip_worker(_):
+    """Phase 27, in a process of its own: render_backflip's record mode at
+    seed 0 on the card through its main. Returns its printed lines, the
+    trace, the kernels' launches, those its reset and env steps call for,
+    and the wall time."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+
+    from quadruped_springs_tpu_torch import render_backflip
+    from quadruped_springs_tpu_torch.env.env import QuadrupedEnv
+    from quadruped_springs_tpu_torch.models import dynamics as dyn
+    from quadruped_springs_tpu_torch.ops import actuation as act
+
+    out = "runs/chip_smoke/render_backflip/backflip.npz"
+    reset_counts(act, dyn)
+    printed = io.StringIO()
+    t0 = time.perf_counter()
+    with EnvCalls(QuadrupedEnv) as calls, contextlib.redirect_stdout(printed):
+        render_backflip.main(["--seed", "0", "--out", out])
+    torch.cuda.synchronize()
+    with np.load(out) as d:
+        trace = {k: d[k] for k in d.files}
+    return {"printed": printed.getvalue().strip().splitlines(), "trace": trace,
+            "launches": read_counts(act, dyn), "want": calls.launches(),
+            "seconds": time.perf_counter() - t0}
+
+
+def check_render_backflip(res, kind):
+    """Phase 27: the recorded backflip is finite and its controller
+    switched; launches exact. Its steps and maximum unwrapped pitch are
+    printed beside the JAX script's at its seed 0 (JAX_RENDER)."""
+    import numpy as np
+
+    check_counts(res["launches"], {**res["want"], "planner_rollout": 0, "env_substeps_vjp": 0,
+                                   **dict.fromkeys(BF16_KERNELS, 0)}, 27)
+    trace = res["trace"]
+    steps = len(trace["q"])
+    finite = all(bool(np.isfinite(trace[k]).all()) for k in ("q", "base_pos", "base_rpy"))
+    switch = int(trace["switch_step"])
+    pitch = next(line for line in res["printed"] if line.startswith("max unwrapped pitch"))
+    print(f"phase 27: render_backflip record mode at seed 0 in {res['seconds']:.2f} s on "
+          f"{kind}: {steps} steps recorded, the switch after {switch}, {pitch} (the JAX "
+          f"script at its seed 0 on the CPU: {JAX_RENDER['steps']} steps, "
+          f"{JAX_RENDER['max_pitch_deg']} deg); launches {res['launches']}", flush=True)
+    if not finite or switch < 0 or steps != len(trace["valid"]):
+        raise AssertionError(f"phase 27: render_backflip's trace: finite {finite}, switch "
+                             f"step {switch}, {steps} steps")
+    return res["launches"]
 
 
 # ---------------------------------------------------------------------------

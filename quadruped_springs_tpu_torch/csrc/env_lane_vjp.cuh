@@ -399,7 +399,7 @@ QS_FN void lane_substep_vjp(const EnvConsts& k, const LegModel& c, const float* 
                        c.rest[j], c.sign[j], g_tau_all[j], torque_mode ? 0.0f : g_tau_m[j],
                        &g_cmd[j], &g_q[j], &g_qd[j]);
     if (torque_mode)
-      g_cmd[j] += (g_tau_all[j] + g_tau_m[j]) * clamp_pass(cmd[j], -c.lim[j], c.lim[j]);
+      g_cmd[j] += (g_tau_all[j] + g_tau_m[j]) * minmax_pass(cmd[j], -c.lim[j], c.lim[j]);
   }
   g.pos = g_pos;
   g.lin_vel = g_lv0;

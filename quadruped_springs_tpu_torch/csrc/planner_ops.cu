@@ -48,6 +48,8 @@ using qs::actuation_elem;
 using qs::anchored_foot_elem;
 using qs::clip;
 using qs::contact_elem;
+using qs::damping_clip_pass;
+using qs::minmax_pass;
 
 // ---------------------------------------------------------------------------
 // Kernel 1: PD motor torque + one-sided PEA spring torque.
@@ -197,9 +199,9 @@ __global__ void contact_anchored_kernel(
 // Layout: the primals are the (N,12[,3]) arrays of kernels 1 and 2; the
 // tangents carry T directions in front, (T,N,12[,3]), so each direction's
 // slab has the primal's layout. Branches follow the plain PyTorch
-// versions' forward-mode rules: torch.clamp passes the tangent of whichever
-// argument it selected (at a tie: the clamped value's own), torch.where
-// that of the selected branch.
+// versions' forward-mode rules: a min(max()) clip passes one half of
+// each side's tangent at a tie (as jnp.clip), torch.where that of the
+// selected branch.
 //
 // Bound on the H100: memory. Per (direction, element) actuation_jvp reads
 // 12 B and writes 4 B with ~6 flops (the total torque's tangent only: no
@@ -219,11 +221,11 @@ __device__ __forceinline__ ActuationBranches actuation_branches(
     float q_des, float q, float qd, float kp, float kd, float limit, float k,
     float b, float rest, float sign) {
   float t = -kp * (q - q_des) - kd * qd;
-  bool pass = (t >= -limit) && (t <= limit);     // the clip's own tangent
+  float pass = minmax_pass(t, -limit, limit);    // the clip's own tangent
   bool engaged = sign * (q - rest) >= 0.0f;
   ActuationBranches br;
-  br.kp = pass ? kp : 0.0f;
-  br.kd = pass ? kd : 0.0f;
+  br.kp = pass * kp;
+  br.kd = pass * kd;
   br.k = engaged ? k : 0.0f;
   br.b = engaged ? b : 0.0f;
   return br;
@@ -285,21 +287,23 @@ __device__ __forceinline__ ContactPrimal contact_primal(
   // fn_raw = elastic + damping; its partials w.r.t. elastic and damping
   float w_e = 1.0f, w_d = 1.0f;
   if (clamp_damping) {
-    if (damping < -elastic) {          // clipped at -elastic: tangent -de
+    float dy_dd, dy_de;
+    damping_clip_pass(damping, elastic, &dy_dd, &dy_de);
+    w_e += dy_de;
+    w_d = dy_dd;
+    if (damping < -elastic) {
       damping = -elastic;
-      w_e = 0.0f;
-      w_d = 0.0f;
-    } else if (damping > elastic) {    // clipped at +elastic: tangent +de
+    } else if (damping > elastic) {
       damping = elastic;
-      w_e = 2.0f;
-      w_d = 0.0f;
     }
   }
   float fn_raw = elastic + damping;
-  bool live = inc && (fn_raw >= 0.0f);   // the floor at 0 passes its tie
+  bool live = inc && (fn_raw >= 0.0f);
   float fn = live ? fn_raw : 0.0f;
-  p.de_dphi = live ? w_e * kn : 0.0f;
-  p.dfn_dvz = live ? -w_d * dn : 0.0f;
+  // the floor max(fn_raw, 0) passes one half of the tangent at its tie
+  float w_f = fn_raw > 0.0f ? 1.0f : 0.5f;
+  p.de_dphi = live ? (w_f * w_e) * kn : 0.0f;
+  p.dfn_dvz = live ? -(w_f * w_d) * dn : 0.0f;
   float vt2 = vx * vx + vy * vy;
   bool floored = vt2 < 1e-12f;
   float vt = sqrtf(floored ? 1e-12f : vt2);

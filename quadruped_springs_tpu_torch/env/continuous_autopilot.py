@@ -86,12 +86,17 @@ class ContinuousAutopilotEnv:
 
     def reset(self, generator: torch.Generator | None = None, n: int = 1, **kw):
         state, obs = self.env.reset(generator, n, **kw)
-        n, dev = obs.shape[0], obs.device
+        return self.start(state), obs
+
+    def start(self, state: EnvState) -> APState:
+        """The adapter's state over env states fresh from a reset: every
+        environment in POLICY."""
+        n, dev = state.sim_step_counter.shape[0], state.sim_step_counter.device
         return APState(
             env=state,
             phase=torch.full((n,), POLICY, dtype=torch.int32, device=dev),
             held=torch.zeros(n, self.env.action_dim, device=dev),
-            deadline=torch.zeros(n, device=dev)), obs
+            deadline=torch.zeros(n, device=dev))
 
     def step(self, state: APState, action: torch.Tensor,
              generator: torch.Generator | None = None):

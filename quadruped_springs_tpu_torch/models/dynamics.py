@@ -331,10 +331,12 @@ def contact_forces_plain(phi, v_w, mu, kn: float, dn: float, v_tol: float,
     in_contact = phi > 0.0
     elastic = kn * phi
     damping = dn * (-v_w[..., 2])
+    # min(max()), not clamp: jnp.clip's and jnp.maximum's derivative at a
+    # tie, one half to each side
     if clamp_damping:
-        damping = torch.clamp(damping, -elastic, elastic)
-    fn = torch.where(in_contact, torch.clamp_min(elastic + damping, 0.0),
-                     torch.zeros_like(phi))
+        damping = torch.minimum(torch.maximum(damping, -elastic), elastic)
+    zeros = torch.zeros_like(phi)
+    fn = torch.where(in_contact, torch.maximum(elastic + damping, zeros), zeros)
     vt = v_w[..., :2]
     n2 = sp.sum_fixed(vt * vt)
     vt_norm = torch.sqrt(torch.where(n2 < 1e-12, torch.full_like(n2, 1e-12), n2))

@@ -35,12 +35,20 @@ def pd_torque(q_des, q, qd, kp, kd, torque_limits, qd_des=None):
     if qd_des is None:
         qd_des = torch.zeros_like(qd)
     tau = -kp * (q - q_des) - kd * (qd - qd_des)
-    return torch.clamp(tau, -torque_limits, torque_limits)
+    return _clip(tau, torque_limits)
 
 
 def torque_command(tau_cmd, torque_limits):
     """TORQUE mode: the commanded torque clipped to ±torque_limits."""
-    return torch.clamp(tau_cmd, -torque_limits, torque_limits)
+    return _clip(tau_cmd, torque_limits)
+
+
+def _clip(tau, limits):
+    """tau clipped to ±limits as min(max()), not clamp: the values of
+    torch.clamp, and jnp.clip's derivative at a tie, one half (torch.clamp's
+    is one)."""
+    limits = torch.as_tensor(limits, dtype=tau.dtype, device=tau.device)
+    return torch.minimum(torch.maximum(tau, -limits), limits)
 
 
 def spring_torque(q, qd, stiffness3, damping3, rest_angles3, engage_sign):

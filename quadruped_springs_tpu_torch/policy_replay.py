@@ -44,10 +44,11 @@ from quadruped_springs_tpu_torch.env import flat_rollout as fr
 from quadruped_springs_tpu_torch.env import randomizers as rnd
 from quadruped_springs_tpu_torch.env import wrappers as wr
 from quadruped_springs_tpu_torch.env.continuous_autopilot import ContinuousAutopilotEnv
-from quadruped_springs_tpu_torch.env.env import EnvConfig, QuadrupedEnv, select
+from quadruped_springs_tpu_torch.env.env import EnvConfig, QuadrupedEnv
 from quadruped_springs_tpu_torch.env_bench import resolve_device
 from quadruped_springs_tpu_torch.tasks.tasks import continuous_jump_stats
 from quadruped_springs_tpu_torch.train import behaviour as bh
+from quadruped_springs_tpu_torch.train import continuous as cont
 from quadruped_springs_tpu_torch.train import normalize as vnorm
 from quadruped_springs_tpu_torch.train import rollout as ro
 from quadruped_springs_tpu_torch.train.networks import linear_policy_apply
@@ -211,13 +212,8 @@ def continuous(lanes: int = 64, device=None, seed: int = 0, settle: int = 600,
     net, on = convert.load_flat_mlp_policy(POLICY_DIR / "continuous_policy.npz", device)
     gen = torch.Generator(device).manual_seed(seed)
     state, obs = env.reset(gen, lanes)
-    done = torch.zeros(lanes, dtype=torch.bool, device=device)
-    for _ in range(n_steps):
-        a = torch.clamp(net(vnorm.normalize(on, obs))[0], -1.0, 1.0)
-        state2, obs2, _, d2, _ = env.step(state, a, gen)
-        state = select(done, state, state2)
-        obs = torch.where(done[:, None], obs, obs2)
-        done = done | d2
+    state, done, _, _, _ = cont.masked_episode(env, cont.mlp_policy(net, on), state, obs,
+                                               n_steps, gen)
     per_lane = [continuous_jump_stats(state.env.task, i) for i in range(lanes)]
     good = [s["good_jumps"] for s in per_lane]
     mean_perf = sum(s["mean_perf"] for s in per_lane) / lanes

@@ -81,17 +81,18 @@ SUMMARY = ("ars_jump_best_apex_m", "ars_best_apex_m", "bc_apex_m", "bc_demo_retu
            "finetune_improves_on_initializer", "finetune_is_noop", "wall_s")
 
 
-def out_dir(path, default: str) -> Path:
-    """The output directory: `path`, or runs/<default> of the checkout. A
-    path under examples/ is refused: its files are the JAX package's
-    committed results and policies."""
+def out_dir(path, default: str, create: bool = True) -> Path:
+    """The output directory: `path`, or runs/<default> of the checkout,
+    made unless `create` is False. A path under examples/ is refused: its
+    files are the JAX package's committed results and policies."""
     out = (ROOT / "runs" / default) if path is None else Path(path)
     examples = (ROOT / "examples").resolve()
     resolved = out.resolve()
     if resolved == examples or examples in resolved.parents:
         raise SystemExit(f"--out {path}: examples/ holds the JAX package's committed "
                          "results; write the port's elsewhere")
-    out.mkdir(parents=True, exist_ok=True)
+    if create:
+        out.mkdir(parents=True, exist_ok=True)
     return out
 
 

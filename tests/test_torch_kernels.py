@@ -226,6 +226,53 @@ def test_contact_jvp_kernel_matches_jvp_of_twin(cuda, clamp):
     assert torch.equal(got, df[0]) and torch.equal(got_fn, df[0, ..., 2])
 
 
+
+def _flat(tree):
+    return [t for x in tree for t in (_flat(x) if isinstance(x, tuple) else (x,))]
+
+
+def test_tangent_kernels_at_ties_match_the_plain_versions(cuda):
+    """actuation_jvp and contact_jvp with every clip exactly at its bound
+    (values exact in float32: tests/test_torch_clip_ties.py's cases, where
+    the plain versions are held to jax.jacfwd): every basis tangent equal to
+    torch.func.jacfwd of the plain versions on the CPU, bitwise. PD torques
+    at +limit, -limit and inside; the damping clip at +elastic and at
+    -elastic (the floor's tie too), inside and above, the floor's tie
+    without the clip."""
+    kp, kd, limit, kn, dn, phi0 = 32.0, 0.5, 8.0, 4096.0, 32.0, 2.0 ** -10
+
+    def actuation(dev):
+        q = torch.full((1, 12), 0.25, device=dev)
+        q_des = torch.tensor([[0.5, 0.0, 0.3] * 4], device=dev)
+        qd = torch.tensor([[0.0, 0.0, 0.5] * 4], device=dev)
+        full = lambda v: torch.full((12,), v, device=dev)
+        rest = (full(kp), full(kd), full(limit), torch.zeros(1, 3, device=dev),
+                torch.zeros(1, 3, device=dev), torch.zeros(3, device=dev),
+                torch.tensor(act.SPRING_ENGAGE_SIGN, dtype=torch.float32, device=dev))
+        return torch.func.jacfwd(lambda a, b, c: act.actuation_torque(a, b, c, *rest)[0],
+                                 argnums=(0, 1, 2))(q_des, q, qd)
+
+    def contact(dev, clamp):
+        p_w = torch.zeros(1, 12, 3, device=dev)
+        p_w[0, :5, 2], p_w[0, 5:, 2] = -phi0, phi0
+        v_w = torch.zeros(1, 12, 3, device=dev)
+        v_w[0, :, 0] = 0.5
+        v_w[0, :5, 2] = torch.tensor([-0.125, 0.125, 0.0625, -0.25, 0.25], device=dev)
+        params = dyn.SimParams(contact_stiffness=kn, contact_damping=dn, friction=0.75,
+                               clamp_damping=clamp)
+        radii = torch.zeros(12, device=dev)
+        return torch.func.jacfwd(
+            lambda p, v: dyn.contact_forces(None, params, p, v, radii)[:2],
+            argnums=(0, 1))(p_w, v_w)
+
+    cases = [actuation] + [lambda dev, c=c: contact(dev, c) for c in (True, False)]
+    for case in cases:
+        want, got = _flat(case("cpu")), _flat(case(cuda))
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w)
+    ties = _flat(actuation("cpu"))[0][0, :3, 0, :3].diagonal()
+    assert ties.tolist() == [0.5 * kp, 0.5 * kp, kp]
+
 def test_reverse_mode_through_the_kernels_raises(cuda):
     args = list(_actuation_args(cuda))
     args[1] = args[1].clone().requires_grad_()
