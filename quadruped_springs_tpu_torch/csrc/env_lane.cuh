@@ -126,6 +126,15 @@ struct QuadShfl {
 #pragma unroll
     for (int i = 0; i < N; ++i) v[i] += __shfl_xor_sync(mask, v[i], 2);
   }
+  // sum_fixed's pairing of the legs' values (the planner's cost sums over
+  // the 12 joints): (v0 + v2) + (v1 + v3)
+  template <int N>
+  __device__ __forceinline__ void sum_fixed_legs(float (&v)[N]) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) v[i] = __fadd_rn(v[i], __shfl_xor_sync(mask, v[i], 2));
+#pragma unroll
+    for (int i = 0; i < N; ++i) v[i] = __fadd_rn(v[i], __shfl_xor_sync(mask, v[i], 1));
+  }
 };
 #endif
 

@@ -8,13 +8,16 @@
 // solver/rollout.py planner_rollout_plain. The substep is env_lane.cuh's
 // lane_substep with the feet's memoryless law; the state stays in registers
 // across every knot and substep, the model is read from the block's staged
-// copy (stage_leg_model) at each use.
+// copy (stage_leg_model) at each use. The cost instantiation
+// (planner_lane<true>) also sums each lane's task cost as it goes
+// (task_cost.cuh), and writes the states only where the caller asks.
 
 #pragma once
 
 #include <stdint.h>
 
 #include "env_lane.cuh"
+#include "task_cost.cuh"
 
 namespace qs {
 
@@ -38,14 +41,23 @@ struct RolloutArgs {
 // launcher and tests/planner_rollout_host.cpp): the consts as a host float
 // array of sizeof(EnvConsts) / 4, then RolloutArgs's members in order, then
 // the stream.
-#define QS_PLANNER_ROLLOUT_PARAMS                                               \
+#define QS_PLANNER_ROLLOUT_HEAD                                                 \
   const float *consts, int n_consts, const float *x0, const float *q_des,      \
       const float *kp, const float *kd, const float *torque_limits,            \
       const float *velocity_limits, const float *rest, const float *sign,      \
       const float *spring_k, const float *spring_b, const float *friction,     \
       const float *model, int64_t scenario_stride, float *xs,                  \
       int64_t n_problems, int repeats, int horizon, int substeps,              \
-      int clamp_damping, void *stream
+      int clamp_damping
+#define QS_PLANNER_ROLLOUT_PARAMS QS_PLANNER_ROLLOUT_HEAD, void *stream
+
+// The cost instantiation's: the rollout's (xs may be null: no states
+// written), then the actions (B,R,H,m), the costs (B,R) out, the family
+// (task_cost.cuh CostFamily), m and the family's kCostWeights constants as
+// a host float array (tasks/costs.py kernel_weights), then the stream.
+#define QS_PLANNER_ROLLOUT_COST_PARAMS                                          \
+  QS_PLANNER_ROLLOUT_HEAD, const float *us, float *costs, int family,          \
+      int action_dim, const float *weights, void *stream
 
 #define QS_ROLLOUT_ARGS_FROM_PARAMS                                             \
   qs::RolloutArgs{x0, q_des, kp, kd, torque_limits, velocity_limits, rest,     \
@@ -128,9 +140,36 @@ QS_FN const LegModel& lane_model(const RolloutArgs& a, const BlockRows& rows,
   return models[4 * (lane / a.repeats * a.scenario_stride - rows.first) + leg];
 }
 
-template <class Quad>
-QS_FN void planner_lane(const EnvConsts& k, const RolloutArgs& a, const LegModel& c,
-                        int64_t lane, int leg, Quad& quad) {
+// What the cost instantiation adds to RolloutArgs
+struct CostArgs {
+  const float* us;   // (B,R,H,m) the candidates' actions
+  float* costs;      // (B,R) out
+  int family, action_dim;
+  float w[kCostWeights];
+};
+
+QS_FN BaseState base_state(const LaneState& s) {
+  return BaseState{s.pos.x,     s.pos.y,     s.pos.z,     s.quat[0],   s.quat[1],
+                   s.quat[2],   s.quat[3],   s.lin_vel.x, s.lin_vel.y, s.lin_vel.z,
+                   s.ang_vel.x, s.ang_vel.y, s.ang_vel.z};
+}
+
+// The stage costs a block keeps: (H, kRolloutLanes) floats after its staged
+// models, a lane's column at its index in the block
+inline size_t stage_cost_bytes(int horizon) {
+  return static_cast<size_t>(horizon) * kRolloutLanes * sizeof(float);
+}
+
+// Lane `lane`'s rollout. kCost: also its task cost, written to
+// cost->costs[lane]: at each knot the stage cost of the state before it
+// and its actions, kept in `stage` (the lane's column of the block's
+// stage costs, stride kRolloutLanes), then sum_fixed over the knots plus
+// the terminal cost of the last state, as rollout_cost_plain sums them;
+// the states are written only where a.xs is not null.
+template <bool kCost, class Quad>
+QS_FN void planner_lane_run(const EnvConsts& k, const RolloutArgs& a, const CostArgs* cost,
+                            const LegModel& c, int64_t lane, int leg, Quad& quad,
+                            float* stage) {
   const float* x = a.x0 + kStateFloats * (lane / a.repeats);
   LaneState s;
   s.pos = load3(x);
@@ -147,17 +186,42 @@ QS_FN void planner_lane(const EnvConsts& k, const RolloutArgs& a, const LegModel
   const V3 no_force = v3(0.0f, 0.0f, 0.0f);
   float no_anchor_x = 0.0f, no_anchor_y = 0.0f;
   SubstepOut o;
-  float* out = a.xs + lane * (a.horizon + 1) * kStateFloats + 3 * leg;
-  write_state(out, s, leg);
+  const bool states = !kCost || a.xs != nullptr;
+  float* out = states ? a.xs + lane * (a.horizon + 1) * kStateFloats + 3 * leg : nullptr;
+  if (states) write_state(out, s, leg);
   const float* cmd = a.q_des + lane * a.horizon * 12 + 3 * leg;
   for (int t = 0; t < a.horizon; ++t) {
+    if constexpr (kCost) {
+      // sum_fixed(qd ** 2) over the 12 joints: (j, j + 6) and (j + 3, j + 9),
+      // i.e. legs (0, 2) and (1, 3), then the pairs, then the chain over j
+      float sq[3];
+#pragma unroll
+      for (int j = 0; j < 3; ++j) sq[j] = rn_mul(s.qd[j], s.qd[j]);
+      quad.sum_fixed_legs(sq);
+      const float* u = cost->us + (lane * a.horizon + t) * cost->action_dim;
+      const float v = stage_cost(cost->family, cost->w, base_state(s),
+                                 action_square_sum(u, cost->action_dim),
+                                 rn_add(rn_add(sq[0], sq[1]), sq[2]));
+      if (leg == 0) stage[t * kRolloutLanes] = v;
+    }
     for (int r = 0; r < a.substeps; ++r)
       lane_substep<false, false>(k, c, cmd, false, false, clamp_damping, false, no_force, s,
                                  no_anchor_x, no_anchor_y, o, quad);
-    out += kStateFloats;
+    if (states) out += kStateFloats;
     cmd += 12;
-    write_state(out, s, leg);
+    if (states) write_state(out, s, leg);
   }
+  if constexpr (kCost) {
+    if (leg == 0)
+      cost->costs[lane] = rn_add(sum_fixed_strided(stage, a.horizon, kRolloutLanes),
+                                 terminal_cost(cost->family, cost->w, base_state(s)));
+  }
+}
+
+template <class Quad>
+QS_FN void planner_lane(const EnvConsts& k, const RolloutArgs& a, const LegModel& c,
+                        int64_t lane, int leg, Quad& quad) {
+  planner_lane_run<false>(k, a, nullptr, c, lane, leg, quad, nullptr);
 }
 
 }  // namespace qs

@@ -1,9 +1,11 @@
 // planner_rollout: N = B·R lanes of the planner model through H knots of S
-// substeps in one launch, on a Hopper card (sm_90a). Every rollout of the
-// MPPI solver (solver/mppi.py through solver/mpc.py MPCProblem.lane_rollout)
-// and the closed loop's executor (closed_loop.py execute_knot: H = 1, S = 10
-// on the 1 kHz model) launch it once; its plain PyTorch version is
-// solver/rollout.py planner_rollout_plain.
+// substeps in one launch, on a Hopper card (sm_90a). The closed loop's
+// executor (closed_loop.py execute_knot: H = 1, S = 10 on the 1 kHz model)
+// launches it once a knot; its plain PyTorch version is solver/rollout.py
+// planner_rollout_plain. Its cost instantiation, planner_rollout_cost (the
+// same lanes, each also summing its task cost: task_cost.cuh), is every
+// rollout of the MPPI solver (solver/mppi.py through solver/mpc.py
+// MPCProblem.cost_rollout); its plain version is rollout_cost_plain.
 //
 // Replaces, on the planner's rollouts, what the port launched per substep:
 // the kernels `actuation` (scripts/pallas_microbench.py:_actuation_kernel,
@@ -99,7 +101,55 @@ planner_rollout_kernel(const __grid_constant__ qs::EnvConsts consts,
                    quad);
 }
 
+// The cost instantiation: the same lanes, each also summing its task cost
+// (planner_lane_run<true>); its block keeps the stage costs of its 32 lanes
+// after the staged models, (H, 32) floats.
+__global__ void __launch_bounds__(qs::kRolloutThreads, kMinBlocks)
+planner_rollout_cost_kernel(const __grid_constant__ qs::EnvConsts consts,
+                            const __grid_constant__ qs::RolloutArgs args,
+                            const __grid_constant__ qs::CostArgs cost, int staged_floats) {
+  extern __shared__ float cost_smem[];
+  qs::LegModel* models = reinterpret_cast<qs::LegModel*>(cost_smem);
+  const qs::BlockRows rows = qs::block_rows(args, blockIdx.x);
+  qs::stage_leg_model(consts, args, rows, threadIdx.x, models);
+  __syncthreads();
+  const int64_t lane = static_cast<int64_t>(blockIdx.x) * qs::kRolloutLanes + (threadIdx.x >> 2);
+  if (lane >= args.n_problems * args.repeats) return;   // whole groups of four
+  const int leg = static_cast<int>(threadIdx.x & 3);
+  qs::QuadShfl quad{0xFu << (threadIdx.x & 28u)};
+  qs::planner_lane_run<true>(consts, args, &cost, qs::lane_model(args, rows, models, lane, leg),
+                             lane, leg, quad, cost_smem + staged_floats + (threadIdx.x >> 2));
+}
+
+size_t cost_smem_bytes(int repeats, int64_t scenario_stride, int horizon) {
+  return staged_bytes(repeats, scenario_stride) + qs::stage_cost_bytes(horizon);
+}
+
 }  // namespace
+
+extern "C" int planner_rollout_cost(QS_PLANNER_ROLLOUT_COST_PARAMS) {
+  if (n_consts != qs::kConstsFloats) return static_cast<int>(cudaErrorInvalidValue);
+  qs::EnvConsts c;
+  memcpy(&c, consts, sizeof(c));
+  qs::RolloutArgs args = QS_ROLLOUT_ARGS_FROM_PARAMS;
+  qs::CostArgs cost{us, costs, family, action_dim, {}};
+  memcpy(cost.w, weights, sizeof(cost.w));
+  const size_t smem = cost_smem_bytes(repeats, scenario_stride, horizon);
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(planner_rollout_cost_kernel,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  int64_t lanes = n_problems * repeats;
+  unsigned int blocks = static_cast<unsigned int>((lanes + qs::kRolloutLanes - 1) /
+                                                  qs::kRolloutLanes);
+  const int staged_floats = static_cast<int>(staged_bytes(repeats, scenario_stride) / 4);
+  planner_rollout_cost_kernel<<<blocks, qs::kRolloutThreads, smem,
+                                static_cast<cudaStream_t>(stream)>>>(c, args, cost,
+                                                                     staged_floats);
+  return static_cast<int>(cudaGetLastError());
+}
 
 extern "C" int planner_rollout(QS_PLANNER_ROLLOUT_PARAMS) {
   if (n_consts != qs::kConstsFloats) return static_cast<int>(cudaErrorInvalidValue);
@@ -126,6 +176,32 @@ extern "C" int planner_rollout_occupancy(int repeats, int64_t scenario_stride, i
   const size_t smem = staged_bytes(repeats, scenario_stride);
   int blocks = 0;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, planner_rollout_kernel,
+                                                      qs::kRolloutThreads, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[0] = blocks;
+  out[1] = qs::kRolloutThreads;
+  out[2] = attr.numRegs;
+  out[3] = static_cast<int>(attr.localSizeBytes);
+  out[4] = static_cast<int>(smem);
+  return 0;
+}
+
+// The same of the cost instantiation at horizon H, its shared memory the
+// staged models and the (H, 32) stage costs.
+extern "C" int planner_rollout_cost_occupancy(int repeats, int64_t scenario_stride,
+                                              int horizon, int* out) {
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, planner_rollout_cost_kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const size_t smem = cost_smem_bytes(repeats, scenario_stride, horizon);
+  if (smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(planner_rollout_cost_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, planner_rollout_cost_kernel,
                                                       qs::kRolloutThreads, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   out[0] = blocks;

@@ -45,6 +45,18 @@ ENV_SUBSTEPS_ARGTYPES = ([_P, ctypes.c_int] + [_P] * 8 + [_I64, _I64] + [_P] * 1
 ENV_SUBSTEPS_VJP_ARGTYPES = ENV_SUBSTEPS_ARGTYPES[:-1] + [_P] * 20 + [_P]
 PLANNER_ROLLOUT_ARGTYPES = ([_P, ctypes.c_int] + [_P] * 12 + [_I64, _P, _I64]
                             + [ctypes.c_int] * 4 + [_P])
+# planner_rollout's arguments but the stream, then us, costs, family,
+# action_dim, the family's constants (a host float array) and the stream
+PLANNER_ROLLOUT_COST_ARGTYPES = (PLANNER_ROLLOUT_ARGTYPES[:-1]
+                                 + [_P, _P, ctypes.c_int, ctypes.c_int,
+                                    ctypes.POINTER(ctypes.c_float), _P])
+# costs, cand, cost_new, draw, sigma, norm, lower, upper, us, us_alt, cost,
+# trace, rows, q_des, n_problems, samples, horizon, actions, n_elite,
+# trace_col, iterations, out_rows, fused, smooth, rcp_temperature, u_min,
+# u_max, lp_a, lp_b, joint_src, joint_sign (host arrays), stream
+# (csrc/mppi_update.cuh)
+MPPI_UPDATE_ARGTYPES = ([_P] * 14 + [_I64] + [ctypes.c_int] * 9 + [ctypes.c_float] * 5
+                        + [ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_float), _P])
 _SIGNATURES = {
     # q_des, q, qd, kp, kd, limits, spring_k, spring_b, rest, sign,
     # tau, tau_motor, n_lanes, stream
@@ -93,6 +105,14 @@ _SIGNATURES = {
     # repeats, scenario_stride, out (5 ints): planner_rollout's blocks an SM,
     # threads a block, registers and local bytes a thread, shared bytes a block
     "planner_rollout_occupancy": [ctypes.c_int, _I64, _P],
+    # planner_rollout's arguments (xs may be null), us, costs, family,
+    # action_dim, weights, stream (csrc/planner_lane.cuh, task_cost.cuh)
+    "planner_rollout_cost": PLANNER_ROLLOUT_COST_ARGTYPES,
+    # repeats, scenario_stride, horizon, out (5 ints): as
+    # planner_rollout_occupancy, of the cost instantiation
+    "planner_rollout_cost_occupancy": [ctypes.c_int, _I64, ctypes.c_int, _P],
+    # csrc/mppi_update.cuh
+    "mppi_update": MPPI_UPDATE_ARGTYPES,
 }
 # the planner's four kernels also take bfloat16 arrays, under <name>_bf16
 for _name in ("planner_actuation", "planner_contact", "planner_actuation_jvp",

@@ -26,7 +26,10 @@ from quadruped_springs_tpu_torch.solver import ilqr, mppi
 from quadruped_springs_tpu_torch.solver.rollout import (
     RolloutConsts,
     RolloutLanes,
+    TaskCost,
     planner_rollout,
+    planner_rollout_cost,
+    total_cost,
 )
 from quadruped_springs_tpu_torch.tasks import costs as task_costs
 
@@ -150,6 +153,7 @@ class MPCProblem:
             raise ValueError(f"lin_dtype {config.lin_dtype!r}: expected one of "
                              f"{sorted(LIN_DTYPES)}")
         self._knot_constants = {}
+        self._nominal_lanes = None
 
     def knot_constants(self, dtype: torch.dtype) -> dict:
         """The robot constants a knot reads, in dtype, made once per type."""
@@ -241,19 +245,41 @@ class MPCProblem:
         return RolloutLanes.make(lanes.model, lanes.spring_k, lanes.spring_b,
                                  lanes.params.friction)
 
-    def lane_rollout(self, scenario: rnd.ScenarioParams | None = None):
-        """MPPI's rollout for B problems, one scenario each (the nominal
-        robot for all when None): rollout(x0 (B,n), us (B,R,H,m)) -> xs
-        (B,R,H+1,n), R candidates per problem. The commands of every knot
-        are computed at once; the model is packed once, here. One
-        planner_rollout launch per call on the card."""
-        lanes, consts = self.rollout_lanes(scenario), self.rollout_consts()
+    def cost_rollout(self, scenario: rnd.ScenarioParams | RolloutLanes | None = None):
+        """MPPI's rollout with its task cost for B problems, one scenario
+        each (the nominal robot for all when None, its model packed once a
+        problem; a RolloutLanes: scenarios packed by the caller, once for
+        many solves): rollout_cost(x0 (B,n),
+        us (B,R,H,m), q_des (B,R,H,12) or None, states) -> (xs (B,R,H+1,n)
+        or None unless states, costs (B,R)). A task of KERNEL_FAMILIES
+        rolls out through planner_rollout_cost (one launch on the card, the
+        cost summed in it); RECOVERY and NO_TASK through planner_rollout,
+        then their PyTorch cost (total_cost). q_des None: the commands are
+        computed here."""
+        if isinstance(scenario, RolloutLanes):
+            lanes = scenario
+        elif scenario is None:
+            if self._nominal_lanes is None:
+                self._nominal_lanes = self.rollout_lanes(None)
+            lanes = self._nominal_lanes
+        else:
+            lanes = self.rollout_lanes(scenario)
+        consts = self.rollout_consts()
+        weights = task_costs.kernel_weights(self.config.task, self.config.horizon,
+                                            dict(self.config.cost_overrides))
+        cost = None if weights is None else TaskCost(self.stage_cost, self.terminal_cost,
+                                                     *weights)
 
-        def rollout(x0, us):
-            q_des = ci.action_to_command(self.iface, us).contiguous()
-            return planner_rollout(x0.contiguous(), q_des, lanes, consts)
+        def rollout_cost(x0, us, q_des, states):
+            if q_des is None:
+                q_des = ci.action_to_command(self.iface, us).contiguous()
+            if cost is None:
+                xs = planner_rollout(x0.contiguous(), q_des, lanes, consts)
+                return xs, total_cost(self.stage_cost, self.terminal_cost, xs, us)
+            return planner_rollout_cost(x0.contiguous(), us.contiguous(), q_des, lanes, consts,
+                                        cost, states)
 
-        return rollout
+        return rollout_cost
 
     # -- solve ------------------------------------------------------------
     def solve_batch(self, x0s: torch.Tensor, u_inits: torch.Tensor,
@@ -289,17 +315,20 @@ class MPCProblem:
     def solve_mppi(self, x0: torch.Tensor, u_init: torch.Tensor,
                    generator: torch.Generator | None = None,
                    config: mppi.MPPIConfig | None = None,
-                   scenario: rnd.ScenarioParams | None = None,
+                   scenario: rnd.ScenarioParams | RolloutLanes | None = None,
                    noise: torch.Tensor | None = None) -> mppi.MPPISolution:
         """Sampling-based solve of B problems: x0 (B,37), u_init (B,H,m), one
-        scenario per problem (the nominal robot for all when None). Every
-        rollout is one lane_rollout call. See mppi.solve for `noise`.
+        scenario per problem (the nominal robot for all when None; or their
+        rollout_lanes, packed once for many solves). Every
+        rollout is one cost_rollout call; with a PD interface mppi_update
+        writes the rows' joint targets. See mppi.solve_costed for `noise`.
         """
         if config is None:
             config = mppi.MPPIConfig(horizon=self.config.horizon,
                                      iterations=self.config.iterations)
-        return mppi.solve(self.lane_rollout(scenario), self.stage_cost, self.terminal_cost,
-                          x0, u_init, config, generator, noise)
+        iface = self.iface if self.iface.motor_control_mode == "PD" else None
+        return mppi.solve_costed(self.cost_rollout(scenario), x0, u_init, config, generator,
+                                 noise, iface)
 
     # -- convenience -------------------------------------------------------
     def default_x0(self) -> torch.Tensor:

@@ -3,13 +3,16 @@
 Port of ``quadruped_springs_tpu.solver.mppi``. Where the JAX solver handles
 one problem and is vmapped, ``solve`` takes B problems at once: x0 (B,n),
 u_init (B,H,m). The K candidates of every problem roll out together as
-B·K lanes. ``rollout(x0, us)`` runs R sequences per problem (R = K for
-the samples, 1 or 2 for the exact re-evaluations) through the whole
-horizon: us (B,R,H,m) -> xs (B,R,H+1,n) (``MPCProblem.lane_rollout``: one
-``planner_rollout`` kernel launch on the card). The sums over the horizon
-and over the samples are elementwise adds in a fixed order
-(``models/spatial.py``), so a problem's solution does not depend on how
-many problems share its batch.
+B·K lanes. ``rollout_cost(x0, us, q_des, states)`` runs R sequences per
+problem (R = K for the samples, 1 or 2 for the exact re-evaluations)
+through the whole horizon and returns their costs (B,R), and their states
+where asked (``MPCProblem.cost_rollout``: one ``planner_rollout_cost``
+kernel launch on the card, the task cost summed in it). Between two
+rollouts one ``mppi_update`` call (``solver/mppi_update.py``: one kernel
+launch on the card) turns the costs into the proposal and the next rows.
+The sums over the horizon and over the samples are adds in a fixed order
+(``models/spatial.py`` sum_fixed's), so a problem's solution does not
+depend on how many problems share its batch.
 
 The bfloat16 sample path of the JAX solver (``sample_dtype``) is not
 ported: it cost solution quality.
@@ -18,11 +21,14 @@ ported: it cost solution quality.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable
 
 import torch
 
-from quadruped_springs_tpu_torch.models import spatial as sp
+from quadruped_springs_tpu_torch.control import interfaces as ci
+from quadruped_springs_tpu_torch.solver import mppi_update as mu
+from quadruped_springs_tpu_torch.solver.rollout import total_cost
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,22 +57,17 @@ class MPPISolution:
     cost_trace: torch.Tensor  # (B,iterations)
 
 
-_LP_A, _LP_B = 0.7, 0.3      # first-order low-pass of the exploration noise
-
-
 def _smooth_noise(eps):
-    """Low-pass (B,K,H,m) noise along H, renormalised exactly per step:
-    Var(c_t) = b²(1-a^{2(t+1)})/(1-a²)·σ², so dividing by its square root
-    restores the marginal std at every horizon step."""
-    a, b = _LP_A, _LP_B
-    c = torch.zeros_like(eps[:, :, 0])
-    steps = []
-    for t in range(eps.shape[2]):
-        c = a * c + b * eps[:, :, t]
-        steps.append(c)
-    t = torch.arange(eps.shape[2], dtype=eps.dtype, device=eps.device)
-    norm = b * torch.sqrt((1.0 - a ** (2.0 * (t + 1.0))) / (1.0 - a * a))
-    return torch.stack(steps, dim=2) / norm[:, None]
+    """Low-pass (B,K,H,m) noise along H, renormalised exactly per step, as
+    mppi_update does it (mppi_update.lowpass)."""
+    return mu.lowpass(eps, mu.lowpass_norm(eps.shape[2], eps.dtype, eps.device))
+
+
+@functools.lru_cache(maxsize=None)
+def _schedule(sigma: float, decay: float, iterations: int, horizon: int, device, dtype):
+    """(sigmas (iterations,), lowpass_norm (H,)) on the device, made once."""
+    sigmas = sigma * decay ** torch.arange(iterations, dtype=dtype, device=device)
+    return sigmas, mu.lowpass_norm(horizon, dtype, device)
 
 
 def solve(rollout: Callable, stage_cost: Callable, terminal_cost: Callable,
@@ -74,86 +75,87 @@ def solve(rollout: Callable, stage_cost: Callable, terminal_cost: Callable,
           generator: torch.Generator | None = None,
           noise: torch.Tensor | None = None) -> MPPISolution:
     """Minimize Σ l(x,u,t) + lf(x_H) for B problems by iterated
+    importance-weighted sampling, the cost summed in PyTorch
+    (rollout.total_cost) over rollout(x0, us) -> xs. See solve_costed."""
+
+    def rollout_cost(x0, us, q_des, states):
+        xs = rollout(x0, us)
+        return xs, total_cost(stage_cost, terminal_cost, xs, us)
+
+    return solve_costed(rollout_cost, x0, u_init, config, generator, noise)
+
+
+def solve_costed(rollout_cost: Callable, x0: torch.Tensor, u_init: torch.Tensor,
+                 config: MPPIConfig = MPPIConfig(), generator: torch.Generator | None = None,
+                 noise: torch.Tensor | None = None,
+                 iface: ci.ControlInterface | None = None) -> MPPISolution:
+    """Minimize Σ l(x,u,t) + lf(x_H) for B problems by iterated
     importance-weighted sampling.
 
-    x0: (B,n). u_init: (B,H,m). `noise` optionally gives the standard-normal
-    draws, (iterations,B,K,H,m); otherwise each iteration draws them from
-    `generator` on x0's device.
+    rollout_cost(x0, us (B,R,H,m), q_des (B,R,H,12) or None, states) ->
+    (xs (B,R,H+1,n) or None unless states, costs (B,R)). x0: (B,n).
+    u_init: (B,H,m). `noise` optionally gives the standard-normal draws,
+    (iterations,B,K,H,m); otherwise each iteration draws them from
+    `generator` on x0's device. iface: a PD interface, whose joint targets
+    of the rows come with them from mppi_update (q_des), or None. Between
+    two rollouts one mppi_update call does the update (on the card one
+    launch).
     """
     B, H, m = u_init.shape
     K = config.n_samples
-    n_elite = max(int(K * config.elite_frac), 1)
     dev, dtype = x0.device, x0.dtype
-    clip_u = lambda u: torch.clamp(u, config.u_min, config.u_max)
-    ts = torch.arange(H, device=dev)
-    inf = torch.full((), float("inf"), dtype=dtype, device=dev)
+    x0 = x0.contiguous()
+    if config.iterations < 1:
+        raise ValueError(f"MPPI needs at least one iteration, got {config.iterations}")
     if noise is not None and noise.shape != (config.iterations, B, K, H, m):
         raise ValueError(f"noise shape {tuple(noise.shape)}, expected "
                          f"{(config.iterations, B, K, H, m)}")
+    settings = mu.UpdateSettings(
+        fused=config.fused_accept, smooth=config.smooth,
+        n_elite=max(int(K * config.elite_frac), 1), temperature=config.temperature,
+        u_min=config.u_min, u_max=config.u_max, iface=iface)
+    sigmas, norm = _schedule(config.sigma, config.sigma_decay, config.iterations, H, dev, dtype)
+    last = config.iterations - 1
 
-    def rollout_cost(us):
-        """us (B,R,H,m) -> xs (B,R,H+1,n), costs (B,R)."""
-        xs = rollout(x0, us)
-        cost = sp.sum_fixed(stage_cost(xs[:, :, :-1], us, ts)) + terminal_cost(xs[:, :, -1])
-        return xs, cost
-
-    def perturbation(i):
-        draw = noise[i] if noise is not None else torch.randn(
+    def draw(i):
+        return noise[i].contiguous() if noise is not None else torch.randn(
             (B, K, H, m), generator=generator, device=dev, dtype=dtype)
-        eps = sigmas[i] * draw
-        return _smooth_noise(eps) if config.smooth else eps
 
-    def softmax_update(costs, cand):
-        """Elite-truncated importance weights (robust to diverged samples)
-        and the clipped weighted mean of the candidates."""
-        kth = torch.sort(costs, dim=-1).values[:, n_elite - 1:n_elite]
-        beta = costs.min(dim=-1, keepdim=True).values
-        w = torch.exp(-(costs - beta) / config.temperature)
-        w = torch.where(costs <= kth, w, torch.zeros_like(w))
-        w = w / torch.clamp_min(sp.sum_fixed(w), 1e-12)[:, None]
-        return clip_u(sp.sum_fixed(w[:, :, None, None] * cand, 1))
+    def update(state, i=None, **kw):
+        """mppi_update; with i, the rows are iteration i's candidates."""
+        if i is not None:
+            kw.update(rows=mu.ROWS_CANDIDATES, draw=draw(i), sigma=sigmas[i:i + 1])
+        return mu.mppi_update(state, settings, norm=norm, **kw)
 
-    us0 = clip_u(u_init)
-    sigmas = config.sigma * config.sigma_decay ** torch.arange(
-        config.iterations, dtype=dtype, device=dev)
-    trace = []
+    us0 = torch.clamp(u_init, config.u_min, config.u_max)
+    trace = torch.empty(B, config.iterations, dtype=dtype, device=dev)
     if config.fused_accept:
-        us_prop, us_best = us0, us0
-        cost_best = inf.expand(B)
-        rows = torch.arange(B, device=dev)
+        cost_best = torch.full((B,), float("inf"), dtype=dtype, device=dev)
+        state, cand, q_des = update(mu.UpdateState(us0, us0.clone(), cost_best, trace), 0)
         for i in range(config.iterations):
-            eps = perturbation(i)
-            eps = torch.cat([torch.zeros_like(eps[:, :1]), eps[:, 1:]], dim=1)
-            cand = clip_u(us_prop[:, None] + eps)
-            _, costs = rollout_cost(cand)
-            costs = torch.where(torch.isfinite(costs), costs, inf)
-            ib = torch.argmin(costs, dim=-1)
-            c_ib = costs[rows, ib]
-            better = c_ib < cost_best
-            us_best = torch.where(better[:, None, None], cand[rows, ib], us_best)
-            cost_best = torch.where(better, c_ib, cost_best)
-            us_prop = softmax_update(costs, cand)
-            trace.append(cost_best)
+            _, costs = rollout_cost(x0, cand, q_des, False)
+            next_rows = dict(rows=mu.ROWS_BOTH) if i == last else dict(i=i + 1)
+            state, cand, q_des = update(state, costs=costs, cand=cand, trace_col=i,
+                                        **next_rows)
         # settle proposal vs best with the exact dynamics, both in one rollout
-        xs_pb, cost_pb = rollout_cost(torch.stack([us_prop, us_best], dim=1))
+        xs_pb, cost_pb = rollout_cost(x0, cand, q_des, True)
         take_b = cost_pb[:, 1] < cost_pb[:, 0]
-        us = torch.where(take_b[:, None, None], us_best, us_prop)
+        us = torch.where(take_b[:, None, None], state.us_alt, state.us)
         xs = torch.where(take_b[:, None, None], xs_pb[:, 1], xs_pb[:, 0])
         cost = torch.where(take_b, cost_pb[:, 1], cost_pb[:, 0])
-        return MPPISolution(us=us, xs=xs, cost=cost, cost_trace=torch.stack(trace, -1))
+        return MPPISolution(us=us, xs=xs, cost=cost, cost_trace=state.trace)
 
-    _, cost = rollout_cost(us0[:, None])
-    cost = cost[:, 0]
-    us = us0
+    state, rows, q_des = update(mu.UpdateState(us0, torch.empty_like(us0),
+                                               torch.empty(B, dtype=dtype, device=dev), trace),
+                                rows=mu.ROWS_US)
+    _, cost0 = rollout_cost(x0, rows, q_des, False)
+    state.cost = cost0[:, 0]
+    state, cand, q_des = update(state, 0)
     for i in range(config.iterations):
-        cand = clip_u(us[:, None] + perturbation(i))
-        _, costs = rollout_cost(cand)
-        costs = torch.where(torch.isfinite(costs), costs, inf)
-        us_new = softmax_update(costs, cand)
-        _, cost_new = rollout_cost(us_new[:, None])
-        better = cost_new[:, 0] < cost
-        us = torch.where(better[:, None, None], us_new, us)
-        cost = torch.where(better, cost_new[:, 0], cost)
-        trace.append(cost)
-    xs, _ = rollout_cost(us[:, None])
-    return MPPISolution(us=us, xs=xs[:, 0], cost=cost, cost_trace=torch.stack(trace, -1))
+        _, costs = rollout_cost(x0, cand, q_des, False)
+        state, prop, q_prop = update(state, costs=costs, cand=cand, rows=mu.ROWS_ALT)
+        _, cost_new = rollout_cost(x0, prop, q_prop, False)
+        next_rows = dict(rows=mu.ROWS_US) if i == last else dict(i=i + 1)
+        state, cand, q_des = update(state, cost_new=cost_new[:, 0], trace_col=i, **next_rows)
+    xs, _ = rollout_cost(x0, cand, q_des, True)
+    return MPPISolution(us=state.us, xs=xs[:, 0], cost=state.cost, cost_trace=state.trace)

@@ -11,6 +11,7 @@ holds the reasons for each weight.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from quadruped_springs_tpu_torch.models import dynamics as dyn
@@ -67,6 +68,74 @@ def _body_pitch_rate(x):
     return sp.quat_rotate_inv(_quat(x), _omega(x))[..., 1]
 
 
+# The families the cost instantiation of the planner's rollout computes on
+# the card (csrc/task_cost.cuh): every task MPPI's callers plan with.
+# RECOVERY (its knee and trunk sites need the kinematics) and NO_TASK keep
+# their PyTorch cost on every device.
+KERNEL_FAMILIES = ("JUMPING_IN_PLACE", "JUMPING_FORWARD", "CONTINUOUS_JUMPING_FORWARD",
+                   "BACKFLIP")
+# each family's weights: JUMPING_IN_PLACE (w_h, w_x, w_pitch, w_up),
+# JUMPING_FORWARD (w_h, w_fwd, w_pitch, w_up), CONTINUOUS_JUMPING_FORWARD
+# (w_v, w_h, w_pitch, w_y, w_up, z_ref, v_ref; `overrides` may set z_ref,
+# v_ref, w_v, w_h), BACKFLIP (w_h, w_rot, w_x, target apex)
+_WEIGHTS = {"JUMPING_IN_PLACE": (60.0, 8.0, 4.0, 10.0),
+            "JUMPING_FORWARD": (40.0, 30.0, 4.0, 10.0),
+            "CONTINUOUS_JUMPING_FORWARD": (12.0, 20.0, 3.0, 4.0, 8.0, 0.48, 2.2),
+            "BACKFLIP": (30.0, 25.0, 4.0, 0.7)}
+_W_U, _W_QD = 1e-2, 2e-4   # control magnitude, joint-velocity damping
+
+
+def cost_family(task: str) -> str | None:
+    """The task's family of KERNEL_FAMILIES, or None (RECOVERY, NO_TASK)."""
+    if task.startswith("JUMPING_IN_PLACE") or task == "JIP_PPO":
+        return "JUMPING_IN_PLACE"
+    if task.startswith("JUMPING_FORWARD") or task == "JF_PPO":
+        return "JUMPING_FORWARD"
+    for family in KERNEL_FAMILIES[2:]:
+        if task.startswith(family):
+            return family
+    return None
+
+
+def _continuous_weights(overrides: dict | None):
+    w_v, w_h, w_pitch, w_y, w_up, z_ref, v_ref = _WEIGHTS["CONTINUOUS_JUMPING_FORWARD"]
+    ov = overrides or {}
+    return (float(ov.get("w_v", w_v)), float(ov.get("w_h", w_h)), w_pitch, w_y, w_up,
+            float(ov.get("z_ref", z_ref)), float(ov.get("v_ref", v_ref)))
+
+
+def kernel_weights(task: str, horizon: int, overrides: dict | None = None):
+    """(family index into KERNEL_FAMILIES, constants) of the task's cost as
+    the rollout's cost kernel reads them, or None outside KERNEL_FAMILIES.
+    The constants are make_cost's, each product of Python numbers taken in
+    double as make_cost's expressions take it, then rounded to float32 as
+    PyTorch rounds a scalar operand; a division by a number is a product
+    with its reciprocal (taken in double, rounded to float32), as PyTorch's
+    CUDA kernels divide a tensor by a Python number. The first four of
+    every family: w_u, w_qd, 1/(2g), 1/g."""
+    family = cost_family(task)
+    if family is None:
+        return None
+    rcp = lambda v: float(np.float32(1.0 / v))
+    if family == "JUMPING_IN_PLACE":
+        w_h, w_x, w_pitch, w_up = _WEIGHTS[family]
+        consts = ((w_h / horizon) * 0.5, 0.15 * w_x, 0.15 * w_pitch,
+                  -w_h, w_x, w_pitch, w_up)
+    elif family == "JUMPING_FORWARD":
+        w_h, w_fwd, w_pitch, w_up = _WEIGHTS[family]
+        consts = (0.15 * w_pitch, 2.0, -w_h, w_fwd, w_pitch, w_up)
+    elif family == "CONTINUOUS_JUMPING_FORWARD":
+        w_v, w_h, w_pitch, w_y, w_up, z_ref, v_ref = _continuous_weights(overrides)
+        consts = (v_ref, w_v * 0.25, w_pitch, w_up, 0.28, 600.0, w_y,
+                  w_h, z_ref, w_v, w_up * 5.0)
+    else:
+        w_h, w_rot, w_x, target_apex = _WEIGHTS[family]
+        consts = (0.2 * w_rot, w_h, target_apex, w_rot, w_x)
+    head = (_W_U, _W_QD, rcp(2 * _G), rcp(_G))
+    return (KERNEL_FAMILIES.index(family),
+            tuple(float(np.float32(v)) for v in head + consts))
+
+
 def make_cost(task: str, cfg: Go1Config, action_dim: int, horizon: int,
               overrides: dict | None = None):
     """Return (stage_cost, terminal_cost) for a task key.
@@ -80,14 +149,14 @@ def make_cost(task: str, cfg: Go1Config, action_dim: int, horizon: int,
       the ground.
     Any other key (NO_TASK): regulation to the init pose.
     """
-    w_u = 1e-2          # control smoothness / magnitude
-    w_qd = 2e-4         # joint-velocity damping
+    w_u, w_qd = _W_U, _W_QD
 
     def base_stage(x, u, t):
         return w_u * sp.sum_fixed(u * u) + w_qd * sp.sum_fixed(_qd(x) ** 2)
 
-    if task.startswith("JUMPING_IN_PLACE") or task in ("JIP_PPO",):
-        w_h, w_x, w_pitch, w_up = 60.0, 8.0, 4.0, 10.0
+    family = cost_family(task)
+    if family == "JUMPING_IN_PLACE":
+        w_h, w_x, w_pitch, w_up = _WEIGHTS[family]
 
         def stage(x, u, t):
             return (base_stage(x, u, t)
@@ -103,8 +172,8 @@ def make_cost(task: str, cfg: Go1Config, action_dim: int, horizon: int,
 
         return stage, terminal
 
-    if task.startswith("JUMPING_FORWARD") or task in ("JF_PPO",):
-        w_h, w_fwd, w_pitch, w_up = 40.0, 30.0, 4.0, 10.0
+    if family == "JUMPING_FORWARD":
+        w_h, w_fwd, w_pitch, w_up = _WEIGHTS[family]
 
         def stage(x, u, t):
             return (base_stage(x, u, t)
@@ -121,16 +190,10 @@ def make_cost(task: str, cfg: Go1Config, action_dim: int, horizon: int,
 
         return stage, terminal
 
-    ov = overrides or {}
-
-    if task.startswith("CONTINUOUS_JUMPING_FORWARD"):
-        w_v, w_h, w_pitch, w_y, w_up = 12.0, 20.0, 3.0, 4.0, 8.0
+    if family == "CONTINUOUS_JUMPING_FORWARD":
         # forward speed is tracked, not maximized: the task caps each jump's
         # credited distance
-        z_ref = float(ov.get("z_ref", 0.48))
-        v_ref = float(ov.get("v_ref", 2.2))
-        w_v = float(ov.get("w_v", w_v))
-        w_h = float(ov.get("w_h", w_h))
+        w_v, w_h, w_pitch, w_y, w_up, z_ref, v_ref = _continuous_weights(overrides)
 
         def stage(x, u, t):
             # soft base-height floor: a deeper crouch drives the calf into
@@ -151,9 +214,8 @@ def make_cost(task: str, cfg: Go1Config, action_dim: int, horizon: int,
 
         return stage, terminal
 
-    if task.startswith("BACKFLIP"):
-        w_h, w_rot, w_x = 30.0, 25.0, 4.0
-        target_apex = 0.7
+    if family == "BACKFLIP":
+        w_h, w_rot, w_x, target_apex = _WEIGHTS[family]
 
         def stage(x, u, t):
             # reward pitch-back angular velocity

@@ -12,6 +12,8 @@ holds the same on the card at 1,024, 8 and 2 rows. Tolerance: none
 (torch.equal).
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -45,6 +47,13 @@ def problems():
     return prob, rows
 
 
+@pytest.fixture(scope="module")
+def whole_solve(problems):
+    """The whole batch's solve_batch, once for every k."""
+    prob, rows = problems
+    return prob.solve_batch(*rows(ROWS))
+
+
 def _knot(prob, x0, u0, scen, lanes):
     x = x0[:, None].expand(-1, lanes, -1).contiguous()
     u = u0[:, None, 0].expand(-1, lanes, -1).contiguous()
@@ -74,15 +83,16 @@ def test_knot_tangents_are_batch_invariant(problems, k):
 
 
 @pytest.mark.parametrize("k", [1, 2])
-def test_solve_batch_is_batch_invariant(problems, k):
+def test_solve_batch_is_batch_invariant(problems, whole_solve, k):
     prob, rows = problems
-    whole = prob.solve_batch(*rows(ROWS))
+    whole = whole_solve
     part = prob.solve_batch(*rows(k))
     assert bool(torch.isfinite(whole.cost).all())
     for field in ("cost", "cost_trace", "us", "xs", "reg"):
         assert torch.equal(getattr(part, field), getattr(whole, field)[:k]), field
 
 
+@functools.lru_cache(maxsize=None)
 def _mppi_setting(setting):
     """The MPPI problem, its config and scenarios of one setting: the
     headline's (JUMPING_IN_PLACE on the relaxed model, fused accept,
@@ -113,6 +123,23 @@ def _mppi_setting(setting):
     return prob, cfg, rnd.sample_scenario(prob.cfg, "TEST_RANDOMIZER", gen, n=ROWS)
 
 
+def _solve_rows(setting, k):
+    """Rows 0-k-1 of the setting's solve, with the same draws at every k."""
+    prob, cfg, scen = _mppi_setting(setting)
+    x0 = prob.default_x0().expand(ROWS, -1)
+    u0 = prob.task_warm_start().expand(ROWS, -1, -1)
+    noise = torch.randn((ITERATIONS, ROWS, cfg.n_samples, cfg.horizon, prob.action_dim),
+                        generator=torch.Generator("cpu").manual_seed(2))
+    return prob.solve_mppi(x0[:k], u0[:k], config=cfg, noise=noise[:, :k],
+                           scenario=None if scen is None else take(scen, torch.arange(k)))
+
+
+@functools.lru_cache(maxsize=None)
+def _mppi_whole(setting):
+    """The whole batch's solve, once for every k."""
+    return _solve_rows(setting, ROWS)
+
+
 @pytest.mark.parametrize("k,setting", [
     pytest.param(k, setting, id=str(k) if setting == "headline" else f"{setting}-{k}")
     for setting in ("headline", "full_rate", "compare_springs", "compare_rigid")
@@ -121,17 +148,7 @@ def test_solve_mppi_is_batch_invariant(k, setting):
     """An MPPI solve with its standard-normal draws given, the rows' draws
     the same at every batch size (_mppi_setting): rows 0-k-1 of 8 bitwise
     those of a batch of k."""
-    prob, cfg, scen = _mppi_setting(setting)
-    x0 = prob.default_x0().expand(ROWS, -1)
-    u0 = prob.task_warm_start().expand(ROWS, -1, -1)
-    noise = torch.randn((ITERATIONS, ROWS, cfg.n_samples, cfg.horizon, prob.action_dim),
-                        generator=torch.Generator("cpu").manual_seed(2))
-
-    def solve(k):
-        return prob.solve_mppi(x0[:k], u0[:k], config=cfg, noise=noise[:, :k],
-                               scenario=None if scen is None else take(scen, torch.arange(k)))
-
-    whole, part = solve(ROWS), solve(k)
+    whole, part = _mppi_whole(setting), _solve_rows(setting, k)
     assert bool(torch.isfinite(whole.cost).all())
     for field in ("cost", "cost_trace", "us", "xs"):
         assert torch.equal(getattr(part, field), getattr(whole, field)[:k]), field

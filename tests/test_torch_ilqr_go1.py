@@ -5,6 +5,7 @@ autograd Functions (with plain launchers standing in for the CUDA ones), the
 bench and closed-loop entry points at a tiny size, and the default device.
 """
 
+import functools
 import json
 
 import jax
@@ -50,6 +51,17 @@ def _states(seed, z, vz, x0):
     return np.concatenate([x, u], axis=-1).astype(np.float32)
 
 
+@functools.lru_cache(maxsize=None)
+def _knot_jacobian_problems(full_rate: bool):
+    """Both packages' planner problems of a rate and JAX's vmapped knot
+    Jacobian, jitted once: the regimes share its compile."""
+    jmk, tmk = ((jmpc.MPCConfig.full_rate, tmpc.MPCConfig.full_rate) if full_rate
+                else (jmpc.MPCConfig, tmpc.MPCConfig))
+    jprob, tprob = jmpc.MPCProblem(jmk()), tmpc.MPCProblem(tmk(), "cpu")
+    jac = jax.jit(jax.vmap(jax.jacfwd(lambda z, s: jprob.dynamics(z[:37], z[37:], s))))
+    return jprob, tprob, jac
+
+
 @pytest.mark.parametrize("regime", list(REGIMES))
 @pytest.mark.parametrize("full_rate", [False, True], ids=["relaxed", "full_rate"])
 def test_knot_jacobian_matches_jax(full_rate, regime):
@@ -61,13 +73,10 @@ def test_knot_jacobian_matches_jax(full_rate, regime):
     2e-7 in flight, 3.6e-6 at push-off and up to 5.7e-4 in stance (a lane
     with max |J| = 8,680), held to 1e-3 (the spread between JAX's own two
     implementations of this Jacobian was not measured)."""
-    jmk, tmk = ((jmpc.MPCConfig.full_rate, tmpc.MPCConfig.full_rate) if full_rate
-                else (jmpc.MPCConfig, tmpc.MPCConfig))
-    jprob, tprob = jmpc.MPCProblem(jmk()), tmpc.MPCProblem(tmk(), "cpu")
+    jprob, tprob, jac = _knot_jacobian_problems(full_rate)
     scen = _scenarios(jprob.cfg, N)
     z = _states(list(REGIMES).index(regime), *REGIMES[regime], np.asarray(jprob.default_x0()))
-    want = np.asarray(jax.jit(jax.vmap(jax.jacfwd(
-        lambda z, s: jprob.dynamics(z[:37], z[37:], s))))(jnp.asarray(z), scen))
+    want = np.asarray(jac(jnp.asarray(z), scen))
     lanes = tprob.lane_params(convert.scenario_params(scen))
     _, cols = tilqr._basis_jvp(lambda z: tprob.dynamics(z[:, :37], z[:, 37:], lanes),
                                torch.from_numpy(z))

@@ -765,3 +765,80 @@ def test_planner_rollout_rejects_what_the_kernel_does_not_take(cuda):
                            consts)
     with pytest.raises(ValueError, match="on cpu"):
         ro.planner_rollout(x0, q_des.cpu(), lanes, consts)
+
+
+# --- the rest of the MPPI iteration: the cost instantiation, mppi_update -----
+
+@pytest.mark.parametrize("task", ["JUMPING_IN_PLACE", "JUMPING_FORWARD",
+                                  "CONTINUOUS_JUMPING_FORWARD", "BACKFLIP"])
+def test_planner_rollout_cost_matches_the_plain_cost(cuda, task):
+    """The cost instantiation on _rollout_case's lanes (64 problems x 8
+    candidates, H = 8): its states bitwise the xs-only kernel's, its costs
+    bitwise the plain cost (rollout.total_cost over make_cost) of those
+    states; without states the same costs; one launch each."""
+    from quadruped_springs_tpu_torch.solver import rollout as ro
+    from quadruped_springs_tpu_torch.tasks import costs as task_costs
+
+    prob, _, (x0, q_des, lanes, consts) = _rollout_case(cuda)
+    us = torch.randn(*q_des.shape[:3], prob.action_dim, device=cuda).clamp(-1.0, 1.0)
+    ov = {"v_ref": 1.8} if task.startswith("CONTINUOUS") else {}
+    stage, terminal = task_costs.make_cost(task, prob.cfg, prob.action_dim, 8, ov)
+    cost = ro.TaskCost(stage, terminal, *task_costs.kernel_weights(task, 8, ov))
+    before = ro.planner_rollout_cost.launches
+    xs, costs = ro.planner_rollout_cost(x0, us, q_des, lanes, consts, cost, states=True)
+    none, costs_only = ro.planner_rollout_cost(x0, us, q_des, lanes, consts, cost)
+    assert ro.planner_rollout_cost.launches == before + 2 and none is None
+    assert torch.equal(xs, ro.planner_rollout(x0, q_des, lanes, consts))
+    assert torch.equal(costs, ro.total_cost(stage, terminal, xs, us))
+    assert torch.equal(costs_only, costs)
+
+
+@pytest.mark.parametrize("fused", [False, True], ids=["accept", "fused"])
+def test_mppi_update_matches_plain(cuda, fused):
+    """mppi_update against mppi_update_plain on the same inputs over a
+    solve's launches (64 problems x 32 candidates, H = 50, the PD map),
+    costs with ties, inf and NaN: every output bitwise; problems 0-7 of
+    each launch bitwise those of the launch at 8 problems."""
+    from quadruped_springs_tpu_torch.control import interfaces as ci
+    from quadruped_springs_tpu_torch.solver import mppi_update as mu
+
+    B, K, H, m = 64, 32, 50, 6
+    iface = ci.make_interface(go1_config(True, cuda), "PD", "SYMMETRIC", "JUMPING_IN_PLACE")
+    s = mu.UpdateSettings(fused=fused, smooth=True, n_elite=16, temperature=0.05, u_min=-1.0,
+                          u_max=1.0, iface=iface)
+    gen = torch.Generator(cuda).manual_seed(5)
+    norm, sigma = mu.lowpass_norm(H, device=cuda), torch.full((1,), 0.3, device=cuda)
+    us0 = torch.clamp(0.5 * torch.randn(B, H, m, generator=gen, device=cuda), -1, 1)
+    state = mu.UpdateState(us0, us0.clone(), torch.full((B,), float("inf") if fused else -60.0,
+                                                        device=cuda), torch.zeros(B, 2, device=cuda))
+    costs = -60.0 + torch.randn(B, K, generator=gen, device=cuda)
+    costs[1::4, 3], costs[2::4, 5], costs[3::4, 1:] = float("inf"), float("nan"), float("inf")
+    costs[0::4, 7] = costs[0::4, 6]
+    draw = lambda: torch.randn(B, K, H, m, generator=gen, device=cuda)
+    cand_kw = dict(rows=mu.ROWS_CANDIDATES, sigma=sigma, norm=norm)
+    steps = [dict(draw=draw(), **cand_kw)]
+    cand = mu.mppi_update_plain(state, s, **steps[0])[1]
+    if fused:
+        steps.append(dict(costs=costs, cand=cand, trace_col=0, draw=draw(), **cand_kw))
+        steps.append(dict(costs=costs, cand=cand, trace_col=1, rows=mu.ROWS_BOTH))
+    else:
+        steps.append(dict(costs=costs, cand=cand, rows=mu.ROWS_ALT))
+        steps.append(dict(cost_new=costs[:, 7].contiguous(), trace_col=0, draw=draw(),
+                          **cand_kw))
+        steps.append(dict(cost_new=costs[:, 9].contiguous(), trace_col=1, rows=mu.ROWS_US))
+    copy = lambda st, n=B: mu.UpdateState(*(t[:n].clone() for t in (st.us, st.us_alt,
+                                                                   st.cost, st.trace)))
+    for kw in steps:
+        want_state, want_rows, want_q = mu.mppi_update_plain(copy(state), s, **kw)
+        before = mu.mppi_update.launches
+        got_state, got_rows, got_q = mu.mppi_update(copy(state), s, **kw)
+        assert mu.mppi_update.launches == before + 1
+        for a, b in ((got_state.us, want_state.us), (got_state.us_alt, want_state.us_alt),
+                     (got_state.cost, want_state.cost), (got_state.trace, want_state.trace),
+                     (got_rows, want_rows), (got_q, want_q)):
+            assert torch.equal(a, b)
+        kw8 = {k: (v[:8].contiguous() if k in ("costs", "cand", "cost_new", "draw") else v)
+               for k, v in kw.items()}
+        eight = mu.mppi_update(copy(state, 8), s, **kw8)
+        assert torch.equal(eight[1], got_rows[:8]) and torch.equal(eight[0].us, got_state.us[:8])
+        state = want_state

@@ -110,3 +110,11 @@ def test_noise_shape_is_checked():
     with pytest.raises(ValueError, match="noise shape"):
         tmppi.solve(*_torch_problem(), torch.zeros(1, 2), torch.zeros(1, H, 1),
                     tmppi.MPPIConfig(**BASE), noise=torch.zeros(1, 1, 64, H, 1))
+
+
+@pytest.mark.parametrize("fused", [False, True], ids=["accept", "fused"])
+def test_zero_iterations_raise(fused):
+    """A solve without an iteration has no proposal to settle or accept."""
+    with pytest.raises(ValueError, match="at least one iteration"):
+        tmppi.solve(*_torch_problem(), torch.zeros(1, 2), torch.zeros(1, H, 1),
+                    tmppi.MPPIConfig(**{**BASE, "iterations": 0, "fused_accept": fused}))

@@ -3,9 +3,11 @@ rollout.py) on the CPU: its plain version over H knots against a
 jax.lax.scan of the JAX package's MPCProblem.dynamics (relaxed and full
 rate, springs on and off, problems in stance, push-off and flight); the
 CUDA kernel's body (csrc/planner_lane.cuh), built for the CPU with g++ by
-tests/planner_rollout_host.cpp, against the plain version; solve_mppi
-through MPCProblem.lane_rollout against JAX's solve_mppi with JAX's draws
-injected; the wrapper's refusals. Inputs come from numpy seeds and go to
+tests/planner_rollout_host.cpp, against the plain version; the task cost
+of its cost instantiation (rollout_cost_plain against JAX's _total_cost
+over make_cost, the body's against the plain cost of its own states);
+solve_mppi through MPCProblem.cost_rollout against JAX's solve_mppi with
+JAX's draws injected; the wrapper's refusals. Inputs come from numpy seeds and go to
 every side. The kernel itself runs on the card in tests/test_torch_kernels.py
 and chip_smoke.py."""
 
@@ -25,12 +27,14 @@ import torch
 from quadruped_springs_tpu.env import randomizers as jrnd
 from quadruped_springs_tpu.solver import mpc as jmpc
 from quadruped_springs_tpu.solver import mppi as jmppi
+from quadruped_springs_tpu.tasks import costs as jcosts
 from quadruped_springs_tpu_torch import convert, kernels
 from quadruped_springs_tpu_torch.control import interfaces as ci
 from quadruped_springs_tpu_torch.env.env import take
 from quadruped_springs_tpu_torch.solver import mpc as tmpc
 from quadruped_springs_tpu_torch.solver import mppi as tmppi
 from quadruped_springs_tpu_torch.solver import rollout as ro
+from quadruped_springs_tpu_torch.tasks import costs as task_costs
 
 B, R, H = 3, 4, 8
 STANCE, PUSH_OFF, FLIGHT = 0, 1, 2          # the problems
@@ -162,6 +166,9 @@ def test_plain_matches_jax(case):
 
 # --- the kernel's body, built for the CPU ------------------------------------
 
+_HOST_LIB = []   # the host build's path, for the cost instantiation's fixture
+
+
 @pytest.fixture(scope="module")
 def host_build(tmp_path_factory):
     """The kernel's body built with g++ (tests/planner_rollout_host.cpp), once."""
@@ -174,6 +181,7 @@ def host_build(tmp_path_factory):
     fn = ctypes.CDLL(str(lib)).planner_rollout_host
     fn.argtypes = kernels.PLANNER_ROLLOUT_ARGTYPES
     fn.restype = ctypes.c_int
+    _HOST_LIB[:] = [str(lib)]
     return fn
 
 
@@ -262,11 +270,119 @@ def test_kernel_body_on_the_host_matches_plain(body_case, host_build):
         np.testing.assert_array_equal(xs_p[0].numpy(), xs[p].numpy())
 
 
+# --- the cost instantiation ----------------------------------------------------
+
+# (task, overrides): the four families MPPI plans with (tasks/costs.py
+# KERNEL_FAMILIES), continuous jumping with mpc_behaviours-style overrides
+COST_TASKS = {"jump_in_place": ("JUMPING_IN_PLACE", ()),
+              "jump_forward": ("JUMPING_FORWARD", ()),
+              "continuous": ("CONTINUOUS_JUMPING_FORWARD", (("v_ref", 1.8), ("z_ref", 0.42),
+                                                            ("w_v", 10.0), ("w_h", 25.0))),
+              "backflip": ("BACKFLIP", ())}
+
+
+def _task_cost(task_key: str, m: int, horizon: int):
+    task, ov = COST_TASKS[task_key]
+    cfg = _problems(False, True)[1].cfg
+    stage, terminal = task_costs.make_cost(task, cfg, m, horizon, overrides=dict(ov))
+    return ro.TaskCost(stage, terminal, *task_costs.kernel_weights(task, horizon, dict(ov)))
+
+
+@pytest.mark.parametrize("task_key", list(COST_TASKS))
+@pytest.mark.parametrize("full_rate", [False, True], ids=["relaxed", "full_rate"])
+def test_rollout_cost_plain_matches_jax(task_key, full_rate):
+    """rollout_cost_plain's costs (B = 3 problems in stance, push-off and
+    flight x R = 4 x H = 8) against JAX's _total_cost over its make_cost on
+    the same states (the plain rollout's, which rollout_cost_plain returns
+    bitwise) and actions, within 1e-5 of the sum of the terms' sizes (the
+    two packages' sums run in other orders: jnp.sum against sum_fixed)."""
+    x0, us, scen = _case(True)
+    _, tprob = _problems(full_rate, True)
+    x0_t, q_des, lanes, consts = _torch_inputs(tprob, x0, us, scen)
+    m = us.shape[-1]
+    cost = _task_cost(task_key, m, H)
+    xs, got = ro.rollout_cost_plain(x0_t, torch.from_numpy(us), q_des, lanes, consts, cost)
+    assert torch.equal(xs, ro.planner_rollout_plain(x0_t, q_des, lanes, consts))
+    task, ov = COST_TASKS[task_key]
+    jcfg = _problems(False, True)[0].cfg
+    jstage, jterminal = jcosts.make_cost(task, jcfg, m, H, overrides=dict(ov))
+    lane_cost = jax.vmap(lambda x, u: jmppi._total_cost(jstage, jterminal, x, u))
+    want = np.asarray(lane_cost(xs.numpy().reshape(B * R, H + 1, 37),
+                                us.reshape(B * R, H, m))).reshape(B, R)
+    scale = ro.total_cost(lambda x, u, t: cost.stage(x, u, t).abs(),
+                          lambda x: cost.terminal(x).abs(), xs, torch.from_numpy(us)) + 1.0
+    np.testing.assert_array_less(np.abs(got.numpy() - want), 1e-5 * scale.numpy())
+    no_states = ro.rollout_cost_plain(x0_t, torch.from_numpy(us), q_des, lanes, consts, cost,
+                                      states=False)
+    assert no_states[0] is None and torch.equal(no_states[1], got)
+
+
+@pytest.fixture(scope="module")
+def cost_host_build(host_build):
+    """The cost instantiation of the same host build."""
+    fn = ctypes.CDLL(_HOST_LIB[0]).planner_rollout_cost_host
+    fn.argtypes = kernels.PLANNER_ROLLOUT_COST_ARGTYPES
+    fn.restype = ctypes.c_int
+    return fn
+
+
+# (task, full rate, (B, R, H) or None for _case's 3 x 4 x 8): BODY_CASES'
+# shapes that put a problem across two blocks (13 x 3; 2 x 64), end a block
+# early (5 x 3), the fused accept's settle (17 x 2) and R = 1 (32 problems a
+# block)
+COST_BODY_CASES = {"jump_in_place-relaxed": ("jump_in_place", False, None),
+                   "jump_forward-full_rate-B5_R3": ("jump_forward", True, (5, 3, 8)),
+                   "continuous-relaxed-B13_R3": ("continuous", False, (13, 3, 4)),
+                   "backflip-relaxed-B17_R2": ("backflip", False, (17, 2, 4)),
+                   "backflip-relaxed-B2_R64": ("backflip", False, (2, 64, 2)),
+                   "jump_in_place-full_rate-B40_R1_H1": ("jump_in_place", True, (40, 1, 1))}
+
+
+@pytest.mark.parametrize("body_case", list(COST_BODY_CASES))
+def test_cost_kernel_body_on_the_host_matches_plain(body_case, host_build, cost_host_build):
+    """The cost instantiation's body built with g++ (planner_lane_run<true>:
+    each lane's stage costs in its block's (H, 32) array, the 12-joint sum
+    across its four threads, the knots' sum in sum_fixed's order): its
+    states bitwise those of the xs-only instantiation (planner_rollout_host);
+    its costs against the plain cost (total_cost over make_cost) of those
+    states within 4e-7 of the sum of the terms' sizes (the body divides by
+    g as a product with 1/g, as PyTorch's CUDA kernels divide by a scalar,
+    and takes glibc's asinf where the plain version on the CPU takes
+    PyTorch's division and asin: an ulp of a term); without states the same
+    costs bitwise; each problem launched alone bitwise the same."""
+    task_key, full_rate, shape = COST_BODY_CASES[body_case]
+    x0, us, scen = _case(True) if shape is None else _block_case(*shape)
+    _, tprob = _problems(full_rate, True)
+    x0_t, q_des, lanes, consts = _torch_inputs(tprob, x0, us, scen)
+    us_t = torch.from_numpy(us)
+    cost = _task_cost(task_key, us.shape[-1], us.shape[2])
+    args, xs, costs = ro.cost_launch_args(x0_t, us_t, q_des, lanes, consts, cost, True)
+    assert cost_host_build(*args, None) == 0
+    args0, xs0 = ro.launch_args(x0_t, q_des, lanes, consts)
+    assert host_build(*args0, None) == 0
+    np.testing.assert_array_equal(xs.numpy(), xs0.numpy())
+    want = ro.total_cost(cost.stage, cost.terminal, xs, us_t)
+    scale = ro.total_cost(lambda x, u, t: cost.stage(x, u, t).abs(),
+                          lambda x: cost.terminal(x).abs(), xs, us_t) + 1.0
+    np.testing.assert_array_less(np.abs(costs.numpy() - want.numpy()), 4e-7 * scale.numpy())
+    args_n, xs_n, costs_n = ro.cost_launch_args(x0_t, us_t, q_des, lanes, consts, cost, False)
+    assert xs_n is None and cost_host_build(*args_n, None) == 0
+    np.testing.assert_array_equal(costs_n.numpy(), costs.numpy())
+    scen_t = convert.scenario_params(scen)
+    for p in range(x0.shape[0]):
+        one = tprob.rollout_lanes(take(scen_t, torch.tensor([p])))
+        args_p, _, costs_p = ro.cost_launch_args(x0_t[p:p + 1], us_t[p:p + 1].contiguous(),
+                                                 q_des[p:p + 1].contiguous(), one, consts,
+                                                 cost, False)
+        assert cost_host_build(*args_p, None) == 0
+        np.testing.assert_array_equal(costs_p[0].numpy(), costs[p].numpy())
+
+
 # --- the solve through the rollout, against JAX -------------------------------
 
 @pytest.mark.parametrize("full_rate", [False, True], ids=["relaxed", "full_rate"])
 def test_solve_mppi_through_lane_rollout_matches_jax(full_rate, monkeypatch):
-    """solve_mppi (every rollout one lane_rollout call) against JAX's
+    """solve_mppi (every rollout one cost_rollout call) against JAX's
     solve_mppi with JAX's draws injected, B = 2 scenarios x K = 8 samples,
     2 iterations, fused accept, at the tolerances of
     tests/test_torch_slice.py's solve test (its reasons: the two packages'
@@ -287,13 +403,13 @@ def test_solve_mppi_through_lane_rollout_matches_jax(full_rate, monkeypatch):
         jax.random.split(k, iters)))(keys)
     noise = torch.from_numpy(np.array(noise)).transpose(0, 1).contiguous()
     calls = []
-    rollout = tprob.lane_rollout
+    rollout = tprob.cost_rollout
 
     def counted(scenario):
         f = rollout(scenario)
-        return lambda x, u: calls.append(u.shape) or f(x, u)
+        return lambda x, u, q, states: calls.append(u.shape) or f(x, u, q, states)
 
-    monkeypatch.setattr(tprob, "lane_rollout", counted)
+    monkeypatch.setattr(tprob, "cost_rollout", counted)
     tsol = tprob.solve_mppi(torch.from_numpy(np.array(x0)), torch.from_numpy(np.array(u0)),
                             None, tmppi.MPPIConfig(**cfg), convert.scenario_params(scen), noise)
     assert len(calls) == iters + 1          # one rollout per iteration, one to settle

@@ -27,9 +27,11 @@ Prints one JSON line per path:
   * mppi_rollout: one rollout of the MPPI headline (1024 TEST_RANDOMIZER
     scenarios x 32 candidates, H = 50, drawn as MPPI's first iteration
     draws them) and one whole MPPI solve of the headline's configuration
-    (10 iterations, fused accept): through MPCProblem.lane_rollout (the
-    `planner_rollout` kernel) where the package has it, else through the
-    knot loop over MPCProblem.lane_dynamics that MPPI ran before it;
+    (10 iterations, fused accept): through MPCProblem.cost_rollout (the
+    `planner_rollout_cost` kernel, the task cost summed in it) where the
+    package has it, else MPCProblem.lane_rollout (the `planner_rollout`
+    kernel), else the knot loop over MPCProblem.lane_dynamics that MPPI ran
+    before either; launches and device time by class of kernel;
   * full_rate: bench.run's full-rate row (MPPI, H = 25, 10 substeps a knot
     at 180 kN/m) at full width, one warm-up and one timed solve, and one
     such solve profiled as mppi_solve is;
@@ -69,9 +71,10 @@ import sys
 import time
 
 CLASSES = (("gemm/gemv", ("gemm", "gemv", "cublas")),
+           ("planner_rollout", ("planner_rollout",)), ("mppi_update", ("mppi_update",)),
            ("hand kernels", ("actuation_kernel", "contact_kernel", "actuation_jvp",
-                             "contact_jvp", "contact_anchored", "env_substeps",
-                             "planner_rollout")),
+                             "contact_jvp", "contact_anchored", "env_substeps")),
+           ("draws", ("normal", "philox")),
            ("elementwise", ("elementwise",)), ("reduce", ("reduce",)),
            ("cat/copy", ("Cat", "copy")))
 
@@ -94,7 +97,7 @@ def profile(torch, fn, calls, reps=5):
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    launches, busy_us, classes = 0, 0.0, {}
+    launches, busy_us, classes, class_launches = 0, 0.0, {}, {}
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
@@ -104,11 +107,13 @@ def profile(torch, fn, calls, reps=5):
         busy_us += us
         cls = next((c for c, pats in CLASSES if any(p in e.key for p in pats)), "other")
         classes[cls] = classes.get(cls, 0.0) + us / 1e3 / calls
+        class_launches[cls] = class_launches.get(cls, 0) + e.count / calls
     wall = statistics.median(walls)
     device = busy_us / 1e3 / calls
     return {"launches": launches / calls, "device_ms": device, "wall_ms": wall,
             "device_busy_share": device / wall,
-            "classes_ms": dict(sorted(classes.items(), key=lambda kv: -kv[1]))}
+            "classes_ms": dict(sorted(classes.items(), key=lambda kv: -kv[1])),
+            "classes_launches": class_launches}
 
 
 def main(argv=None):
@@ -197,7 +202,10 @@ def main(argv=None):
         x0 = prob.default_x0().expand(1024, -1).contiguous()
         eps = 0.3 * torch.randn((1024, 32, 50, prob.action_dim), generator=gen, device="cuda")
         us = torch.clamp(prob.task_warm_start()[None, None] + mppi._smooth_noise(eps), -1.0, 1.0)
-        if hasattr(prob, "lane_rollout"):
+        if hasattr(prob, "cost_rollout"):
+            how, rollout_cost = "planner_rollout_cost", prob.cost_rollout(scen)
+            rollout = lambda x0, us: rollout_cost(x0, us, None, False)
+        elif hasattr(prob, "lane_rollout"):
             how, rollout = "planner_rollout", prob.lane_rollout(scen)
         else:
             how, f = "knot loop", prob.lane_dynamics(scen)
