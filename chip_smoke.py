@@ -321,6 +321,7 @@ import dataclasses
 import json
 import math
 import multiprocessing
+import re
 import statistics
 import subprocess
 import sys
@@ -3083,9 +3084,9 @@ def check_mppi_iteration(torch, setting, spec, kind, timed):
     planner_rollout_cost (its costs bitwise the plain cost,
     rollout.total_cost over make_cost, of its states; its states bitwise
     the xs-only planner_rollout's; its costs without states the same).
-    With `timed`: both kernels' times through their wrappers and on the
-    card, and their plain versions' (the iteration's update launch; the
-    K-wide rollout without states against rollout_cost_plain)."""
+    For the kernels named in `timed`: their times through their wrappers
+    and on the card, and their plain versions' (the iteration's update
+    launch; the K-wide rollout without states against rollout_cost_plain)."""
     from quadruped_springs_tpu_torch.env import randomizers as rnd
     from quadruped_springs_tpu_torch.solver import mppi_update as mu
     from quadruped_springs_tpu_torch.solver import rollout as ro
@@ -3191,7 +3192,7 @@ def check_mppi_iteration(torch, setting, spec, kind, timed):
              "bytes": nbytes, "operations": ops, "bound_ms": max(by_bytes, by_ops),
              "bound_by": "bytes" if by_bytes >= by_ops else "operations",
              "ms": None, "plain_ms": None, "card_ms": None}
-        if timed:
+        if name in timed:
             plain = ((lambda: mu.mppi_update_plain(copy(st), s, **kw)) if name == "mppi_update"
                      else (lambda: ro.rollout_cost_plain(x0, us, q_des, lanes, consts, cost,
                                                          False)))
@@ -3214,15 +3215,18 @@ def check_mppi_iteration(torch, setting, spec, kind, timed):
 
 
 def check_mppi_iteration_widths(torch, kind):
-    """Phase 28: check_mppi_iteration at every width of mppi_widths (the
-    headline and the full-rate row timed), and the occupancy of the cost
-    instantiation. Returns checks by kernel and setting."""
+    """Phase 28: check_mppi_iteration at every width of mppi_widths
+    (mppi_update timed at each, planner_rollout_cost at the headline and the
+    full-rate row), and the occupancy of the cost instantiation. Returns
+    checks by kernel and setting."""
     from quadruped_springs_tpu_torch.solver import rollout as ro
 
     checks = {"planner_rollout_cost": {}, "mppi_update": {}}
     for setting, spec in mppi_widths().items():
-        res = check_mppi_iteration(torch, setting, spec, kind,
-                                   timed=setting in ("headline", "full_rate"))
+        res = check_mppi_iteration(
+            torch, setting, spec, kind,
+            timed=("mppi_update",) + (("planner_rollout_cost",)
+                                      if setting in ("headline", "full_rate") else ()))
         for name, r in res.items():
             checks[name][setting] = r
     for repeats, one_row, horizon in ((SAMPLES, False, HORIZON), (2, False, HORIZON),
@@ -4335,6 +4339,7 @@ def main():
     from quadruped_springs_tpu_torch.models import spatial
     from quadruped_springs_tpu_torch.ops import actuation as act
     from quadruped_springs_tpu_torch.solver import ilqr
+    from quadruped_springs_tpu_torch.solver import mppi_update as mu
     from quadruped_springs_tpu_torch.solver.mpc import MPCConfig, MPCProblem
 
     started = time.perf_counter()
@@ -4352,10 +4357,18 @@ def main():
     print(f"phase 2: built and loaded {kernels.build().name} in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     log = kernels.build_log().splitlines()
-    for kernel in ("env_substeps_kernel", "planner_rollout_kernel", "env_substeps_vjp_kernel",
-                   "planner_rollout_cost_kernel", "mppi_update_kernel"):
-        i = next(i for i, line in enumerate(log)
-                 if "Compiling entry function" in line and kernel in line)
+    entries = [(kernel, i) for kernel in ("env_substeps_kernel", "planner_rollout_kernel",
+                                          "env_substeps_vjp_kernel",
+                                          "planner_rollout_cost_kernel")
+               for i in [next(i for i, line in enumerate(log)
+                              if "Compiling entry function" in line and kernel in line)]]
+    # mppi_update's instantiations: <K (32, 64, 0: any other), threads a
+    # block, blocks an SM of its launch bounds>
+    entries += [("mppi_update_kernel<{}, {}, {}>".format(*inst.groups()), i)
+                for i, line in enumerate(log) if "Compiling entry function" in line
+                for inst in [re.search(r"mppi_update_kernelILi(\d+)ELi(\d+)ELi(\d+)E", line)]
+                if inst]
+    for kernel, i in entries:
         usage = " | ".join(x.strip() for x in log[i + 2:i + 4])
         print(f"phase 2: {kernel} (nvcc -Xptxas -v): {usage}", flush=True)
         # the two forward kernels must not spill; the adjoint's
@@ -4364,6 +4377,18 @@ def main():
         if ("0 bytes spill stores, 0 bytes spill loads" not in usage
                 and kernel in ("env_substeps_kernel", "planner_rollout_kernel")):
             raise AssertionError(f"phase 2: {kernel} spills to local memory: {usage}")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for setting, (task, full_rate, B, K, H, _, _) in mppi_widths().items():
+        m = MPCProblem((MPCConfig.full_rate if full_rate else MPCConfig)(task=task, horizon=H),
+                       "cuda").action_dim
+        occ = mu.occupancy(K, H, m, B)
+        print(f"phase 2: mppi_update_kernel at {setting} ({B} x {K} x {H}, m = {m}): "
+              f"{occ['registers']} registers and {occ['local_bytes']} bytes of local memory a "
+              f"thread, {occ['threads_per_block']} threads, {occ['shared_bytes']} bytes of "
+              f"shared memory ({occ['groups_a_slot']} groups of 4 rows a slot) a block, "
+              f"{occ['blocks_per_sm']} blocks ({occ['warps_per_sm']} warps) an SM: "
+              f"{min(B, occ['blocks_per_sm'] * sms)} of {B} problems in flight on {sms} SMs",
+              flush=True)
     occ = ss.occupancy()
     print(f"phase 2: env_substeps_kernel: {occ['registers']} registers and "
           f"{occ['local_bytes']} bytes of local memory a thread, {occ['threads_per_block']} "

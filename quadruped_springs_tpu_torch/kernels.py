@@ -113,6 +113,10 @@ _SIGNATURES = {
     "planner_rollout_cost_occupancy": [ctypes.c_int, _I64, ctypes.c_int, _P],
     # csrc/mppi_update.cuh
     "mppi_update": MPPI_UPDATE_ARGTYPES,
+    # samples, horizon, actions, n_problems, out (6 ints): as
+    # planner_rollout_occupancy, of mppi_update's instantiation for K =
+    # samples at H, m and B, and its groups a slot
+    "mppi_update_occupancy": [ctypes.c_int] * 3 + [_I64, _P],
 }
 # the planner's four kernels also take bfloat16 arrays, under <name>_bf16
 for _name in ("planner_actuation", "planner_contact", "planner_actuation_jvp",

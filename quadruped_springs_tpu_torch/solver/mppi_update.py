@@ -28,6 +28,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
+import struct
 
 import torch
 
@@ -37,7 +38,8 @@ from quadruped_springs_tpu_torch.models import spatial as sp
 
 ROWS_CANDIDATES, ROWS_US, ROWS_ALT, ROWS_BOTH = range(4)
 LOWPASS_A, LOWPASS_B = 0.7, 0.3      # first-order low-pass of the exploration noise
-THREADS = 256                        # csrc/mppi_update.cuh kUpdateThreads
+# csrc/mppi_update.cuh: kUpdateThreads, kGroupRows, kDrawSlots
+THREADS, GROUP_ROWS, SLOTS = 128, 4, 4
 MAX_SHARED_BYTES = 227 * 1024        # an H100 block's shared memory
 _NO_MAP = ((ctypes.c_int * 12)(*[-1] * 12), (ctypes.c_float * 12)(*[1.0] * 12))
 
@@ -150,13 +152,54 @@ def _command_map(action_space_mode: str, symm_idx: int, action_dim: int):
             (ctypes.c_float * 12)(*(-1.0 if x < 0 else 1.0 for x in v)))
 
 
+def shared_bytes(samples: int, horizon: int, actions: int) -> int:
+    """The kernel's dynamic shared memory a block at K, H and m with THREADS
+    threads and one group (GROUP_ROWS rows) a slot, its least, as
+    csrc/mppi_update.cuh update_smem_bytes lays it out, each region rounded
+    up to 16 bytes: costs and weights (K each), the norm and the tile (H·m
+    each), the mean's partial sums (3 H·m), the slots (SLOTS x GROUP_ROWS
+    rows of H·m + 3 rounded up to 4), and for K outside {32, 64} the
+    products' columns (K x THREADS); bytes."""
+    E = horizon * actions
+    up = lambda n: -(-n // 4) * 4
+    cols = 0 if samples in (32, 64) else samples * THREADS
+    return 4 * (2 * up(samples) + 2 * up(E) + up(3 * E) + SLOTS * GROUP_ROWS * up(E + 3) + cols)
+
+
+@functools.lru_cache(maxsize=None)
+def float32_constants(temperature: float) -> tuple[float, float, float]:
+    """λ⁻¹, the low-pass's a and b, each rounded to float32 (round to
+    nearest even, as torch.tensor(x, dtype=torch.float32)), once a
+    temperature. λ's division as PyTorch's CUDA kernels divide by a Python
+    number: a product with its reciprocal, taken in double and rounded."""
+    f32 = lambda x: struct.unpack("f", struct.pack("f", x))[0]
+    return f32(1.0 / temperature), f32(LOWPASS_A), f32(LOWPASS_B)
+
+
+def occupancy(samples: int, horizon: int, actions: int, problems: int, device=None) -> dict:
+    """What the card makes of the `mppi_update` kernel (the instantiation
+    for K = samples) at horizon H, m actions and B problems: its blocks and
+    warps an SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor at the
+    launch's shared memory), threads a block, registers and local memory
+    bytes a thread, shared memory bytes a block, groups a slot. Builds the
+    library if needed; needs a card."""
+    out = (ctypes.c_int * 6)()
+    with torch.cuda.device(device):
+        err = kernels.library().mppi_update_occupancy(samples, horizon, actions, problems, out)
+    kernels.check_launch("mppi_update_occupancy", err)
+    return {"blocks_per_sm": out[0], "warps_per_sm": out[0] * out[1] // 32,
+            "threads_per_block": out[1], "registers": out[2], "local_bytes": out[3],
+            "shared_bytes": out[4], "groups_a_slot": out[5]}
+
+
 def _launch(state: UpdateState, s: UpdateSettings, costs, cand, cost_new, trace_col, rows,
             draw, sigma, norm):
     B, H, m = state.us.shape
     K = next((t.shape[1] for t in (cand, draw) if t is not None), 0)
     dev = state.us.device
-    if K * (2 + THREADS) * 4 > MAX_SHARED_BYTES:
-        raise ValueError(f"mppi_update: {K} candidates do not fit a block's shared memory")
+    if shared_bytes(K, H, m) > MAX_SHARED_BYTES:
+        raise ValueError(f"mppi_update: {K} candidates of {H} x {m} do not fit a block's "
+                         "shared memory")
     checks = [("us", state.us, (B, H, m)), ("us_alt", state.us_alt, (B, H, m)),
               ("cost", state.cost, (B,)), ("trace", state.trace, (B, state.trace.shape[1]))]
     if costs is not None:
@@ -184,10 +227,7 @@ def _launch(state: UpdateState, s: UpdateSettings, costs, cand, cost_new, trace_
     if B == 0:
         return state, out, q_des
     ptr = lambda t: None if t is None else t.data_ptr()
-    # λ's division as PyTorch's CUDA kernels divide by a Python number: a
-    # product with its reciprocal, taken in double and rounded to float32
-    rcp = float(torch.tensor(1.0 / s.temperature, dtype=torch.float32))
-    lp_a, lp_b = (float(torch.tensor(v, dtype=torch.float32)) for v in (LOWPASS_A, LOWPASS_B))
+    rcp, lp_a, lp_b = float32_constants(s.temperature)
     args = [ptr(costs), ptr(cand), ptr(cost_new), ptr(draw), ptr(sigma), ptr(norm), ptr(lower),
             ptr(upper), ptr(state.us), ptr(state.us_alt), ptr(state.cost), ptr(state.trace),
             ptr(out), ptr(q_des), B, K, H, m, s.n_elite, trace_col, state.trace.shape[1], rows,

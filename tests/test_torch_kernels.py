@@ -793,18 +793,20 @@ def test_planner_rollout_cost_matches_the_plain_cost(cuda, task):
     assert torch.equal(costs_only, costs)
 
 
+@pytest.mark.parametrize("K", [32, 64, 48])
 @pytest.mark.parametrize("fused", [False, True], ids=["accept", "fused"])
-def test_mppi_update_matches_plain(cuda, fused):
+def test_mppi_update_matches_plain(cuda, fused, K):
     """mppi_update against mppi_update_plain on the same inputs over a
-    solve's launches (64 problems x 32 candidates, H = 50, the PD map),
-    costs with ties, inf and NaN: every output bitwise; problems 0-7 of
-    each launch bitwise those of the launch at 8 problems."""
+    solve's launches (64 problems x K candidates, H = 50, the PD map; K =
+    32 and 64 the compiled instantiations, 48 the general one), costs with
+    ties, inf and NaN: every output bitwise; problems 0-7 of each launch
+    bitwise those of the launch at 8 problems."""
     from quadruped_springs_tpu_torch.control import interfaces as ci
     from quadruped_springs_tpu_torch.solver import mppi_update as mu
 
-    B, K, H, m = 64, 32, 50, 6
+    B, H, m = 64, 50, 6
     iface = ci.make_interface(go1_config(True, cuda), "PD", "SYMMETRIC", "JUMPING_IN_PLACE")
-    s = mu.UpdateSettings(fused=fused, smooth=True, n_elite=16, temperature=0.05, u_min=-1.0,
+    s = mu.UpdateSettings(fused=fused, smooth=True, n_elite=K // 2, temperature=0.05, u_min=-1.0,
                           u_max=1.0, iface=iface)
     gen = torch.Generator(cuda).manual_seed(5)
     norm, sigma = mu.lowpass_norm(H, device=cuda), torch.full((1,), 0.3, device=cuda)

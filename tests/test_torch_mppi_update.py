@@ -27,6 +27,7 @@ import torch
 from quadruped_springs_tpu.solver import mppi as jmppi
 from quadruped_springs_tpu_torch import kernels
 from quadruped_springs_tpu_torch.control import interfaces as ci
+from quadruped_springs_tpu_torch.models import spatial as sp
 from quadruped_springs_tpu_torch.models.go1_params import go1_config
 from quadruped_springs_tpu_torch.solver import mppi_update as mu
 
@@ -135,17 +136,40 @@ def test_plain_matches_jax_iteration(case, fused):
 # --- the kernel's body, built for the CPU ------------------------------------
 
 @pytest.fixture(scope="module")
-def host_build(tmp_path_factory):
+def host_lib(tmp_path_factory):
     """The kernel's body built with g++ (tests/mppi_update_host.cpp), once."""
     if shutil.which("g++") is None:
         pytest.skip("needs g++ to build the kernel's body for the CPU")
     src = Path(__file__).with_name("mppi_update_host.cpp")
     lib = tmp_path_factory.mktemp("host_build") / "libmppi_update_host.so"
-    subprocess.run(["g++", "-std=c++20", "-O2", "-shared", "-fPIC", "-o", str(lib), str(src)],
-                   check=True, capture_output=True, text=True)
-    fn = ctypes.CDLL(str(lib)).mppi_update_host
-    fn.argtypes = kernels.MPPI_UPDATE_ARGTYPES
-    fn.restype = ctypes.c_int
+    subprocess.run(["g++", "-std=c++20", "-O2", "-shared", "-fPIC", "-o", str(lib),
+                    str(src)], check=True, capture_output=True, text=True)
+    lib = ctypes.CDLL(str(lib))
+    lib.mppi_update_host.argtypes = kernels.MPPI_UPDATE_ARGTYPES
+    lib.mppi_update_host.restype = ctypes.c_int
+    lib.mppi_update_host_sum.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                                         ctypes.c_void_p]
+    lib.mppi_update_host_sum.restype = ctypes.c_int
+    lib.mppi_update_host_smem.argtypes = [ctypes.c_int] * 3
+    lib.mppi_update_host_smem.restype = ctypes.c_int64
+    lib.mppi_update_host_shape.argtypes = ([ctypes.c_int] * 3
+                                           + [ctypes.c_int64, ctypes.c_int, ctypes.c_void_p])
+    lib.mppi_update_host_shape.restype = None
+    lib.mppi_update_host_set_shape.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.mppi_update_host_set_shape.restype = None
+    return lib
+
+
+def _shaped(host_lib, threads, group):
+    """The host build's launcher with `threads` threads a block and `group`
+    groups of 4 rows a slot (0, 0: update_shape's for an H100, as the
+    card's launcher picks them)."""
+    def fn(*args):
+        host_lib.mppi_update_host_set_shape(threads, group)
+        try:
+            return host_lib.mppi_update_host(*args)
+        finally:
+            host_lib.mppi_update_host_set_shape(0, 0)
     return fn
 
 
@@ -206,29 +230,44 @@ def _fields(step):
 
 
 # (B, K, H, m, fused, PD joint targets): 17 problems (every cost case); K =
-# 64 (the (K x m) streams past the block's 256 threads); H·m = 288 (the
-# weighted mean in two chunks of 256 elements); K = 2
+# 32 and 64, the compiled instantiations (the mean's chunks in sum_fixed's
+# order), in both accept branches, with and without targets; K = 48, 5, 3
+# and 2 the general one (the products' columns); H·m = 288 (the weighted
+# mean over more elements than threads); H·m = 30, 150 and 28 (rows that
+# start off a 16-byte boundary: 4-byte copies at their ends, scalar stores;
+# K = 5 at H·m = 30: chunks of draws that start off one)
 BODY_CASES = {"B17_K5-fused": (17, 5, 4, 6, True, True),
               "B17_K5-accept": (17, 5, 4, 6, False, True),
               "B3_K64_m12-fused": (3, 64, 8, 12, True, True),
               "B2_K3_H24_m12-accept": (2, 3, 24, 12, False, False),
-              "B4_K2-fused": (4, 2, 8, 6, True, True)}
+              "B4_K2-fused": (4, 2, 8, 6, True, True),
+              "B9_K32-fused": (9, 32, 6, 6, True, True),
+              "B9_K32-accept": (9, 32, 6, 6, False, True),
+              "B4_K32_H25-fused-no_targets": (4, 32, 25, 6, True, False),
+              "B5_K64_H5-accept": (5, 64, 5, 6, False, True),
+              "B4_K64-fused-no_targets": (4, 64, 4, 6, True, False),
+              "B5_K48-fused": (5, 48, 6, 6, True, True),
+              "B4_K48_m4-accept-no_targets": (4, 48, 7, 4, False, False),
+              "B3_K5_H5-fused": (3, 5, 5, 6, True, True)}
 
 
 @pytest.mark.parametrize("body_case", list(BODY_CASES))
-def test_kernel_body_on_the_host_matches_plain(body_case, host_build):
+def test_kernel_body_on_the_host_matches_plain(body_case, host_lib):
     """The kernel's body built with g++ against mppi_update_plain over a
     solve's sequence of launches (the candidates, then per iteration the
     proposal with the fused accept's best tracking, or the proposal and the
     accept, then the settle's or the final rows), each launch on the plain
     version's inputs: every output bitwise, the costs, trace and rows, the
-    joint targets through the PD map (`pd_command_map`). Each problem also
-    launched alone: bitwise the same."""
+    joint targets through the PD map (`pd_command_map`). The batch runs
+    as the headline's launch does (128 threads a block, one group of 4 rows
+    a slot: a ring of chunks); each problem also launched alone as an
+    H100's launch of one problem runs (512 threads, its rows in one or two
+    chunks): bitwise the same."""
     B, K, H_, m, fused, pd = BODY_CASES[body_case]
     iface = None
     if pd:
-        iface = _iface() if m == 6 else ci.make_interface(go1_config(True, "cpu"), "PD",
-                                                         "DEFAULT", "BACKFLIP")
+        iface = _iface() if m == 6 else ci.make_interface(
+            go1_config(True, "cpu"), "PD", {12: "DEFAULT", 4: "SYMMETRIC_NO_HIP"}[m], "BACKFLIP")
     calls = []
 
     def plain(state, s, **kw):
@@ -238,7 +277,7 @@ def test_kernel_body_on_the_host_matches_plain(body_case, host_build):
 
     s = _solve_sequence(plain, B, K, H_, m, fused, iface, seed=B + K)
     for i, (state, kw, want) in enumerate(calls):
-        got = _fields(_host_update(host_build, state, s, **kw))
+        got = _fields(_host_update(_shaped(host_lib, 128, 1), state, s, **kw))
         for j, (x, y) in enumerate(zip(_fields(want), got)):
             np.testing.assert_array_equal(y.numpy(), x.numpy(), err_msg=f"call {i} field {j}")
         for p in range(B):
@@ -247,7 +286,7 @@ def test_kernel_body_on_the_host_matches_plain(body_case, host_build):
                                                    state.trace)))
             kw_p = {k: (one(v) if k in ("costs", "cand", "cost_new", "draw") else v)
                     for k, v in kw.items()}
-            for x, y in zip(got, _fields(_host_update(host_build, st, s, **kw_p))):
+            for x, y in zip(got, _fields(_host_update(_shaped(host_lib, 0, 0), st, s, **kw_p))):
                 np.testing.assert_array_equal(x[p:p + 1].numpy(), y.numpy())
 
 
@@ -267,3 +306,45 @@ def test_pd_command_map_matches_action_to_command():
                                 for s, g in zip(src, sign)], dim=-1)
             np.testing.assert_array_equal(ci.action_to_command(iface, a).numpy(),
                                           ci.scale_action_to_command(iface, full).numpy())
+
+
+@pytest.mark.parametrize("K", [32, 64])
+def test_warp_sum_fixed_on_the_host_matches_sum_fixed(K, host_lib):
+    """The scalars' sum_fixed over warp 0 (csrc/mppi_update.cuh
+    warp_sum_fixed: the halves at 16, 8 and 4 by shuffles, lanes 0-3
+    chained; K = 64 its lanes' two halves first), built with g++ and its
+    shuffles on 32 host threads, against models/spatial.sum_fixed: bitwise
+    over weights spanning 40 binades, zeros, inf and NaN."""
+    rng = np.random.default_rng(K)
+    w = (rng.standard_normal((24, K)) * 10.0 ** rng.uniform(-20, 20, (24, K))).astype(np.float32)
+    w[1, ::3] = 0.0
+    w[2, 5], w[3, 9], w[4, K - 1] = INF, NAN, -INF
+    w = np.ascontiguousarray(w)
+    out = np.zeros(len(w), np.float32)
+    assert host_lib.mppi_update_host_sum(w.ctypes.data, K, len(w), out.ctypes.data) == 0
+    want = sp.sum_fixed(torch.from_numpy(w)).numpy()
+    np.testing.assert_array_equal(out, want)
+
+
+def test_wrapper_constants_and_shared_bytes(host_lib):
+    """The wrapper's float32 λ⁻¹ and low-pass constants, rounded once a
+    temperature, equal torch.tensor(x, dtype=torch.float32)'s; its shared
+    memory check mirrors the kernel's layout (update_smem_bytes) at every
+    width an MPPI path launches and at K outside the compiled set; the
+    launch's shape (threads a block, groups a slot) at the headline, full
+    rate, a behaviour and the comparison."""
+    for temperature in (0.05, 0.1, 0.07, 1.0 / 3.0):
+        want = [float(torch.tensor(v, dtype=torch.float32))
+                for v in (1.0 / temperature, mu.LOWPASS_A, mu.LOWPASS_B)]
+        assert mu.float32_constants(temperature) == tuple(want)
+    for K, H, m in ((32, 50, 6), (32, 25, 6), (64, 30, 6), (64, 24, 12), (32, 40, 6),
+                    (64, 50, 6), (48, 6, 6), (5, 4, 6), (2, 8, 6), (3, 7, 4), (300, 200, 12)):
+        assert mu.shared_bytes(K, H, m) == host_lib.mppi_update_host_smem(K, H, m), (K, H, m)
+    # 8 blocks an SM at the headline, one group a slot; one problem takes
+    # all its rows in one chunk
+    assert mu.shared_bytes(32, 50, 6) <= 27 * 1024
+    shape = (ctypes.c_int * 2)()
+    for (K, H, m, B), want in (((32, 50, 6, 1024), (128, 1)), ((32, 25, 6, 1024), (128, 2)),
+                               ((64, 30, 6, 1), (512, 16)), ((64, 50, 6, 8), (512, 8))):
+        host_lib.mppi_update_host_shape(K, H, m, B, 132, shape)
+        assert tuple(shape) == want, (K, H, m, B)
