@@ -557,9 +557,10 @@ FLOPS_PER_ELEM = {"actuation": 10, "contact": 20, "contact_anchored": 30,
                   # per (environment, substep) of env_substeps_vjp
                   # (csrc/env_lane_vjp.cuh), counted as env_substeps's: one
                   # forward and the adjoint; the kernel's second forward (its
-                  # recompute of each substep in the sweep) is its design's
-                  # choice, not work the function needs, and is not counted
-                  "env_substeps_vjp": 35_040}
+                  # recompute of each substep before the sweep) is its
+                  # design's choice, not work the function needs, and is not
+                  # counted
+                  "env_substeps_vjp": 34_152}
 # env_substeps against its plain version: within ENV_SPREAD times the plain
 # version's own spread, plus REL_TOL of 1 + |plain|. The spread, per
 # environment and output field, is the larger of the plain version's change
@@ -578,10 +579,10 @@ ENV_GAP_ROWS, ENV_GAP_BLOCK = 8, 2
 # env_substeps_kernel's local memory a thread: the stack of sinf's and cosf's
 # reduction of huge arguments, off the common path; more is a spill
 ENV_LOCAL_BYTES = 32
-# env_substeps_vjp_kernel's: the adjoint's intermediates beyond its 255
-# registers (measured on an NVIDIA H100 80GB HBM3 at 700 W); more is a new
-# spill
-VJP_LOCAL_BYTES = 1528
+# env_substeps_vjp_kernel's: the stack of its stages' live sets beyond 255
+# registers (measured on an NVIDIA H100 80GB HBM3 at 700 W; 1,528 bytes
+# before its stages were spread over a block's warps); more is a new spill
+VJP_LOCAL_BYTES = 112
 # planner_rollout against its plain version, both against the plain version
 # run in float64: per field and knot, and on the lanes' MPPI costs, these
 # quantiles over the lanes of the kernel's relative distance within
@@ -4397,9 +4398,12 @@ def main():
           f"cudaOccupancyMaxActiveBlocksPerMultiprocessor)", flush=True)
     vocc = ss.occupancy("env_substeps_vjp")
     print(f"phase 2: env_substeps_vjp_kernel: {vocc['registers']} registers and "
-          f"{vocc['local_bytes']} bytes of local memory a thread (the adjoint's spilled "
-          f"intermediates), {vocc['threads_per_block']} threads a block, "
-          f"{vocc['blocks_per_sm']} blocks ({vocc['warps_per_sm']} warps) an SM", flush=True)
+          f"{vocc['local_bytes']} bytes of local memory a thread, "
+          f"{vocc['threads_per_block']} threads (8 environments) and {vocc['shared_bytes']} "
+          f"bytes of shared memory a block ({vocc['chunk']} substeps' records, recomputed at "
+          f"once), {vocc['blocks_per_sm']} blocks ({vocc['warps_per_sm']} warps) an SM: "
+          f"{min(ENVS // 8, vocc['blocks_per_sm'] * sms)} of phase 26's {ENVS // 8} blocks "
+          f"in flight on {sms} SMs", flush=True)
     if vocc["local_bytes"] > VJP_LOCAL_BYTES:
         raise AssertionError(f"phase 2: env_substeps_vjp_kernel holds {vocc['local_bytes']} "
                              f"bytes of local memory a thread, more than its "

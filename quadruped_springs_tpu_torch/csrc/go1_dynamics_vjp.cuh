@@ -2,8 +2,11 @@
 // substep runs, for the env_substeps_vjp kernel (env_lane_vjp.cuh).
 //
 // Convention: fn_vjp takes fn's inputs (it recomputes what it needs of the
-// forward) and the cotangents of fn's outputs, and ADDS the cotangents of
-// fn's varying inputs into its reference arguments. Only what varies along
+// forward, or takes it from fn_fwd where the chain is long: chol6_solve's
+// factor, quat_integrate's rotation) and the cotangents of fn's outputs, and
+// ADDS the cotangents of fn's varying inputs into its reference arguments
+// (leg_bias_vjp writes its additions to the shared ones instead, for its
+// caller to add where they belong). Only what varies along
 // a substep is differentiated: the state, the joint angles and rates, the
 // anchors and the commands; the model's masses, COMs, inertias and the
 // constants of EnvConsts are not. Branches follow the primal; the
@@ -59,21 +62,6 @@ QS_FN void dot6_vjp(const V3& aw, const V3& av, const V3& bw, const V3& bv, floa
   acc(gav, scale(gs, bv));
   acc(gbw, scale(gs, aw));
   acc(gbv, scale(gs, av));
-}
-
-// the adjoint of sin_cos at t: cotangents of s and c -> that of t
-QS_FN float sin_cos_vjp(float t, float gs, float gc) {
-  float s, c;
-  sin_cos(t, &s, &c);
-  return gs * c - gc * s;
-}
-QS_FN float rot_x_vjp(float t, const M3& g) {
-  // [[1,0,0],[0,c,-s],[0,s,c]]
-  return sin_cos_vjp(t, at(g, 2, 1) - at(g, 1, 2), at(g, 1, 1) + at(g, 2, 2));
-}
-QS_FN float rot_y_vjp(float t, const M3& g) {
-  // [[c,0,s],[0,1,0],[-s,0,c]]
-  return sin_cos_vjp(t, at(g, 0, 2) - at(g, 2, 0), at(g, 0, 0) + at(g, 2, 2));
 }
 
 // quat_to_m3: the cotangent of R -> += that of the xyzw quaternion
@@ -201,43 +189,61 @@ QS_FN void sym3_inv_vjp(float d00, float d01, float d02, float d11, float d12, f
   gd[0] += ga; gd[1] += gb; gd[2] += gc; gd[3] += gdd; gd[4] += ge; gd[5] += gf;
 }
 
-// x = chol6_solve(S, t, eps): the cotangent of x -> those of S's packed
-// lower triangle (gS, 21, written) and t (gt, 6, written), by the adjoint of
-// each step of the factorization and the two substitutions
-QS_FN void chol6_solve_vjp(const float* S, const float* t, float eps, const float* gx_in,
-                           float* gS, float* gt) {
-  float L[21], inv[6], piv[6], y[6], x[6];
+// What the adjoint of chol6_solve(S, t, eps) reads of its forward: the
+// factor L (packed lower triangle), the reciprocals of its diagonal, the
+// pivots before their floor, the two substitutions' y and x, and each
+// sub-diagonal entry before its scaling by the pivot's reciprocal (v, in
+// column order). Computed off the adjoint's chain by chol6_fwd, with
+// chol6_solve's operations in its order: x is chol6_solve's answer bitwise.
+struct Chol6Fwd {
+  float L[21], inv[6], piv[6], y[6], x[6], v[15];
+};
+
+QS_FN void chol6_fwd(const float* S, const float* t, float eps, Chol6Fwd& f) {
+  int e = 0;
 #pragma unroll
   for (int j = 0; j < 6; ++j) {
     float s = S[tri(j, j)] + eps;
 #pragma unroll
-    for (int k = 0; k < j; ++k) s = s - L[tri(j, k)] * L[tri(j, k)];
-    piv[j] = s;
+    for (int k = 0; k < j; ++k) s = s - f.L[tri(j, k)] * f.L[tri(j, k)];
+    f.piv[j] = s;
     float d = sqrtf(s > 1e-12f ? s : 1e-12f);
-    L[tri(j, j)] = d;
-    inv[j] = 1.0f / d;
+    f.L[tri(j, j)] = d;
+    f.inv[j] = 1.0f / d;
 #pragma unroll
-    for (int i = j + 1; i < 6; ++i) {
+    for (int i = j + 1; i < 6; ++i, ++e) {
       float v = S[tri(i, j)];
 #pragma unroll
-      for (int k = 0; k < j; ++k) v = v - L[tri(i, k)] * L[tri(j, k)];
-      L[tri(i, j)] = v * inv[j];
+      for (int k = 0; k < j; ++k) v = v - f.L[tri(i, k)] * f.L[tri(j, k)];
+      f.v[e] = v;
+      f.L[tri(i, j)] = v * f.inv[j];
     }
   }
 #pragma unroll
   for (int i = 0; i < 6; ++i) {
     float s = t[i];
 #pragma unroll
-    for (int k = 0; k < i; ++k) s = s - L[tri(i, k)] * y[k];
-    y[i] = s / L[tri(i, i)];
+    for (int k = 0; k < i; ++k) s = s - f.L[tri(i, k)] * f.y[k];
+    f.y[i] = s / f.L[tri(i, i)];
   }
 #pragma unroll
   for (int i = 5; i >= 0; --i) {
-    float s = y[i];
+    float s = f.y[i];
 #pragma unroll
-    for (int k = i + 1; k < 6; ++k) s = s - L[tri(k, i)] * x[k];
-    x[i] = s / L[tri(i, i)];
+    for (int k = i + 1; k < 6; ++k) s = s - f.L[tri(k, i)] * f.x[k];
+    f.x[i] = s / f.L[tri(i, i)];
   }
+}
+
+// index in Chol6Fwd::v of entry (i, j), i > j
+QS_FN constexpr int chol6_v(int i, int j) { return j * 5 - j * (j - 1) / 2 + (i - j - 1); }
+
+// x = chol6_solve(S, t, eps), its forward f (chol6_fwd): the cotangent of x
+// -> those of S's packed lower triangle (gS, 21, written) and t (gt, 6,
+// written), by the adjoint of each step of the factorization and the two
+// substitutions
+QS_FN void chol6_solve_vjp(const Chol6Fwd& f, const float* gx_in, float* gS, float* gt) {
+  const float* L = f.L;
   float gL[21], gx[6], gy[6];
 #pragma unroll
   for (int i = 0; i < 21; ++i) {
@@ -254,11 +260,11 @@ QS_FN void chol6_solve_vjp(const float* S, const float* t, float eps, const floa
 #pragma unroll
   for (int i = 0; i < 6; ++i) {
     const float gs = gx[i] / L[tri(i, i)];
-    gL[tri(i, i)] -= gs * x[i];
+    gL[tri(i, i)] -= gs * f.x[i];
     gy[i] += gs;
 #pragma unroll
     for (int k = i + 1; k < 6; ++k) {
-      gL[tri(k, i)] -= gs * x[k];
+      gL[tri(k, i)] -= gs * f.x[k];
       gx[k] -= gs * L[tri(k, i)];
     }
   }
@@ -266,11 +272,11 @@ QS_FN void chol6_solve_vjp(const float* S, const float* t, float eps, const floa
 #pragma unroll
   for (int i = 5; i >= 0; --i) {
     const float gs = gy[i] / L[tri(i, i)];
-    gL[tri(i, i)] -= gs * y[i];
+    gL[tri(i, i)] -= gs * f.y[i];
     gt[i] += gs;
 #pragma unroll
     for (int k = 0; k < i; ++k) {
-      gL[tri(i, k)] -= gs * y[k];
+      gL[tri(i, k)] -= gs * f.y[k];
       gy[k] -= gs * L[tri(i, k)];
     }
   }
@@ -280,11 +286,8 @@ QS_FN void chol6_solve_vjp(const float* S, const float* t, float eps, const floa
     float g_inv = 0.0f;
 #pragma unroll
     for (int i = j + 1; i < 6; ++i) {
-      float v = S[tri(i, j)];
-#pragma unroll
-      for (int k = 0; k < j; ++k) v = v - L[tri(i, k)] * L[tri(j, k)];
-      const float gv = gL[tri(i, j)] * inv[j];
-      g_inv += gL[tri(i, j)] * v;
+      const float gv = gL[tri(i, j)] * f.inv[j];
+      g_inv += gL[tri(i, j)] * f.v[chol6_v(i, j)];
       gS[tri(i, j)] += gv;
 #pragma unroll
       for (int k = 0; k < j; ++k) {
@@ -293,19 +296,26 @@ QS_FN void chol6_solve_vjp(const float* S, const float* t, float eps, const floa
       }
     }
     const float d = L[tri(j, j)];
-    const float gd = gL[tri(j, j)] - g_inv * inv[j] * inv[j];
+    const float gd = gL[tri(j, j)] - g_inv * f.inv[j] * f.inv[j];
     // d = sqrt(max(s, 1e-12)): torch.clamp_min passes at the floor itself
-    const float gs = piv[j] >= 1e-12f ? gd * 0.5f / d : 0.0f;
+    const float gs = f.piv[j] >= 1e-12f ? gd * 0.5f / d : 0.0f;
     gS[tri(j, j)] += gs;
 #pragma unroll
     for (int k = 0; k < j; ++k) gL[tri(j, k)] -= 2.0f * gs * L[tri(j, k)];
   }
 }
 
-// quat_integrate(q, w): the cotangent of the new quaternion (gout) -> += those
-// of the old one (gq) and of w
-QS_FN void quat_integrate_vjp(const float* q, const V3& w, float half_dt, float half_dt2,
-                              const float* gout, float* gq, V3& gw) {
+// What the adjoint of quat_integrate(q, w) reads of its forward, computed
+// off the adjoint's chain by quat_integrate_fwd with quat_integrate's
+// operations in its order
+struct QuatIntFwd {
+  float small, angle, half, sin_half, cos_half, k;   // small: 1 below |w|^2 = 1e-14
+  float x2, y2, z2, w2;                              // dq = [w k; c]
+  float norm, ux, uy, uz, uw;                        // p = q ⊗ dq, out = p / |p|
+};
+
+QS_FN void quat_integrate_fwd(const float* q, const V3& w, float half_dt, float half_dt2,
+                              QuatIntFwd& f) {
   float n2 = w.x * w.x + w.y * w.y;
   n2 = n2 + w.z * w.z;
   const bool small = n2 < 1e-14f;
@@ -323,8 +333,31 @@ QS_FN void quat_integrate_vjp(const float* q, const V3& w, float half_dt, float 
   const float pz = w1 * z2 + x1 * y2 - y1 * x2 + z1 * w2;
   const float pw = w1 * w2 - x1 * x2 - y1 * y2 - z1 * z2;
   const float norm = sqrtf(((px * px + py * py) + pz * pz) + pw * pw);
+  f.small = small ? 1.0f : 0.0f;
+  f.angle = angle;
+  f.half = half;
+  f.sin_half = sin_half;
+  f.cos_half = cos_half;
+  f.k = k;
+  f.x2 = x2;
+  f.y2 = y2;
+  f.z2 = z2;
+  f.w2 = w2;
+  f.norm = norm;
+  f.ux = px / norm;
+  f.uy = py / norm;
+  f.uz = pz / norm;
+  f.uw = pw / norm;
+}
+
+// quat_integrate(q, w), its forward f (quat_integrate_fwd): the cotangent of
+// the new quaternion (gout) -> += those of the old one (gq) and of w
+QS_FN void quat_integrate_vjp(const QuatIntFwd& f, const float* q, const V3& w, float half_dt,
+                              float half_dt2, const float* gout, float* gq, V3& gw) {
+  const float x2 = f.x2, y2 = f.y2, z2 = f.z2, w2 = f.w2, k = f.k, norm = f.norm;
+  const float ux = f.ux, uy = f.uy, uz = f.uz, uw = f.uw;
+  const float x1 = q[0], y1 = q[1], z1 = q[2], w1 = q[3];
   // out = p / |p|
-  const float ux = px / norm, uy = py / norm, uz = pz / norm, uw = pw / norm;
   const float proj = ux * gout[0] + uy * gout[1] + uz * gout[2] + uw * gout[3];
   const float gpx = (gout[0] - ux * proj) / norm, gpy = (gout[1] - uy * proj) / norm;
   const float gpz = (gout[2] - uz * proj) / norm, gpw = (gout[3] - uw * proj) / norm;
@@ -341,11 +374,14 @@ QS_FN void quat_integrate_vjp(const float* q, const V3& w, float half_dt, float 
   const float gk = gx2 * w.x + gy2 * w.y + gz2 * w.z;
   acc(gw, scale(k, v3(gx2, gy2, gz2)));
   float gn2;
-  if (small) {
+  if (f.small != 0.0f) {
     gn2 = half_dt2 * (-half_dt / 6.0f * gk - 0.5f * gc);
   } else {
-    const float g_angle = -gk * sin_half / (angle * angle) +
-                          half_dt * sin_cos_vjp(half, gk / angle, gc);
+    const float angle = f.angle;
+    // sin_cos_vjp(half, gk / angle, gc) on the forward's sine and cosine
+    const float gs = gk / angle;
+    const float g_half = gs * f.cos_half - gc * f.sin_half;
+    const float g_angle = -gk * f.sin_half / (angle * angle) + half_dt * g_half;
     gn2 = g_angle * 0.5f / angle;
   }
   acc(gw, scale(2.0f * gn2, w));
@@ -374,62 +410,100 @@ QS_FN LegGrad zero_leg_grad() {
   return g;
 }
 
-// L = leg_kinematics(k, hip, thigh, q, bodies): the cotangent of L -> += that
-// of the joint angles q
-QS_FN void leg_kinematics_vjp(const EnvConsts& k, const V3& thigh, const float* q,
-                              const LegBodies& bodies, const Leg& L, LegGrad g, float* gq) {
-  const M3 Rx0 = rot_x(q[0]), Ry1 = rot_y(q[1]), Ry2 = rot_y(q[2]);
-  const M3 R1 = Rx0;
-  const M3 R2 = mul(R1, Ry1);
-  const M3 R3 = mul(R2, Ry2);
-  const Inertia Ic2 = inertia_add(L.I[1], L.I[2]);
-  // the composite columns F_j
-  InertiaGrad gIc2 = zero_inertia_grad();
-  inertia_matvec_vjp(L.Ic1, L.sw[0], L.sv[0], g.Ft[0], g.Fb[0], g.Ic1, g.sw[0], g.sv[0]);
-  inertia_matvec_vjp(Ic2, L.sw[1], L.sv[1], g.Ft[1], g.Fb[1], gIc2, g.sw[1], g.sv[1]);
-  inertia_matvec_vjp(L.I[2], L.sw[2], L.sv[2], g.Ft[2], g.Fb[2], g.I[2], g.sw[2], g.sv[2]);
-  // Ic1 = I0 + Ic2, Ic2 = I1 + I2
-  acc(g.I[0], g.Ic1);
-  acc(gIc2, g.Ic1);
-  acc(g.I[1], gIc2);
-  acc(g.I[2], gIc2);
-  // s_j = [axis_j; o_j × axis_j]
-#pragma unroll
-  for (int j = 0; j < 3; ++j) {
-    acc(g.axis[j], g.sw[j]);
-    cross_vjp(L.o[j], L.axis[j], g.sv[j], g.o[j], g.axis[j]);
-  }
-  // the bodies' inertias about the base origin
-  M3 gR1 = zero33(), gR2 = zero33(), gR3 = zero33();
-  body_inertia_base_vjp(bodies.m[0], bodies.c[0], bodies.I[0], R1, L.o[0], g.I[0], gR1, g.o[0]);
-  body_inertia_base_vjp(bodies.m[1], bodies.c[1], bodies.I[1], R2, L.o[1], g.I[1], gR2, g.o[1]);
-  body_inertia_base_vjp(bodies.m[2], bodies.c[2], bodies.I[2], R3, L.o[2], g.I[2], gR3, g.o[2]);
-  // foot = o2 + R3 foot_c, o2 = o1 + R2 calf, o1 = hip + R1 thigh
-  acc(g.o[2], g.foot);
-  acc(gR3, outer(g.foot, load3(k.foot)));
-  acc(g.o[1], g.o[2]);
-  acc(gR2, outer(g.o[2], load3(k.calf)));
-  acc(gR1, outer(g.o[1], thigh));
-  // axis_1 = column 1 of R1, axis_2 = column 1 of R2
-#pragma unroll
-  for (int i = 0; i < 3; ++i) {
-    add_at(gR1, i, 1, at(g.axis[1], i));
-    add_at(gR2, i, 1, at(g.axis[2], i));
-  }
-  // R3 = R2 Ry(q2), R2 = R1 Ry(q1), R1 = Rx(q0)
-  acc(gR2, mul_bt(gR3, Ry2));
-  gq[2] += rot_y_vjp(q[2], mul(transpose(R2), gR3));
-  acc(gR1, mul_bt(gR2, Ry1));
-  gq[1] += rot_y_vjp(q[1], mul(transpose(R1), gR2));
-  gq[0] += rot_x_vjp(q[0], gR1);
+// rot_x(t) and rot_y(t) from t's sine and cosine
+QS_FN M3 rot_x_sc(float s, float c) {
+  return M3{{v3(1.0f, 0.0f, 0.0f), v3(0.0f, c, -s), v3(0.0f, s, c)}};
+}
+QS_FN M3 rot_y_sc(float s, float c) {
+  return M3{{v3(c, 0.0f, s), v3(0.0f, 1.0f, 0.0f), v3(-s, 0.0f, c)}};
 }
 
-// leg_bias(L, qd, w_b, v_b, g_b) -> (f0t, f0b, h): their cotangents -> += those
-// of L (sw, sv, I), qd, w_b, v_b and g_b
-QS_FN void leg_bias_vjp(const Leg& L, const float* qd, const V3& w_b, const V3& v_b,
-                        const V3& g_b, const V3& gf0t, const V3& gf0b, const float* gh,
-                        LegGrad& gL, float* gqd, V3& gw_b, V3& gv_b, V3& gg_b) {
-  V3 VW[3], VV[3], AW[3], AV[3], ft[3], fb[3];
+// What the adjoint of L = leg_kinematics(k, hip, thigh, q, bodies) reads of
+// its forward: the joints' sines and cosines and the rotations R2 = R1
+// Ry(q1), R3 = R2 Ry(q2) (leg_kinematics_fwd), and Ic2 = I1 + I2, which the
+// caller takes as leg_kinematics computed it
+struct LegKinFwd {
+  float s[3], c[3];
+  M3 R2, R3;
+};
+
+QS_FN void leg_kinematics_fwd(const float* q, LegKinFwd& f) {
+#pragma unroll
+  for (int j = 0; j < 3; ++j) sin_cos(q[j], &f.s[j], &f.c[j]);
+  const M3 R1 = rot_x_sc(f.s[0], f.c[0]);
+  f.R2 = mul(R1, rot_y_sc(f.s[1], f.c[1]));
+  f.R3 = mul(f.R2, rot_y_sc(f.s[2], f.c[2]));
+}
+
+// The adjoint of leg_kinematics in three parts, run for j = 0, 1, 2 beside
+// each other where the caller has three threads for them, then the chain:
+// (a) column j: F_j = Ic_j s_j (Ic_0 = Ic1, Ic_1 = Ic2, Ic_2 = I2) and s_j =
+// [axis_j; o_j × axis_j]: the cotangent of F_j -> += those of Ic_j (gI),
+// s_j (gsw, gsv) and through s_j those of axis_j and o_j
+QS_FN void leg_column_vjp(const Inertia& Ic, const V3& sw, const V3& sv, const V3& o,
+                          const V3& axis, const V3& gFt, const V3& gFb, InertiaGrad& gI,
+                          V3& gsw, V3& gsv, V3& gaxis, V3& go) {
+  inertia_matvec_vjp(Ic, sw, sv, gFt, gFb, gI, gsw, gsv);
+  acc(gaxis, gsw);
+  cross_vjp(o, axis, gsv, go, gaxis);
+}
+
+// (b) body k's inertia about the base origin, from the cotangents the
+// columns left: gIc1 and gIc2 the composites' (Ic1 = I0 + Ic2, Ic2 = I1 +
+// I2), gIk body k's own (gI2 with column 2's): -> R_k's cotangent (gR, +=)
+// and += o_k's
+QS_FN void leg_body_vjp(int k, const LegBodies& bodies, const M3& R, const V3& o,
+                        const InertiaGrad& gIc1, const InertiaGrad& gIc2, InertiaGrad gIk,
+                        M3& gR, V3& go) {
+  if (k == 0) {
+    acc(gIk, gIc1);
+  } else {
+    InertiaGrad g2 = gIc2;
+    acc(g2, gIc1);
+    acc(gIk, g2);
+  }
+  body_inertia_base_vjp(bodies.m[k], bodies.c[k], bodies.I[k], R, o, gIk, gR, go);
+}
+
+// (c) foot = o2 + R3 foot_c, o2 = o1 + R2 calf, o1 = hip + R1 thigh, the
+// axes columns 1 of R1 and R2, R3 = R2 Ry(q2), R2 = R1 Ry(q1), R1 = Rx(q0):
+// the cotangents of the bodies' rotations (gR1-3), of o1 and o2 (after (b)),
+// of the foot and of axis_1 and axis_2 -> += that of the joint angles q
+QS_FN void leg_chain_vjp(const EnvConsts& k, const V3& thigh, const LegKinFwd& f, M3 gR1,
+                         M3 gR2, M3 gR3, V3 g_o1, V3 g_o2, const V3& g_foot,
+                         const V3& g_axis1, const V3& g_axis2, float* gq) {
+  const M3 R1 = rot_x_sc(f.s[0], f.c[0]);
+  acc(g_o2, g_foot);
+  acc(gR3, outer(g_foot, load3(k.foot)));
+  acc(g_o1, g_o2);
+  acc(gR2, outer(g_o2, load3(k.calf)));
+  acc(gR1, outer(g_o1, thigh));
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    add_at(gR1, i, 1, at(g_axis1, i));
+    add_at(gR2, i, 1, at(g_axis2, i));
+  }
+  // rot_y_vjp / rot_x_vjp on the forward's sine and cosine
+  acc(gR2, mul_bt(gR3, rot_y_sc(f.s[2], f.c[2])));
+  M3 g = mul(transpose(f.R2), gR3);
+  gq[2] += (at(g, 0, 2) - at(g, 2, 0)) * f.c[2] - (at(g, 0, 0) + at(g, 2, 2)) * f.s[2];
+  acc(gR1, mul_bt(gR2, rot_y_sc(f.s[1], f.c[1])));
+  g = mul(transpose(R1), gR2);
+  gq[1] += (at(g, 0, 2) - at(g, 2, 0)) * f.c[1] - (at(g, 0, 0) + at(g, 2, 2)) * f.s[1];
+  gq[0] += (at(gR1, 2, 1) - at(gR1, 1, 2)) * f.c[0] - (at(gR1, 1, 1) + at(gR1, 2, 2)) * f.s[0];
+}
+
+// What leg_bias_vjp reads of its forward, the RNEA along the leg
+// (leg_bias_fwd, with leg_bias's operations): the bodies' velocities and
+// accelerations, I v, the velocity products and the forces
+struct LegBiasFwd {
+  V3 VW[3], VV[3], AW[3], AV[3], ivt[3], ivb[3], cw[3], cv[3];
+  V3 f0t, f0b, f1t, f1b, ft2, fb2;
+};
+
+QS_FN void leg_bias_fwd(const Leg& L, const float* qd, const V3& w_b, const V3& v_b,
+                        const V3& g_b, LegBiasFwd& f) {
+  V3 ft[3], fb[3];
   V3 vw = w_b, vv = v_b;
   V3 aw = zero3();
   V3 av = scale(-1.0f, g_b);
@@ -447,47 +521,87 @@ QS_FN void leg_bias_vjp(const Leg& L, const float* qd, const V3& w_b, const V3& 
     cross_force(vw, vv, ivt, ivb, &xt, &xb);
     ft[j] = add(iat, xt);
     fb[j] = add(iab, xb);
-    VW[j] = vw;
-    VV[j] = vv;
-    AW[j] = aw;
-    AV[j] = av;
+    f.VW[j] = vw;
+    f.VV[j] = vv;
+    f.AW[j] = aw;
+    f.AV[j] = av;
+    f.ivt[j] = ivt;
+    f.ivb[j] = ivb;
+    f.cw[j] = cw;
+    f.cv[j] = cv;
   }
-  const V3 f1t = add(ft[1], ft[2]), f1b = add(fb[1], fb[2]);
-  const V3 f0t = add(ft[0], f1t), f0b = add(fb[0], f1b);
+  f.f1t = add(ft[1], ft[2]);
+  f.f1b = add(fb[1], fb[2]);
+  f.f0t = add(ft[0], f.f1t);
+  f.f0b = add(fb[0], f.f1b);
+  f.ft2 = ft[2];
+  f.fb2 = fb[2];
+}
+
+// What leg_bias_vjp adds to the cotangent of the motion subspaces s_j =
+// [sw_j; sv_j] besides its h terms, recorded per joint in the order it adds
+// them: xw1 and xw2 to sw_j, xv1 to sv_j, then qd_j gvw and qd_j gvv
+struct LegBiasTerms {
+  V3 xw1[3], xw2[3], xv1[3], gvw[3], gvv[3];
+};
+
+// leg_bias(L, qd, w_b, v_b, g_b) -> (f0t, f0b, h), its forward f
+// (leg_bias_fwd): their cotangents -> += those of the bodies' inertias
+// (gI[3]); and, written, what it adds to the cotangents that other stages
+// also add to, so that it can run beside them: s_j's (t, for
+// leg_bias_vjp_apply), joint j's rate (gqd_a[j], then gqd_v[j]), w_b's
+// (gvw), v_b's (gvv) and g_b's (-gav)
+QS_FN void leg_bias_vjp(const LegBiasFwd& f, const Leg& L, const float* qd, const V3& gf0t,
+                        const V3& gf0b, const float* gh, InertiaGrad* gI, LegBiasTerms& t,
+                        float* gqd_a, float* gqd_v, V3& gvw, V3& gvv, V3& gav) {
   // h_0 = s_0 · f0, h_1 = s_1 · f1, h_2 = s_2 · f[2]; f1 = f[1] + f[2], f0 = f[0] + f1
-  V3 gF0t = gf0t, gF0b = gf0b;
-  dot6_vjp(L.sw[0], L.sv[0], f0t, f0b, gh[0], gL.sw[0], gL.sv[0], gF0t, gF0b);
-  V3 gF1t = gF0t, gF1b = gF0b;
-  dot6_vjp(L.sw[1], L.sv[1], f1t, f1b, gh[1], gL.sw[1], gL.sv[1], gF1t, gF1b);
+  // (their terms in s_j's cotangent: leg_bias_vjp_apply)
+  const V3 gF0t = add(gf0t, scale(gh[0], L.sw[0])), gF0b = add(gf0b, scale(gh[0], L.sv[0]));
+  const V3 gF1t = add(gF0t, scale(gh[1], L.sw[1])), gF1b = add(gF0b, scale(gh[1], L.sv[1]));
   V3 gft[3] = {gF0t, gF1t, gF1t}, gfb[3] = {gF0b, gF1b, gF1b};
-  dot6_vjp(L.sw[2], L.sv[2], ft[2], fb[2], gh[2], gL.sw[2], gL.sv[2], gft[2], gfb[2]);
-  V3 gvw = zero3(), gvv = zero3(), gaw = zero3(), gav = zero3();
+  acc(gft[2], scale(gh[2], L.sw[2]));
+  acc(gfb[2], scale(gh[2], L.sv[2]));
+  V3 gaw = zero3();
+  gvw = gvv = gav = zero3();
 #pragma unroll
   for (int j = 2; j >= 0; --j) {
     const V3 sw = L.sw[j], sv = L.sv[j];
-    V3 ivt, ivb;
-    inertia_matvec(L.I[j], VW[j], VV[j], &ivt, &ivb);
     // f = I a + v ×f* (I v)
     V3 givt = zero3(), givb = zero3();
-    cross_force_vjp(VW[j], VV[j], ivt, ivb, gft[j], gfb[j], gvw, gvv, givt, givb);
-    inertia_matvec_vjp(L.I[j], AW[j], AV[j], gft[j], gfb[j], gL.I[j], gaw, gav);
-    inertia_matvec_vjp(L.I[j], VW[j], VV[j], givt, givb, gL.I[j], gvw, gvv);
+    cross_force_vjp(f.VW[j], f.VV[j], f.ivt[j], f.ivb[j], gft[j], gfb[j], gvw, gvv, givt, givb);
+    inertia_matvec_vjp(L.I[j], f.AW[j], f.AV[j], gft[j], gfb[j], gI[j], gaw, gav);
+    inertia_matvec_vjp(L.I[j], f.VW[j], f.VV[j], givt, givb, gI[j], gvw, gvv);
     // a_j = a_{j-1} + qd_j [v_j × s_w; v_v × s_w + v_w × s_v]
-    const V3 cw = cross(VW[j], sw);
-    const V3 cv = add(cross(VV[j], sw), cross(VW[j], sv));
-    gqd[j] += dot(gaw, cw) + dot(gav, cv);
+    gqd_a[j] = dot(gaw, f.cw[j]) + dot(gav, f.cv[j]);
     const V3 gcw = scale(qd[j], gaw), gcv = scale(qd[j], gav);
-    cross_vjp(VW[j], sw, gcw, gvw, gL.sw[j]);
-    cross_vjp(VV[j], sw, gcv, gvv, gL.sw[j]);
-    cross_vjp(VW[j], sv, gcv, gvw, gL.sv[j]);
+    // cross_vjp(VW, sw, gcw, gvw, gsw), cross_vjp(VV, sw, gcv, gvv, gsw),
+    // cross_vjp(VW, sv, gcv, gvw, gsv)
+    acc(gvw, cross(sw, gcw));
+    t.xw1[j] = cross(gcw, f.VW[j]);
+    acc(gvv, cross(sw, gcv));
+    t.xw2[j] = cross(gcv, f.VV[j]);
+    acc(gvw, cross(sv, gcv));
+    t.xv1[j] = cross(gcv, f.VW[j]);
     // v_j = v_{j-1} + qd_j s_j
-    gqd[j] += dot(gvw, sw) + dot(gvv, sv);
-    acc(gL.sw[j], scale(qd[j], gvw));
-    acc(gL.sv[j], scale(qd[j], gvv));
+    gqd_v[j] = dot(gvw, sw) + dot(gvv, sv);
+    t.gvw[j] = gvw;
+    t.gvv[j] = gvv;
   }
-  acc(gw_b, gvw);
-  acc(gv_b, gvv);
-  acc(gg_b, scale(-1.0f, gav));
+}
+
+// leg_bias_vjp's additions to s_j's cotangent (gsw, gsv), in its order: the
+// h term, then the terms t recorded
+QS_FN void leg_bias_vjp_apply(const LegBiasFwd& f, const float* qd, const float* gh,
+                              const LegBiasTerms& t, int j, V3& gsw, V3& gsv) {
+  const V3 ft = j == 0 ? f.f0t : (j == 1 ? f.f1t : f.ft2);
+  const V3 fb = j == 0 ? f.f0b : (j == 1 ? f.f1b : f.fb2);
+  acc(gsw, scale(gh[j], ft));
+  acc(gsv, scale(gh[j], fb));
+  acc(gsw, t.xw1[j]);
+  acc(gsw, t.xw2[j]);
+  acc(gsv, t.xv1[j]);
+  acc(gsw, scale(qd[j], t.gvw[j]));
+  acc(gsv, scale(qd[j], t.gvv[j]));
 }
 
 // y = leg_point_velocity(L, qd, pt, w_b, v_b): its cotangent -> += those of

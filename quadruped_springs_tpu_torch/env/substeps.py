@@ -227,15 +227,19 @@ def launch_args(robot: dyn.RobotState, anchor, q_des, model: Go1Model, friction,
 
 def occupancy(kernel: str = "env_substeps") -> dict:
     """What the card makes of the env_substeps kernel (or `kernel`
-    "env_substeps_vjp"): its registers and local memory a thread
-    (cudaFuncGetAttributes), threads and shared memory a block, blocks and
-    warps an SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
-    out = (ctypes.c_int * 5)()
+    "env_substeps_vjp", at its largest launch): its registers and local
+    memory a thread (cudaFuncGetAttributes), threads and shared memory a
+    block, blocks and warps an SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor);
+    env_substeps_vjp's also the substeps it recomputes at once ("chunk")."""
+    out = (ctypes.c_int * 6)()
     name = kernel + "_occupancy"
     kernels.check_launch(name, getattr(kernels.library(), name)(out))
-    return {"blocks_per_sm": out[0], "threads_per_block": out[1], "registers": out[2],
-            "local_bytes": out[3], "shared_bytes": out[4],
-            "warps_per_sm": out[0] * out[1] // 32}
+    occ = {"blocks_per_sm": out[0], "threads_per_block": out[1], "registers": out[2],
+           "local_bytes": out[3], "shared_bytes": out[4],
+           "warps_per_sm": out[0] * out[1] // 32}
+    if kernel == "env_substeps_vjp":
+        occ["chunk"] = out[5]
+    return occ
 
 
 def env_substeps(robot: dyn.RobotState, anchor, q_des, model: Go1Model,

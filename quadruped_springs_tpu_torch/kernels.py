@@ -95,7 +95,7 @@ _SIGNATURES = {
     # (each may be null); the results d_pos .. d_anchor, d_q_des; the scratch
     # (4N, substeps, 21); stream (csrc/env_lane_vjp.cuh)
     "env_substeps_vjp": ENV_SUBSTEPS_VJP_ARGTYPES,
-    # out (5 ints): as env_substeps_occupancy, of env_substeps_vjp's kernel
+    # out (6 ints): as env_substeps_occupancy, of env_substeps_vjp's kernel, and its chunk
     "env_substeps_vjp_occupancy": [_P],
     # consts (host float array), n_consts, x0, q_des, kp, kd, torque_limits,
     # velocity_limits, rest, sign, spring_k, spring_b, friction, model,

@@ -6,8 +6,9 @@
 // function's work, not the threads': the base's work, which the four leg
 // threads of a robot do alike (marked QS_BASE_WORK in the bodies), and each
 // sum over the four legs count once a robot (leg 0's), and the adjoint's
-// recompute of a substep's forward in its sweep (QS_RECOMPUTE) not at all,
-// so the adjoint's count is one forward plus the adjoint proper. The bound of
+// recompute of a substep's forward (QS_RECOMPUTE) not at all, so the
+// adjoint's count is one forward plus the adjoint proper. The adjoint's
+// block does the base's work on one lane an environment, counted as it runs. The bound of
 // chip_smoke.py's FLOPS_PER_ELEM comes from these counts
 // (tests/torch_env_opcount.py builds and runs this file with g++).
 
@@ -57,11 +58,14 @@ using opcount::CF;
 inline CF sqrtf(CF x) { opcount::count(); return CF(::sqrtf(x.v)); }
 inline CF sinf(CF x) { opcount::count(); return CF(::sinf(x.v)); }
 inline CF cosf(CF x) { opcount::count(); return CF(::cosf(x.v)); }
+inline CF fmaxf(CF a, CF b) { return CF(::fmaxf(a.v, b.v)); }   // a comparison: none
 
 #define QS_BASE_WORK(on) opcount::base(on)
 #define QS_RECOMPUTE(on) opcount::recomputing(on)
 #define float CF
 #include "../quadruped_springs_tpu_torch/csrc/env_lane_vjp.cuh"
+
+#include "env_vjp_host_block.h"
 #undef float
 
 namespace {
@@ -84,6 +88,7 @@ struct HostQuad {
   }
 };
 
+// the forward's body: each environment's four legs on four threads
 template <class F>
 int64_t count(int64_t n, F&& lane) {
   opcount::ops = 0;
@@ -102,8 +107,21 @@ int64_t count(int64_t n, F&& lane) {
   return opcount::ops;
 }
 
-}  // namespace
+// the adjoint's block (tests/env_vjp_host_block.h): a quad's host thread
+// takes its slot's leg; the block's own sums over the legs (each
+// environment's, on its base lane) count as they run, the quads' sums once
+void set_leg(int slot) { opcount::leg = slot & 3; }
+void mark_sum(bool on) {
+  static thread_local bool was = false;
+  if (on) {
+    was = opcount::alike;
+    opcount::alike = true;
+  } else {
+    opcount::alike = was;
+  }
+}
 
+}  // namespace
 
 // the forward's and the adjoint's operations over the launch's n x substeps
 // (out[0], out[1]); the arguments are the vjp launcher's (host pointers, a
@@ -155,8 +173,11 @@ extern "C" int env_opcount(const float* consts, int n_consts, const float* pos,
   out[0] = count(n, [&](int64_t env, int leg, HostQuad& quad) {
     qs::env_lane(c, args, env, leg, quad);
   });
-  out[1] = count(n, [&](int64_t env, int leg, HostQuad& quad) {
-    qs::env_lane_vjp(c, args, vargs, env, leg, quad);
-  });
+  opcount::ops = 0;
+  opcount::leg = 0;
+  qs_host::on_quad_thread = set_leg;
+  qs_host::run_vjp_blocks<CF>(c, args, vargs, qs_host::launch_chunk(substeps, 0), mark_sum);
+  qs_host::on_quad_thread = nullptr;
+  out[1] = opcount::ops;
   return 0;
 }

@@ -1,7 +1,7 @@
 // The env_substeps_vjp kernel's body (quadruped_springs_tpu_torch/csrc/
 // env_lane_vjp.cuh) built for the CPU in float64: every `float` of the
-// bodies a double, the four legs four host threads as in
-// tests/env_substeps_vjp_host.cpp. It holds the adjoint's arithmetic to the
+// bodies a double, each block run as tests/env_substeps_vjp_host.cpp runs it
+// (tests/env_vjp_host_block.h). It holds the adjoint's arithmetic to the
 // plain version's autograd in float64, where the two part by far less than
 // the float32 spread the kernel is held to on the card: a term missing or
 // wrong shows however small it is. The entry point takes the float32
@@ -28,25 +28,10 @@ inline double fabsf(double x) { return std::fabs(x); }
 
 #define float double
 #include "../quadruped_springs_tpu_torch/csrc/env_lane_vjp.cuh"
+#include "env_vjp_host_block.h"
 #undef float
 
 namespace {
-
-struct HostQuad {
-  std::barrier<>* bar;
-  double (*slots)[32];
-  int leg;
-
-  template <int N>
-  void sum(double (&v)[N]) {
-    static_assert(N <= 32, "one slot row holds 32 doubles");
-    for (int i = 0; i < N; ++i) slots[leg][i] = v[i];
-    bar->arrive_and_wait();
-    for (int i = 0; i < N; ++i)
-      v[i] = (slots[0][i] + slots[1][i]) + (slots[2][i] + slots[3][i]);
-    bar->arrive_and_wait();
-  }
-};
 
 // count floats from p as doubles (none where p is null)
 std::vector<double> widen(const float* p, int64_t count) {
@@ -110,16 +95,8 @@ extern "C" int env_substeps_vjp_host64(
       data(g[0]), data(g[1]), data(g[2]), data(g[3]), data(g[4]), data(g[5]), data(g[6]),
       data(g[7]), data(g[8]), data(g[9]), data(g[10]), d_pos, d_quat, d_lin_vel, d_ang_vel,
       d_q, d_qd, d_anchor, d_q_des, scratch.data()};
-  for (int64_t env = 0; env < n; ++env) {
-    std::barrier<> bar(4);
-    double slots[4][32];
-    std::vector<std::thread> legs;
-    for (int leg = 0; leg < 4; ++leg)
-      legs.emplace_back([&, leg] {
-        HostQuad quad{&bar, slots, leg};
-        qs::env_lane_vjp(c, args, vargs, env, leg, quad);
-      });
-    for (auto& t : legs) t.join();
-  }
+  const int chunk = qs_host::launch_chunk(substeps, 0);
+  if (chunk < 1) return 1;
+  qs_host::run_vjp_blocks<double>(c, args, vargs, chunk);
   return 0;
 }

@@ -6,8 +6,11 @@ Held here, from inputs made with numpy seeds and handed to every side:
     the JAX package's anchored control step (the lax.scan of dyn.step that
     tests/test_torch_env_substeps.py runs), ref path, at N = 8 and R = 10,
     cotangents of every float output drawn from a seed;
-  * the env_substeps_vjp kernel's body (csrc/env_lane_vjp.cuh) built for the
-    CPU with g++ by tests/env_substeps_vjp_host.cpp, against that autograd;
+  * the env_substeps_vjp kernel's body (csrc/env_lane_vjp.cuh env_block_vjp)
+    built for the CPU with g++ by tests/env_substeps_vjp_host.cpp (a block's
+    phases thread by thread, each group of four lanes on four host threads),
+    against that autograd, and bitwise against itself at other launch shapes
+    and with each environment launched alone;
   * one QuadrupedEnv.step (BACKFLIP, ARS_BACKFLIP, SYMMETRIC) against jax.vjp
     of the JAX env.step, from the action and the state to the next state
     and the observation;
@@ -140,18 +143,29 @@ def test_plain_control_step_vjp_matches_jax(case):
 # --- the kernel's body, built for the CPU -----------------------------------------
 
 @pytest.fixture(scope="module")
-def host_build(tmp_path_factory):
-    """The adjoint's body built with g++ (tests/env_substeps_vjp_host.cpp), once."""
+def host_lib(tmp_path_factory):
+    """The adjoint's body built with g++ (tests/env_substeps_vjp_host.cpp), once:
+    the library, its entry point typed."""
     if shutil.which("g++") is None:
         pytest.skip("needs g++ to build the kernel's body for the CPU")
     src = Path(__file__).with_name("env_substeps_vjp_host.cpp")
     lib = tmp_path_factory.mktemp("vjp_host_build") / "libenv_substeps_vjp_host.so"
     subprocess.run(["g++", "-std=c++20", "-O2", "-shared", "-fPIC", "-pthread", "-o",
                     str(lib), str(src)], check=True, capture_output=True, text=True)
-    fn = ctypes.CDLL(str(lib)).env_substeps_vjp_host
-    fn.argtypes = kernels.ENV_SUBSTEPS_VJP_ARGTYPES
-    fn.restype = ctypes.c_int
-    return fn
+    lib = ctypes.CDLL(str(lib))
+    lib.env_substeps_vjp_host.argtypes = kernels.ENV_SUBSTEPS_VJP_ARGTYPES
+    lib.env_substeps_vjp_host.restype = ctypes.c_int
+    lib.env_substeps_vjp_host_set_chunk.argtypes = [ctypes.c_int]
+    lib.env_substeps_vjp_host_chunk.argtypes = [ctypes.c_int]
+    lib.env_substeps_vjp_host_chunk.restype = ctypes.c_int
+    return lib
+
+
+@pytest.fixture(scope="module")
+def host_build(host_lib):
+    """The adjoint's body's entry point, at the card's launch shape."""
+    host_lib.env_substeps_vjp_host_set_chunk(0)
+    return host_lib.env_substeps_vjp_host
 
 
 # "pd_edges": the pd case with lanes 3 and 6 lifted and past their joint
@@ -180,9 +194,10 @@ def _host_args(case: str):
 
 @pytest.mark.parametrize("case", ["pd", "torque", "on_rack", "pd_shared", "pd_edges"])
 def test_kernel_body_on_the_host_matches_plain_autograd(case, host_build):
-    """The adjoint's body (the four legs as four threads, the R substeps
-    re-run with lane_substep, then swept back) against autograd of
-    env_substeps_plain on the same cotangents, every one given, within the
+    """The adjoint's body (the R substeps re-run with lane_substep, each
+    chunk of them recomputed at once, then swept back stage by stage)
+    against autograd of env_substeps_plain on the same cotangents, every one
+    given, within the
     module's rule: the spread the plain version's float32-vs-float64
     distance and its change under a one-ulp change of its start."""
     args = _host_args(case)
@@ -198,6 +213,55 @@ def test_kernel_body_on_the_host_matches_plain_autograd(case, host_build):
     _check(got, want, spread, f"host build vs plain ({case})")
     if case == "on_rack":        # the base is welded: no cotangent reaches the anchors
         assert not got["anchor"].any()
+
+
+def _host_grads(fn, args, cot):
+    """The host build's input cotangents on env_substeps's arguments."""
+    launch, grads, keep = ss.vjp_launch_args(*args, cot)
+    assert fn(*launch, None) == 0
+    return [g.clone() for g in grads]
+
+
+@pytest.mark.parametrize("case", ["pd", "torque", "on_rack", "pd_edges"])
+def test_kernel_body_bits_do_not_depend_on_the_launch_shape(case, host_lib):
+    """The adjoint's body at the card's launch shape (its shared memory holds
+    5 of the 10 substeps' records: two chunks, each recomputed at once, the
+    first beside the re-run) and at chunks of 1, 3 and 7 substeps: every
+    cotangent bitwise the same."""
+    args = _host_args(case)
+    cot = [torch.as_tensor(c) for c in _cotangents(_base(case), 1)]
+    fn = host_lib.env_substeps_vjp_host
+    try:
+        assert host_lib.env_substeps_vjp_host_chunk(10) == 5
+        host_lib.env_substeps_vjp_host_set_chunk(0)
+        want = _host_grads(fn, args, cot)
+        for chunk in (1, 3, 7):
+            host_lib.env_substeps_vjp_host_set_chunk(chunk)
+            for k, a, b in zip(FIELDS, want, _host_grads(fn, args, cot)):
+                assert torch.equal(a, b), f"d_{k} at a chunk of {chunk}"
+    finally:
+        host_lib.env_substeps_vjp_host_set_chunk(0)
+
+
+@pytest.mark.parametrize("case", ["pd", "pd_edges"])
+def test_kernel_body_rows_do_not_depend_on_the_batch(case, host_build):
+    """Each environment's cotangents from the adjoint's body bitwise the same
+    launched alone, in the case's batch of 8 (one block) and in a batch of 11
+    (two blocks, the second with 3 of its 8 environments)."""
+    args = _host_args(case)
+    cot = [torch.as_tensor(c) for c in _cotangents(_base(case), 1)]
+    batch = _host_grads(host_build, args, cot)
+    idx = torch.tensor(list(range(es.N)) + [5, 0, 2])
+    wide = _host_grads(host_build, ss._take_args(args, idx), [c[idx] for c in cot])
+    for i in range(es.N):
+        alone = _host_grads(host_build, ss._take_args(args, torch.tensor([i])),
+                            [c[i:i + 1] for c in cot])
+        for k, a, b, w in zip(FIELDS, batch, alone, wide):
+            assert torch.equal(a[i], b[0]), f"d_{k} of environment {i} alone"
+            assert torch.equal(a[i], w[i]), f"d_{k} of environment {i} among 11"
+    for j, i in enumerate((5, 0, 2)):
+        for k, a, w in zip(FIELDS, batch, wide):
+            assert torch.equal(a[i], w[es.N + j]), f"d_{k} of environment {i} in block 2"
 
 
 @pytest.fixture(scope="module")
